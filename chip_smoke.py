@@ -1,0 +1,433 @@
+"""Smoke run of the tpu_sparse_torch main path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels of tpu_sparse_torch/csrc (nvcc, sm_90a), checks each
+kernel against its plain PyTorch version, drives ``tpu_sparse_torch.solve``
+(CG on the 27-point 3-D Poisson system at n = 160^3, about 109M nonzeros,
+with and without Jacobi; then the float64 'auto' and 'full' paths), counts
+the kernel launches of that run, checks every kernel again at the shapes
+that run gave it, and times every kernel and solve beside its plain version
+with CUDA events (the float64 solves also at n = 160^3, five runs each, to
+show their spread). Phases print as they pass; any failed check
+raises and the exit code is non-zero. The last two lines are a JSON object
+of per-kernel results and ``{"ok": true, "device": {...}}``.
+
+Needs torch built for CUDA, numpy and nvcc; it imports no JAX. Without a
+CUDA device it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 0
+MAIN_NX = 160   # cg_110M: n = 4,096,000, ~109.2M nonzeros
+F64_NX = 64
+
+# Kernels that solve() launches in phases (4)-(5), by launch-counter name.
+# The float32 plain mode of kernel 1 ("dia_spmv_f32") serves ``A @ x``,
+# which solve() does not call; phases (2), (4) and (6) check it apart.
+MAIN_PATH_KERNELS = ("dia_spmv_ext_f32", "dia_spmv_f64", "dia_spmv_ext_f64",
+                     "dia_cg_spmv_dot", "dia_cg_update")
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def phase(title: str) -> None:
+    print(f"\n== {title}", flush=True)
+
+
+def rel_err(y, y0) -> float:
+    return float((y - y0).abs().max() / y0.abs().max().clamp_min(1e-300))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+
+    import tpu_sparse_torch
+    from tpu_sparse_torch.kernels import _build, cuda_cg, cuda_spmv
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.precond.jacobi import (DiagonalPreconditioner,
+                                                 jacobi_preconditioner)
+    from tpu_sparse_torch.solvers import cg_full
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.utils.timing import cuda_time_ms, cuda_times_ms
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    results = {}  # kernel name -> {"max_abs_err", "ms", "plain_ms"}
+
+    def note(name, **kw):
+        results.setdefault(name, {}).update(kw)
+
+    # ---- (0) device --------------------------------------------------------
+    phase("(0) device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}", flush=True)
+
+    # ---- (1) build ---------------------------------------------------------
+    phase("(1) build")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_build.build_seconds} s) from {_build.CSRC_DIR.name}/")
+    for line in _build.build_log().splitlines():
+        if "Used" in line or "Compiling entry" in line:
+            print("  " + line.strip())
+
+    # ---- (2) kernel 1 against its plain version ----------------------------
+    phase("(2) kernel 1 (dia_spmv) against the plain version")
+    bound = {torch.float32: 1e-5, torch.float64: 1e-13}
+
+    def check_kernel1(label, A, x):
+        """Kernel 1 in plain and extended mode against ``reference.dia_spmv``:
+        max abs error <= bound * max|y|, extended margins exactly 0.
+        Returns (extended operator, extended x, abs err plain, abs err ext).
+        """
+        y0 = ref.dia_spmv(A, x)
+        y1 = cuda_spmv.dia_spmv_cuda(A, x)
+        op = cuda_spmv.ExtendedStencilOperator(A)
+        xe = op.extend(x)
+        ye = op(xe)
+        torch.cuda.synchronize()
+        scale = float(y0.abs().max())
+        e_plain = float((y1 - y0).abs().max())
+        e_ext = float((op.extract(ye) - y0).abs().max())
+        margin = float(ye[:op.Wl].abs().max() + ye[op.Wl + op.n:].abs().max())
+        name = str(x.dtype).replace("torch.", "")
+        print(f"  {label:36s} {name}: rel err plain "
+              f"{e_plain / max(scale, 1e-300):.2e} ext "
+              f"{e_ext / max(scale, 1e-300):.2e}, margins {margin}")
+        b_ = bound[x.dtype] * scale
+        check(e_plain <= b_ and e_ext <= b_,
+              f"kernel 1 disagrees on {label} {name}")
+        check(margin == 0.0, f"nonzero extended margins on {label} {name}")
+        return op, xe, e_plain, e_ext
+
+    cases = [("tridiagonal(1500)", lambda dt: gen.tridiagonal(1500, dtype=dt)),
+             ("poisson2d(40)", lambda dt: gen.poisson2d(40, dtype=dt)),
+             ("poisson3d_27pt(13,11,7) n=1001",
+              lambda dt: gen.poisson3d_27pt(13, 11, 7, dtype=dt)),
+             ("poisson3d_27pt(128)",
+              lambda dt: gen.poisson3d_27pt(128, dtype=dt))]
+    for label, make in cases:
+        for dt in (np.float32, np.float64):
+            A = make(dt).to(dev)
+            x = torch.from_numpy(
+                rng.standard_normal(A.shape[0]).astype(dt)).to(dev)
+            check_kernel1(label, A, x)
+            del A, x
+    torch.cuda.empty_cache()
+
+    # ---- (3) kernels 2-3 against the plain versions ------------------------
+    phase("(3) kernels 2-3 (fused CG) against fused_cg_block_reference "
+          "and plain cg_full")
+    tol3 = 1e-5
+    for label, make, slack in (
+            ("poisson2d(64)", lambda: gen.poisson2d(64, dtype=np.float32), 1),
+            ("poisson3d_27pt(64)", lambda: gen.poisson3d_27pt(64), 2)):
+        A = make().to(dev)
+        x_true = torch.from_numpy(
+            rng.standard_normal(A.shape[0]).astype(np.float32)).to(dev)
+        b = ref.dia_spmv(A, x_true)
+        bn = float(torch.linalg.vector_norm(b))
+        for jac in (False, True):
+            dinv = jacobi_preconditioner(A).dinv if jac else None
+            op = cuda_spmv.ExtendedStencilOperator(A)
+            # one K-block from a fresh start, kernels vs plain block
+            K = 16
+            b_ext = op.extend(b)
+            d_ext = None if dinv is None else op.extend_diag(dinv)
+            st = cuda_cg.FusedCGState(op, b_ext, d_ext)
+            hist = torch.empty(K, dtype=torch.float32, device=dev)
+            st.run(hist)
+            p0 = b_ext if d_ext is None else d_ext * b_ext
+            xr, rr, _, hr = cuda_cg.fused_cg_block_reference(
+                op, torch.zeros_like(b_ext), b_ext, p0, K, dinv=d_ext)
+            ex, eh = rel_err(st.x, xr), rel_err(hist, hr)
+            check(ex <= 1e-3 and eh <= 1e-3,
+                  f"fused block disagrees on {label}: x {ex}, hist {eh}")
+            # whole solves: fused kernels vs plain cg_full
+            xg, ig, itg, _ = cuda_cg.fused_cg_ext(op, b, tol=tol3,
+                                                  maxiter=2000, dinv=dinv)
+            M = None if dinv is None else DiagonalPreconditioner(dinv)
+            xp, ip, itp, _ = cg_full(lambda v: ref.dia_spmv(A, v), b,
+                                     tol=tol3, maxiter=2000, M=M)
+            true_res = float(torch.linalg.vector_norm(
+                b - ref.dia_spmv(A, xg)))
+            print(f"  {label:20s} jacobi={jac!s:5s}: block rel err x {ex:.1e}"
+                  f" hist {eh:.1e}; iters fused {int(itg)} plain {int(itp)};"
+                  f" info {int(ig)}/{int(ip)}; true rel res "
+                  f"{true_res / bn:.2e}")
+            check(abs(int(itg) - int(itp)) <= slack,
+                  f"iteration counts differ on {label}")
+            check(int(ig) == int(ip) == 0, f"info differs on {label}")
+            check(true_res <= 10 * tol3 * bn,
+                  f"true residual above the contract on {label}")
+        del A, b, x_true, op, st
+    torch.cuda.empty_cache()
+
+    # ---- (4) main path: 110M-nnz CG through solve() ------------------------
+    phase(f"(4) main path: solve() on poisson3d_27pt({MAIN_NX}), f32")
+    A = gen.poisson3d_27pt(MAIN_NX).to(dev)
+    n = A.shape[0]
+    x_true = torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32)).to(dev)
+    print(f"  n={n} nnz={A.nnz} DIA data {A.data.numel() * 4 / 1e6:.1f} MB")
+    A64 = gen.poisson3d_27pt(F64_NX, dtype=np.float64).to(dev)
+    x64_true = torch.from_numpy(rng.standard_normal(A64.shape[0])).to(dev)
+    # The smoke's own right-hand sides, built before the main-path run.
+    # ``A @ x`` is kernel 1 in plain mode; solve() itself never launches the
+    # float32 plain mode, so these launches are checked here and not
+    # counted as main-path launches.
+    before = dict(cuda_spmv.LAUNCHES)
+    b = A @ x_true
+    b64 = A64 @ x64_true
+    torch.cuda.synchronize()
+    rhs_launches = {k: cuda_spmv.LAUNCHES[k] - before[k] for k in before}
+    print(f"  right-hand sides b = A @ x_true: kernel-1 launches "
+          f"{rhs_launches} (set-up, not counted below)")
+    check(rhs_launches["dia_spmv_f32"] == 1
+          and rhs_launches["dia_spmv_f64"] == 1,
+          "A @ x did not run kernel 1 in plain mode")
+    # the main-path run starts here: every launch from now to the end of
+    # phase (5) counts
+    cuda_spmv.reset_launch_counts()
+    cuda_cg.reset_launch_counts()
+    solves = {}
+    for M in (None, "jacobi"):
+        before = {**cuda_spmv.LAUNCHES, **cuda_cg.LAUNCHES}
+        t0 = time.perf_counter()
+        x, res = tpu_sparse_torch.solve(A, b, method="cg", tol=1e-6,
+                                        maxiter=500, M=M)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = {**cuda_spmv.LAUNCHES, **cuda_cg.LAUNCHES}
+        grew = {k: after[k] - before[k] for k in after}
+        err = float(torch.linalg.vector_norm(x - x_true)
+                    / torch.linalg.vector_norm(x_true))
+        print(f"  M={M}: {res}; first-call wall {wall * 1e3:.1f} ms; "
+              f"rel error to x_true {err:.2e}; launches {grew}")
+        check(res.converged, f"main-path solve M={M} did not converge")
+        check(res.residual <= 1e-5, f"main-path residual {res.residual}")
+        check(grew["dia_cg_spmv_dot"] > 0 and grew["dia_cg_update"] > 0,
+              "fused CG kernels did not carry the solve")
+        check(grew["dia_spmv_ext_f32"] > 0,
+              "kernel 1 did not carry the true-residual check")
+        solves[M] = res.iterations
+
+    # ---- (5) f64 paths -----------------------------------------------------
+    phase(f"(5) f64 paths on poisson3d_27pt({F64_NX}, float64)")
+    for precision in ("auto", "full"):
+        before = cuda_spmv.LAUNCHES["dia_spmv_ext_f64"]
+        x64, res = tpu_sparse_torch.solve(A64, b64, method="cg", tol=1e-8,
+                                          precision=precision)
+        err = float(torch.linalg.vector_norm(x64 - x64_true)
+                    / torch.linalg.vector_norm(x64_true))
+        grew = cuda_spmv.LAUNCHES["dia_spmv_ext_f64"] - before
+        print(f"  precision={precision}: {res}; rel error to x_true "
+              f"{err:.2e}; fp64 kernel-1 launches {grew}")
+        check(res.converged, f"f64 {precision} solve did not converge")
+        check(res.residual <= 1e-8, f"f64 {precision} residual")
+        check(grew > 0, f"fp64 kernel 1 did not carry precision={precision}")
+    main_launches = {**cuda_spmv.LAUNCHES, **cuda_cg.LAUNCHES}
+    print(f"  launches in the main-path run (phases 4-5): {main_launches}")
+    for k in MAIN_PATH_KERNELS:
+        check(main_launches[k] > 0,
+              f"kernel {k} was not launched on the main path")
+
+    # ---- (6) times and main-path-shape comparisons -------------------------
+    phase("(6) times (CUDA events, median ms per call) and kernel errors at "
+          "the main-path shapes")
+    # kernel 1 at the shapes the main path gave it: f32 at n = 160^3, fp64
+    # at n = 64^3; then fp64 at 160^3, where the f64 solves are timed too
+    def note_kernel1(key, A_, x_, label):
+        op_, xe_, e_plain, e_ext = check_kernel1(label, A_, x_)
+        note(f"dia_spmv_{key}", max_abs_err=e_plain,
+             ms=cuda_time_ms(lambda: cuda_spmv.dia_spmv_cuda(A_, x_)),
+             plain_ms=cuda_time_ms(lambda: ref.dia_spmv(A_, x_)))
+        note(f"dia_spmv_ext_{key}", max_abs_err=e_ext,
+             ms=cuda_time_ms(lambda: op_.apply_cuda(xe_)),
+             plain_ms=cuda_time_ms(lambda: op_.apply_plain(xe_)))
+        return op_
+
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    op = note_kernel1("f32", A, x, f"poisson3d_27pt({MAIN_NX}) main path")
+    x64 = torch.from_numpy(rng.standard_normal(A64.shape[0])).to(dev)
+    note_kernel1("f64", A64, x64, f"poisson3d_27pt({F64_NX}) main path")
+    A64L = gen.poisson3d_27pt(MAIN_NX, dtype=np.float64).to(dev)
+    x64L_true = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    b64L = A64L @ x64L_true
+    note_kernel1(f"f64_{MAIN_NX}cubed", A64L,
+                 torch.from_numpy(rng.standard_normal(n)).to(dev),
+                 f"poisson3d_27pt({MAIN_NX}) float64")
+
+    # kernels 2 and 3 on a mid-solve state, each against its plain version
+    bx = op.extend(b)
+    for jac in (False, True):
+        d_ext = (op.extend_diag(jacobi_preconditioner(A).dinv) if jac
+                 else None)
+        st = cuda_cg.FusedCGState(op, bx, d_ext)
+        st.run(torch.empty(3, dtype=torch.float32, device=dev))
+        pl_ = {k: v.clone() for k, v in dict(
+            x=st.x, r=st.r, p0=st.p[st.cur], ap=st.ap, scal=st.scal,
+            pap=st.pap_part, rr=st.rr_part).items()}
+        gz = None if st.gz_part is None else st.gz_part.clone()
+        pn_k, pn_p = torch.zeros_like(bx), torch.zeros_like(bx)
+        ap_p = torch.zeros_like(bx)
+        cuda_cg.dia_cg_spmv_dot(op, st.r, d_ext, st.p[st.cur], pn_k, st.ap,
+                                st.scal, st.pap_part)
+        cuda_cg.dia_cg_spmv_dot_plain(op, pl_["r"], d_ext, pl_["p0"], pn_p,
+                                      ap_p, pl_["scal"], pl_["pap"])
+        torch.cuda.synchronize()
+        e2 = max(float((pn_k - pn_p).abs().max()),
+                 float((st.ap - ap_p).abs().max()))
+        cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+        h_k = torch.zeros(1, dtype=torch.float32, device=dev)
+        h_p = torch.zeros(1, dtype=torch.float32, device=dev)
+        cuda_cg.dia_cg_update(op, st.x, st.r, pn_k, st.ap, d_ext,
+                              st.pap_part, st.scal, st.rr_part, st.gz_part,
+                              st.counter, h_k)
+        cuda_cg.dia_cg_update_plain(op, pl_["x"], pl_["r"], pn_p, ap_p,
+                                    d_ext, pl_["pap"], pl_["scal"],
+                                    pl_["rr"], gz, cnt, h_p)
+        torch.cuda.synchronize()
+        e3 = max(float((st.x - pl_["x"]).abs().max()),
+                 float((st.r - pl_["r"]).abs().max()))
+        eh = abs(float(h_k) - float(h_p)) / max(abs(float(h_p)), 1e-30)
+        print(f"  jacobi={jac}: kernel 2 max abs err {e2:.2e}; kernel 3 "
+              f"max abs err {e3:.2e}, rel err ||r||^2 {eh:.2e}")
+        scale = float(st.x.abs().max() + st.r.abs().max())
+        check(e2 <= 1e-4 * float(bx.abs().max()) and e3 <= 1e-4 * scale
+              and eh <= 1e-4,
+              "fused CG kernels disagree with the plain versions")
+        key = "" if not jac else "_jacobi"
+        note("dia_cg_spmv_dot" + key, max_abs_err=e2,
+             ms=cuda_time_ms(lambda: cuda_cg.dia_cg_spmv_dot(
+                 op, st.r, d_ext, st.p[st.cur], pn_k, st.ap, st.scal,
+                 st.pap_part)),
+             plain_ms=cuda_time_ms(lambda: cuda_cg.dia_cg_spmv_dot_plain(
+                 op, st.r, d_ext, st.p[st.cur], pn_p, ap_p, st.scal,
+                 pl_["pap"])))
+        note("dia_cg_update" + key, max_abs_err=e3,
+             ms=cuda_time_ms(lambda: cuda_cg.dia_cg_update(
+                 op, st.x, st.r, pn_k, st.ap, d_ext, st.pap_part, st.scal,
+                 st.rr_part, st.gz_part, st.counter, h_k)),
+             plain_ms=cuda_time_ms(lambda: cuda_cg.dia_cg_update_plain(
+                 op, pl_["x"], pl_["r"], pn_p, ap_p, d_ext, pl_["pap"],
+                 pl_["scal"], pl_["rr"], gz, cnt, h_p)))
+        del st
+
+    # device stream bandwidth (triad a = b + s*c over 3 x 1 GiB)
+    m = 1 << 28
+    ta, tb, tc = (torch.empty(m, dtype=torch.float32, device=dev)
+                  for _ in range(3))
+    tb.fill_(1.0)
+    tc.fill_(2.0)
+    t_triad = cuda_time_ms(lambda: torch.add(tb, tc, alpha=3.0, out=ta))
+    triad_gbs = 3 * 4 * m / (t_triad * 1e-3) / 1e9
+    del ta, tb, tc
+    spmv_ms = results["dia_spmv_ext_f32"]["ms"]
+    spmv_bytes = 4 * (A.data.shape[0] + 2) * n
+    print(f"  stream triad {triad_gbs:.1f} GB/s; extended f32 SpMV at n={n}:"
+          f" {A.nnz / (spmv_ms * 1e-3) / 1e9:.2f} Gnnz/s, "
+          f"{spmv_bytes / (spmv_ms * 1e-3) / 1e9:.1f} GB/s "
+          f"({spmv_bytes / (spmv_ms * 1e-3) / 1e9 / triad_gbs:.3f} of triad)")
+    for k, v in results.items():
+        print(f"  {k:24s} kernel {v['ms']:.4f} ms   plain {v['plain_ms']:.4f}"
+              f" ms   max abs err {v['max_abs_err']:.2e}")
+
+    # solves beside their plain versions (plain cg_full over the plain SpMV);
+    # median and min-max of 5 device-timed runs each
+    def solve_ms(fn):
+        ts = cuda_times_ms(fn, warmup=1, reps=5, inner=1)
+        return float(np.median(ts)), min(ts), max(ts)
+
+    def plain_cg(AA, bb, tol, M=None, maxiter=None):
+        return cg_full(lambda v: ref.dia_spmv(AA, v), bb, tol=tol,
+                       maxiter=maxiter, M=M)
+
+    jac_A = jacobi_preconditioner(A)
+    rows = [
+        ("cg f32 M=None (fused)", lambda: tpu_sparse_torch.solve(
+            A, b, tol=1e-6, maxiter=500)[1].iterations,
+         lambda: int(plain_cg(A, b, 1e-6, maxiter=500)[2])),
+        ("cg f32 M=jacobi (fused)", lambda: tpu_sparse_torch.solve(
+            A, b, tol=1e-6, maxiter=500, M="jacobi")[1].iterations,
+         lambda: int(plain_cg(A, b, 1e-6, jac_A, maxiter=500)[2])),
+        ("cg f64 full (fp64 kernel 1)", lambda: tpu_sparse_torch.solve(
+            A64, b64, tol=1e-8, precision="full")[1].iterations,
+         lambda: int(plain_cg(A64, b64, 1e-8)[2])),
+        ("cg f64 auto (refinement)", lambda: tpu_sparse_torch.solve(
+            A64, b64, tol=1e-8)[1].iterations, None),
+        (f"cg f64 full {MAIN_NX}^3", lambda: tpu_sparse_torch.solve(
+            A64L, b64L, tol=1e-8, precision="full")[1].iterations,
+         lambda: int(plain_cg(A64L, b64L, 1e-8)[2])),
+        (f"cg f64 auto {MAIN_NX}^3", lambda: tpu_sparse_torch.solve(
+            A64L, b64L, tol=1e-8)[1].iterations, None),
+    ]
+
+    def fmt(t):
+        med, lo, hi = t
+        return f"{med:9.2f} ms (min {lo:.2f} max {hi:.2f})"
+
+    for label, fn, plain in rows:
+        ms = solve_ms(fn)
+        pms = solve_ms(plain) if plain is not None else None
+        its = fn()
+        pits = plain() if plain is not None else None
+        print(f"  solve {label:30s} {fmt(ms)} {its} it;   plain "
+              + (f"{fmt(pms)} {pits} it" if pms is not None
+                 else "not measured (no plain refinement loop)"),
+              flush=True)
+
+    # ---- results -----------------------------------------------------------
+    src_spmv = "tpu_sparse_torch/csrc/dia_spmv.cu"
+    src_cg = "tpu_sparse_torch/csrc/dia_cg.cu"
+    origin = {
+        "dia_spmv_ext_f32": (src_spmv,
+                             "tpu_sparse/kernels/pallas_spmv.py:279"),
+        "dia_spmv_f64": (src_spmv, "tpu_sparse/kernels/pallas_spmv.py:662"),
+        "dia_spmv_ext_f64": (src_spmv,
+                             "tpu_sparse/kernels/pallas_spmv.py:662"),
+        "dia_cg_spmv_dot": (src_cg, "tpu_sparse/kernels/pallas_cg.py:51"),
+        "dia_cg_update": (src_cg, "tpu_sparse/kernels/pallas_cg.py:51"),
+    }
+    kernels = []
+    for name in MAIN_PATH_KERNELS:
+        src, repl = origin[name]
+        r = results[name]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": repl, "launches": main_launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"]})
+    print()
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

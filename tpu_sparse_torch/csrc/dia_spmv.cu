@@ -1,0 +1,116 @@
+// Kernel 1: square/rectangular DIA (stencil) SpMV, float and double.
+//
+// Replaces tpu_sparse/kernels/pallas_spmv.py: `_dia_kernel` (plain SpMV,
+// entry `dia_spmv_pallas`), `_dia_ext_kernel` / `_dia_ext_kernel_res`
+// (halo-extended operator, `ExtendedStencilOperator._apply`) and, as the
+// double instance, `_dia_ext_kernel_df` / `_dia_ext_kernel_df_res` (the
+// double-f32 operator `ExtendedStencilOperatorDF`): the H100 has native
+// fp64, so the hi/lo pair arithmetic is gone.
+//
+// y[i] = sum_d data[d, i] * x[i + offsets[d]]
+//
+// Bound: device-memory bandwidth. Each row streams ndiag matrix values
+// plus one x read and one y write: sizeof(T) * (ndiag + 2) bytes per row
+// (27-point stencil in float: 116 B/row). x is re-read ndiag times, but
+// neighbouring diagonals of one block touch neighbouring rows of x, so
+// those reads hit L1/L2 and only the first touch costs device memory.
+//
+// Design: one thread per row in a grid-stride loop; thread i reads
+// data[d, i] for each d, so every diagonal read is coalesced along i. The
+// offsets ride by value in the parameters (at most TS_MAX_DIAG; the host
+// entry refuses more rather than truncating). The plain mode bounds-masks
+// each column; the extended mode works on vectors [0..0 | x | 0..0] whose
+// margins (>= the bandwidth) are zero, so it needs no masks and writes
+// the output margins as zero. No Pallas chunk/halo-window structure is
+// carried over: the TPU staged x windows through VMEM by DMA; here the
+// caches do that work.
+
+#include "ts_common.cuh"
+
+template <typename T>
+__global__ void __launch_bounds__(TS_BLOCK)
+dia_spmv_plain_kernel(const T* __restrict__ data, long long ld, TsOffsets offs,
+                      int ndiag, const T* __restrict__ x, T* __restrict__ y,
+                      long long n_rows, long long n_cols) {
+  __shared__ int s_off[TS_MAX_DIAG];
+  ts_load_offsets(offs, ndiag, s_off);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n_rows; i += stride) {
+    T acc = T(0);
+    for (int d = 0; d < ndiag; ++d) {
+      const long long j = i + s_off[d];
+      if (j >= 0 && j < n_cols) acc += data[d * ld + i] * x[j];
+    }
+    y[i] = acc;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TS_BLOCK)
+dia_spmv_ext_kernel(const T* __restrict__ data, long long ld, TsOffsets offs,
+                    int ndiag, const T* __restrict__ x_ext,
+                    T* __restrict__ y_ext, long long n, long long wl,
+                    long long e) {
+  __shared__ int s_off[TS_MAX_DIAG];
+  ts_load_offsets(offs, ndiag, s_off);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < e;
+       t += stride) {
+    const long long i = t - wl;
+    if (i < 0 || i >= n) {
+      y_ext[t] = T(0);
+      continue;
+    }
+    T acc = T(0);
+    for (int d = 0; d < ndiag; ++d) acc += data[d * ld + i] * x_ext[t + s_off[d]];
+    y_ext[t] = acc;
+  }
+}
+
+template <typename T>
+static int launch_dia_spmv(const T* data, long long ld, const int* offsets,
+                           int ndiag, const T* x, T* y, long long n_rows,
+                           long long n_cols, long long wl, long long e,
+                           int extended, cudaStream_t stream) {
+  TsOffsets offs;
+  if (!ts_fill_offsets(offsets, ndiag, &offs)) return TS_BAD_ARGUMENT;
+  if (n_rows < 0 || n_cols < 0 || ld < n_rows) return TS_BAD_ARGUMENT;
+  if (extended) {
+    if (wl < 0 || e != 2 * wl + n_rows || n_rows != n_cols) return TS_BAD_ARGUMENT;
+    for (int d = 0; d < ndiag; ++d) {
+      if (offs.o[d] > wl || -offs.o[d] > wl) return TS_BAD_ARGUMENT;
+    }
+    if (e == 0) return 0;
+    dia_spmv_ext_kernel<T><<<ts_grid_for(e), TS_BLOCK, 0, stream>>>(
+        data, ld, offs, ndiag, x, y, n_rows, wl, e);
+  } else {
+    if (n_rows == 0) return 0;
+    dia_spmv_plain_kernel<T><<<ts_grid_for(n_rows), TS_BLOCK, 0, stream>>>(
+        data, ld, offs, ndiag, x, y, n_rows, n_cols);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ts_dia_spmv_f32(const float* data, long long ld,
+                               const int* offsets, int ndiag, const float* x,
+                               float* y, long long n_rows, long long n_cols,
+                               long long wl, long long e, int extended,
+                               cudaStream_t stream) {
+  return launch_dia_spmv<float>(data, ld, offsets, ndiag, x, y, n_rows, n_cols,
+                                wl, e, extended, stream);
+}
+
+extern "C" int ts_dia_spmv_f64(const double* data, long long ld,
+                               const int* offsets, int ndiag, const double* x,
+                               double* y, long long n_rows, long long n_cols,
+                               long long wl, long long e, int extended,
+                               cudaStream_t stream) {
+  return launch_dia_spmv<double>(data, ld, offsets, ndiag, x, y, n_rows,
+                                 n_cols, wl, e, extended, stream);
+}
+
+extern "C" const char* ts_error_string(int code) {
+  if (code == TS_BAD_ARGUMENT) return "argument refused by the kernel's host entry";
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,215 @@
+"""DIA (stencil) SpMV on the H100: kernel 1 (``csrc/dia_spmv.cu``).
+
+Counterpart of ``tpu_sparse/kernels/pallas_spmv.py``:
+
+* ``dia_spmv_cuda`` replaces ``dia_spmv_pallas`` (plain SpMV, rows
+  bounds-masked), in float32 and float64;
+* ``ExtendedStencilOperator`` keeps every solver vector in the halo-extended
+  layout ``[0..0 | x | 0..0]`` whose margins stay zero under Krylov vector
+  ops, so the SpMV needs no pad or slice per call;
+* ``ExtendedStencilOperatorF64`` takes the place of the double-f32
+  ``ExtendedStencilOperatorDF``: the card has native fp64, so it is the
+  float64 build of the same kernel, with the same ``matvec64``.
+
+The extended layout needs margins of at least the bandwidth ``w``; here they
+are ``w`` rounded up to 32 (the TPU's 1024/chunk rounding came from Mosaic
+tiling). Each wrapper launches the kernel for CUDA tensors and runs the plain
+PyTorch version beside it for CPU tensors; nothing else selects between
+them. Launch counts are kept in ``LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_sparse_torch.kernels import reference as ref
+from tpu_sparse_torch.sparse.containers import DIA
+
+MAX_DIAG = 64     # TS_MAX_DIAG in csrc/ts_common.cuh
+MARGIN_ALIGN = 32
+
+# Launches of kernel 1, by mode and dtype; counted where the kernel launches.
+LAUNCHES = {"dia_spmv_f32": 0, "dia_spmv_f64": 0,
+            "dia_spmv_ext_f32": 0, "dia_spmv_ext_f64": 0}
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _check_operands(data: torch.Tensor, x: torch.Tensor, offsets,
+                    x_len: int, what: str) -> str:
+    if not (data.is_cuda and x.is_cuda):
+        raise ValueError(f"{what}: operands must be CUDA tensors")
+    if data.device != x.device:
+        raise ValueError(f"{what}: data on {data.device}, x on {x.device}")
+    if data.dtype not in _SUFFIX or x.dtype != data.dtype:
+        raise TypeError(
+            f"{what}: the kernel takes float32 or float64 data and x of the "
+            f"same dtype, got {data.dtype} and {x.dtype}")
+    if len(offsets) > MAX_DIAG:
+        raise ValueError(
+            f"{what}: {len(offsets)} diagonals exceed the kernel's "
+            f"{MAX_DIAG}")
+    if data.dim() != 2 or data.shape[0] != len(offsets):
+        raise ValueError(f"{what}: data must be (ndiag, n), got "
+                         f"{tuple(data.shape)}")
+    if not (data.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{what}: operands must be contiguous")
+    if x.dim() != 1 or x.shape[0] != x_len:
+        raise ValueError(f"{what}: x must have length {x_len}, got "
+                         f"{tuple(x.shape)}")
+    return _SUFFIX[data.dtype]
+
+
+def _launch(data, offsets, x, y, n_rows, n_cols, wl, e, extended, what):
+    from tpu_sparse_torch.kernels import _build
+
+    lib = _build.library()
+    fn = lib.ts_dia_spmv_f32 if data.dtype == torch.float32 \
+        else lib.ts_dia_spmv_f64
+    offs, offs_ptr = _build.int_array(offsets)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(data.data_ptr(), data.shape[1], offs_ptr, len(offsets),
+                x.data_ptr(), y.data_ptr(), n_rows, n_cols, wl, e,
+                int(extended), stream)
+    _build.check(rc, what)
+
+
+def dia_spmv_cuda(A: DIA, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x by kernel 1 (plain mode) for CUDA operands."""
+    n, m = A.shape
+    sfx = _check_operands(A.data, x, A.offsets, m, "dia_spmv_cuda")
+    if A.data.shape[1] < n:
+        raise ValueError("dia_spmv_cuda: data has fewer columns than rows")
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    _launch(A.data, A.offsets, x, y, n, m, 0, 0, False, "dia_spmv_cuda")
+    LAUNCHES["dia_spmv_" + sfx] += 1
+    return y
+
+
+def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x: kernel 1 for a CUDA ``x``; its plain version
+    (``reference.dia_spmv``) for a CPU ``x``."""
+    if x.is_cuda:
+        return dia_spmv_cuda(A, x)
+    return ref.dia_spmv(A, x)
+
+
+class ExtendedStencilOperator:
+    """Pad-free DIA SpMV on halo-extended vectors.
+
+    Layout: length ``E = Wl + n + Wl`` with ``Wl = roundup(max(w, 1), 32)``;
+    the value region is ``[Wl, Wl + n)``. The kernel writes the margins as
+    zero, so they stay zero through axpy/scale ops and diagonal scaling by
+    ``extend_diag`` vectors (unit margins).
+    """
+
+    def __init__(self, A: DIA):
+        n, m = A.shape
+        if n != m:
+            raise ValueError(f"extended operator needs a square matrix, "
+                             f"got {A.shape}")
+        if not A.offsets:
+            raise ValueError("extended operator needs at least one diagonal")
+        w = max(max(abs(o) for o in A.offsets), 1)
+        if w >= n:
+            raise ValueError(f"bandwidth {w} must be below n={n}")
+        self.n = n
+        self.offsets = A.offsets
+        self.Wl = _round_up(w, MARGIN_ALIGN)
+        self.E = 2 * self.Wl + n
+        self.data = A.data.contiguous()
+        self.dtype = A.data.dtype
+        self.device = A.data.device
+
+    def extend(self, v: torch.Tensor) -> torch.Tensor:
+        out = v.new_zeros(self.E)
+        out[self.Wl:self.Wl + self.n] = v
+        return out
+
+    def extend_diag(self, d: torch.Tensor) -> torch.Tensor:
+        """Extend a diagonal-scaling vector with ones: ``dinv_ext * v``
+        keeps zero margins zero, so Jacobi composes with the layout."""
+        out = d.new_ones(self.E)
+        out[self.Wl:self.Wl + self.n] = d
+        return out
+
+    def extract(self, v_ext: torch.Tensor) -> torch.Tensor:
+        return v_ext[self.Wl:self.Wl + self.n]
+
+    def apply_plain(self, x_ext: torch.Tensor) -> torch.Tensor:
+        """Plain PyTorch version of the extended kernel (diagonals
+        accumulated in offsets order, margins written zero)."""
+        Wl, n = self.Wl, self.n
+        acc = None
+        for d, o in enumerate(self.offsets):
+            term = self.data[d] * x_ext[Wl + o:Wl + o + n]
+            acc = term if acc is None else acc + term
+        y = x_ext.new_zeros(self.E, dtype=acc.dtype)
+        y[Wl:Wl + n] = acc
+        return y
+
+    def apply_cuda(self, x_ext: torch.Tensor) -> torch.Tensor:
+        """Kernel 1, extended mode."""
+        sfx = _check_operands(self.data, x_ext, self.offsets, self.E,
+                              "ExtendedStencilOperator")
+        y = torch.empty(self.E, dtype=x_ext.dtype, device=x_ext.device)
+        _launch(self.data, self.offsets, x_ext, y, self.n, self.n, self.Wl,
+                self.E, True, "ExtendedStencilOperator")
+        LAUNCHES["dia_spmv_ext_" + sfx] += 1
+        return y
+
+    def __call__(self, x_ext: torch.Tensor) -> torch.Tensor:
+        if x_ext.is_cuda:
+            return self.apply_cuda(x_ext)
+        return self.apply_plain(x_ext)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Original-space matvec through the extended layout."""
+        return self.extract(self(self.extend(x)))
+
+
+class ExtendedStencilOperatorF64(ExtendedStencilOperator):
+    """Float64 extended operator (native fp64 kernel 1), used for the outer
+    residuals of mixed-precision refinement and ``precision="full"``."""
+
+    def __init__(self, A: DIA):
+        if A.data.dtype != torch.float64:
+            raise TypeError(f"ExtendedStencilOperatorF64 needs float64 data, "
+                            f"got {A.data.dtype}")
+        super().__init__(A)
+
+    def matvec64(self, x: torch.Tensor) -> torch.Tensor:
+        return self.matvec(x)
+
+
+def extendable(A: DIA) -> bool:
+    """Whether the extended layout takes ``A``: square, at least one
+    diagonal, bandwidth below n."""
+    n, m = A.shape
+    return (n == m and bool(A.offsets)
+            and max(abs(o) for o in A.offsets) < n)
+
+
+def make_extended_operator(A: DIA) -> "ExtendedStencilOperator | None":
+    """Extended float32 operator, or None when the matrix does not fit the
+    layout (rectangular, no diagonals, bandwidth >= n, not float32)."""
+    if not extendable(A) or A.data.dtype != torch.float32:
+        return None
+    return ExtendedStencilOperator(A)
+
+
+def make_extended_operator_f64(A: DIA) -> "ExtendedStencilOperatorF64 | None":
+    """Extended float64 operator, or None when unsupported."""
+    if not extendable(A) or A.data.dtype != torch.float64:
+        return None
+    return ExtendedStencilOperatorF64(A)

@@ -1,0 +1,56 @@
+"""Diagonal (Jacobi) preconditioner and diagonal extraction.
+
+Counterpart of ``tpu_sparse/precond/jacobi.py``. ``jacobi_preconditioner``
+returns a ``DiagonalPreconditioner``, which the router and the extended
+fast path recognise as a diagonal (as the JAX router recognises
+``Partial(_apply_diag, dinv)``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_sparse_torch.sparse.containers import COO, CSR, DIA
+from tpu_sparse_torch.utils.tree import tree_map
+
+
+def diagonal(A) -> torch.Tensor:
+    """diag(A) for a container or dense matrix."""
+    if isinstance(A, DIA):
+        if 0 in A.offsets:
+            return A.data[A.offsets.index(0)]
+        return A.data.new_zeros(A.shape[0])
+    if isinstance(A, CSR):
+        A = A.tocoo()
+    if isinstance(A, COO):
+        mask = (A.row == A.col).to(A.dtype)
+        out = A.data.new_zeros(A.shape[0])
+        return out.index_add_(0, A.row.long(), A.data * mask)
+    return torch.diagonal(A)
+
+
+class DiagonalPreconditioner:
+    """M v = dinv * v, leafwise."""
+
+    def __init__(self, dinv: torch.Tensor):
+        self.dinv = dinv
+
+    def __call__(self, v):
+        return tree_map(lambda leaf: self.dinv * leaf, v)
+
+    def to(self, target) -> "DiagonalPreconditioner":
+        """Move to a device or cast to a dtype."""
+        return DiagonalPreconditioner(self.dinv.to(target))
+
+    def __repr__(self):
+        return (f"DiagonalPreconditioner(n={self.dinv.shape[0]}, "
+                f"dtype={self.dinv.dtype})")
+
+
+def jacobi_preconditioner(A) -> DiagonalPreconditioner:
+    """M ~ A^-1 as inverse-diagonal scaling (zero diagonal entries -> 1)."""
+    d = diagonal(A)
+    nz = d != 0
+    dinv = torch.where(nz, 1.0 / torch.where(nz, d, torch.ones_like(d)),
+                       torch.ones_like(d))
+    return DiagonalPreconditioner(dinv)

@@ -1,0 +1,188 @@
+"""Mixed-precision iterative refinement (defect correction).
+
+Counterpart of ``tpu_sparse/solvers/mixed.py`` (``refined_solve``,
+``_make_inner``, ``cg_refined``):
+
+    x = 0  (f64)
+    repeat:
+        r  = b - A x                (f64)
+        d  = solve(A32, r32)        (f32 Krylov solve)
+        x += d                      (accepted only if it lowers ||r||)
+    until ||r|| <= max(tol*||b||, atol)
+
+followed by one full-precision rescue solve when the sweeps stall. On CUDA
+DIA operands the outer f64 residuals run the fp64 extended kernel and the
+inner f32 sweeps run CG over the f32 extended operator. The JAX version is
+a static unroll with masked no-op sweeps; here the sweep loop is Python
+with one host read per sweep and stops at the first done sweep, which
+gives the same x, info and iteration count (a done sweep of the unroll
+solves a zero right-hand side in 0 iterations and is never accepted).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from tpu_sparse_torch.kernels import as_matvec
+from tpu_sparse_torch.kernels.cuda_spmv import (make_extended_operator,
+                                                make_extended_operator_f64)
+from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
+from tpu_sparse_torch.solvers.krylov import _default_maxiter, cg_full
+from tpu_sparse_torch.sparse.containers import DIA, is_sparse
+from tpu_sparse_torch.utils.tree import (
+    tree_add,
+    tree_leaves,
+    tree_map,
+    tree_norm,
+    tree_sub,
+    tree_where,
+    tree_zeros_like,
+)
+
+
+def _cast_tree(tree, dtype):
+    return tree_map(lambda leaf: leaf.to(dtype), tree)
+
+
+def _cast_operator(A, dtype, outer_dtype=torch.float64):
+    if is_sparse(A):
+        return A.with_data(A.data.to(dtype))
+    if callable(A) and not isinstance(A, torch.Tensor):
+        # matrix-free: cast around the user's operator, which expects the
+        # outer system's dtype
+        def op(x_inner):
+            return _cast_tree(A(_cast_tree(x_inner, outer_dtype)), dtype)
+
+        return op
+    return A.to(dtype)
+
+
+def _cast_precond(M, dtype):
+    if M is None:
+        return None
+    if isinstance(M, DiagonalPreconditioner):
+        return M.to(dtype)
+    if is_sparse(M) or isinstance(M, torch.Tensor):
+        return _cast_operator(M, dtype)
+    return M  # a plain callable carries no tensors to cast
+
+
+def _first_dtype(tree) -> torch.dtype:
+    return tree_leaves(tree)[0].dtype
+
+
+def _make_df_operator(A, outer_dtype):
+    """fp64 extended operator for the f64 outer system on CUDA, or None
+    (the slot the double-f32 operator held in the JAX package)."""
+    if not (isinstance(A, DIA) and A.data.is_cuda
+            and outer_dtype == torch.float64):
+        return None
+    return make_extended_operator_f64(A)
+
+
+def _make_inner(inner_solver, A32, M32, inner_tol, maxiter, inner_kwargs):
+    """Per-sweep inner solve. CUDA f32 DIA systems (no or diagonal M) run
+    through the extended operator, so every inner SpMV is kernel 1."""
+    op32 = None
+    if (isinstance(A32, DIA) and A32.data.is_cuda
+            and (M32 is None or isinstance(M32, DiagonalPreconditioner))):
+        op32 = make_extended_operator(A32)
+    if op32 is not None:
+        M32e = None if M32 is None else DiagonalPreconditioner(
+            op32.extend_diag(M32.dinv))
+
+        def _inner(rhs):
+            out = inner_solver(op32, op32.extend(rhs), None, tol=inner_tol,
+                               maxiter=maxiter, M=M32e, **inner_kwargs)
+            return (op32.extract(out[0]),) + tuple(out[1:])
+
+        return _inner
+
+    def _inner(rhs):
+        return inner_solver(A32, rhs, None, tol=inner_tol, maxiter=maxiter,
+                            M=M32, **inner_kwargs)
+
+    return _inner
+
+
+def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
+                  tol: float = 1e-8, atol: float = 0.0,
+                  inner_tol: float = 1e-5, maxiter: Optional[int] = None,
+                  max_sweeps: int = 6, M=None,
+                  inner_dtype=torch.float32,
+                  inner_maxiter: Optional[int] = None,
+                  rescue_maxiter: Optional[int] = None, **inner_kwargs):
+    """Defect-correction refinement around an f32 inner Krylov solve.
+
+    Returns (x, info, total_inner_iterations, residual_norm) in b's dtype.
+    """
+    A_fn = as_matvec(A)
+    outer_dtype = _first_dtype(b)
+    A_rescue = A
+    df_op = _make_df_operator(A, outer_dtype)
+    if df_op is not None:
+        A_fn = df_op.matvec64
+        A_rescue = df_op.matvec64
+    A32 = _cast_operator(A, inner_dtype, outer_dtype)
+    M32 = _cast_precond(M, inner_dtype)
+    maxiter = _default_maxiter(b, maxiter)
+    if inner_maxiter is None:
+        inner_maxiter = maxiter
+    if rescue_maxiter is None:
+        rescue_maxiter = maxiter
+
+    b_norm = tree_norm(b)
+    thresh = torch.clamp_min(tol * b_norm, atol)
+
+    _inner = _make_inner(inner_solver, A32, M32, inner_tol, inner_maxiter,
+                         inner_kwargs)
+
+    x = tree_zeros_like(b) if x0 is None else x0
+    res_norm = tree_norm(tree_sub(b, A_fn(x)))
+    inner_iters = torch.zeros((), dtype=torch.int32, device=b_norm.device)
+    stalled = torch.zeros((), dtype=torch.bool, device=b_norm.device)
+
+    for _ in range(max_sweeps):
+        done = (res_norm <= thresh) | (~torch.isfinite(res_norm)) | stalled
+        if bool(done):  # the one host read of the sweep
+            break
+        r = tree_sub(b, A_fn(x))
+        d32, _, it, _ = _inner(_cast_tree(r, inner_dtype))
+        # accept the sweep only if it lowered the true residual: an f32
+        # breakdown can return a finite but useless update
+        x_new = tree_add(x, _cast_tree(d32, outer_dtype))
+        res_new = tree_norm(tree_sub(b, A_fn(x_new)))
+        accept = torch.isfinite(res_new) & (res_new < res_norm)
+        x = tree_where(accept, x_new, x)
+        res_norm = torch.where(accept, res_new, res_norm)
+        stalled = stalled | ~accept
+        inner_iters = inner_iters + torch.clamp_min(it, 0)
+
+    # Full-precision rescue: one inner solve in the outer dtype on the
+    # current defect, aimed at the true threshold (tol=0, atol=thresh).
+    failed = (~torch.isfinite(res_norm)) | (res_norm > thresh)
+    if bool(failed):
+        r = tree_sub(b, A_fn(x))
+        d, _, it_f, _ = inner_solver(A_rescue, r, None, tol=0.0, atol=thresh,
+                                     maxiter=rescue_maxiter, M=M,
+                                     **inner_kwargs)
+        x_new = tree_add(x, d)
+        res_new = tree_norm(tree_sub(b, A_fn(x_new)))
+        accept = torch.isfinite(res_new) & (res_new < res_norm)
+        x = tree_where(accept, x_new, x)
+        res_norm = torch.where(accept, res_new, res_norm)
+        inner_iters = inner_iters + torch.clamp_min(it_f, 0)
+        failed = (~torch.isfinite(res_norm)) | (res_norm > thresh)
+    info = torch.where(failed, -1, 0).to(torch.int32)
+    return x, info, inner_iters, res_norm
+
+
+def cg_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
+               inner_tol: float = 1e-5, maxiter: Optional[int] = None,
+               max_sweeps: int = 8, M=None):
+    """f64-accurate CG at f32 speed via defect correction."""
+    return refined_solve(cg_full, A, b, x0, tol=tol, atol=atol,
+                         inner_tol=inner_tol, maxiter=maxiter,
+                         max_sweeps=max_sweeps, M=M)
