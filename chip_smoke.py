@@ -2,16 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of tpu_sparse_torch/csrc (nvcc, sm_90a), checks each
-kernel against its plain PyTorch version, drives ``tpu_sparse_torch.solve``
-(CG on the 27-point 3-D Poisson system at n = 160^3, about 109M nonzeros,
-with and without Jacobi; then the float64 'auto' and 'full' paths), counts
-the kernel launches of that run, checks every kernel again at the shapes
-that run gave it, and times every kernel and solve beside its plain version
-with CUDA events (the float64 solves also at n = 160^3, five runs each, to
-show their spread). Phases print as they pass; any failed check
-raises and the exit code is non-zero. The last two lines are a JSON object
-of per-kernel results and ``{"ok": true, "device": {...}}``.
+Builds the CUDA kernels of tpu_sparse_torch/csrc (nvcc, sm_90a, one nvcc per
+source), checks each kernel against its plain PyTorch version, and drives
+``tpu_sparse_torch.solve`` along two main paths, each with the launch
+counters set to 0 just before it and read just after:
+
+* phases (4)-(5): CG on the 27-point 3-D Poisson system at n = 160^3
+  (about 110M nonzeros), with and without Jacobi (fused CG kernels 2-3),
+  then the float64 'auto' and 'full' paths;
+* phase (8): BiCGStab (fused kernel K10) and GMRES(20) (kernel 1) on the
+  27-point convection-diffusion system at n = 160^3, then both methods in
+  float64 'auto' and 'full' at 64^3; phase (9) differentiates a cg and a
+  bicgstab solve on the card (the bicgstab backward runs K10 on A^T) and
+  holds the gradients against the CPU's.
+
+It checks every kernel again at the shapes the main paths gave it, and
+times every kernel and solve beside its plain version with CUDA events
+(solves: median and min-max of 5), beside each kernel's bound (bytes over
+the card's 3.35 TB/s) and, for the SpMV, a cuSPARSE CSR matvec. Phases
+print as they pass; any failed check raises and the exit code is non-zero.
+The last two lines are a JSON object of per-kernel results and
+``{"ok": true, "device": {...}}``.
 
 Needs torch built for CUDA, numpy and nvcc; it imports no JAX. Without a
 CUDA device it exits non-zero and prints no result.
@@ -58,17 +69,18 @@ def main() -> int:
         return 2
 
     import tpu_sparse_torch
-    from tpu_sparse_torch.kernels import _build, cuda_cg, cuda_spmv
+    from tpu_sparse_torch.kernels import (_build, cuda_bicgstab, cuda_cg,
+                                          cuda_spmv)
     from tpu_sparse_torch.kernels import reference as ref
     from tpu_sparse_torch.precond.jacobi import (DiagonalPreconditioner,
                                                  jacobi_preconditioner)
-    from tpu_sparse_torch.solvers import cg_full
+    from tpu_sparse_torch.solvers import bicgstab_full, cg_full, gmres_full
     from tpu_sparse_torch.sparse import generators as gen
     from tpu_sparse_torch.utils.timing import cuda_time_ms, cuda_times_ms
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    results = {}  # kernel name -> {"max_abs_err", "ms", "plain_ms"}
+    results = {}  # kernel name -> {"max_abs_err", "ms", "plain_ms", ...}
 
     def note(name, **kw):
         results.setdefault(name, {}).update(kw)
@@ -400,9 +412,330 @@ def main() -> int:
                  else "not measured (no plain refinement loop)"),
               flush=True)
 
+    A_cg, A64_cg = A, A64   # kernel 1 was timed on these
+    del A64L, b64L, x64L_true
+    torch.cuda.empty_cache()
+    main_runs = {"phases (4)-(5)": main_launches}
+
+    def counts():
+        return {**cuda_spmv.LAUNCHES, **cuda_cg.LAUNCHES,
+                **cuda_bicgstab.LAUNCHES}
+
+    def reset_counts():
+        for mod in (cuda_spmv, cuda_cg, cuda_bicgstab):
+            mod.reset_launch_counts()
+
+    # ---- (7) K10 against the plain versions --------------------------------
+    phase("(7) K10 (fused BiCGStab) against fused_bicgstab_block_reference "
+          "and plain bicgstab_full")
+    rng7 = np.random.default_rng(SEED + 7)
+    A = gen.poisson2d(64, dtype=np.float32)
+    data = A.data.clone()
+    data[A.offsets.index(-1)] *= 1.3   # upwind skew: nonsymmetric
+    data[A.offsets.index(1)] *= 0.7
+    A = A.with_data(data)
+    b = ref.dia_spmv(A, torch.from_numpy(
+        rng7.standard_normal(A.shape[0]).astype(np.float32)).to(dev))
+    op = cuda_spmv.ExtendedStencilOperator(A)
+    bx = op.extend(b)
+    K = 12
+    st = cuda_bicgstab.FusedBiCGStabState(op, bx)
+    hist = torch.empty(K, dtype=torch.float32, device=dev)
+    st.run(hist)
+    xr, _, _, hr = cuda_bicgstab.fused_bicgstab_block_reference(
+        op, torch.zeros_like(bx), bx, bx, bx, K)
+    ex, eh = rel_err(st.x, xr), rel_err(hist, hr)
+    # f32 dot products (plain) against double partials (kernels): the
+    # BiCGStab recurrence amplifies the difference in r and p as it
+    # converges, so x and the history carry the bound, as for kernels 2-3
+    check(ex <= 1e-3 and eh <= 1e-3,
+          f"K10 block disagrees: x {ex}, hist {eh}")
+    xg, ig, itg, _ = cuda_bicgstab.fused_bicgstab_ext(op, b, tol=1e-5,
+                                                      maxiter=2000)
+    xp, ip, itp, _ = bicgstab_full(lambda v: ref.dia_spmv(A, v), b,
+                                   tol=1e-5, maxiter=2000)
+    true_res = float(torch.linalg.vector_norm(b - ref.dia_spmv(A, xg))
+                     / torch.linalg.vector_norm(b))
+    print(f"  skewed poisson2d(64): block rel err x {ex:.1e} hist {eh:.1e};"
+          f" iters fused {int(itg)} plain {int(itp)}; info {int(ig)}/"
+          f"{int(ip)}; true rel res {true_res:.2e}")
+    check(abs(int(itg) - int(itp)) <= 2, "K10 iteration count differs")
+    check(int(ig) == int(ip) == 0, "K10 info differs")
+    check(true_res <= 1e-4, "K10 true residual above the contract")
+    del A, b, op, bx, st
+
+    # ---- (8) nonsymmetric main path: BiCGStab and GMRES through solve() ----
+    phase(f"(8) main path: solve(method='bicgstab' | 'gmres') on "
+          f"convection_diffusion_3d_27pt({MAIN_NX}), f32; then f64 at "
+          f"{F64_NX}^3")
+    rng8 = np.random.default_rng(SEED)
+    A = gen.convection_diffusion_3d_27pt(MAIN_NX)
+    n = A.shape[0]
+    x_true = torch.from_numpy(
+        rng8.standard_normal(n).astype(np.float32)).to(dev)
+    b = A @ x_true
+    A64 = gen.convection_diffusion_3d_27pt(F64_NX, dtype=np.float64)
+    x64_true = torch.from_numpy(rng8.standard_normal(A64.shape[0])).to(dev)
+    b64 = A64 @ x64_true
+    torch.cuda.synchronize()
+    print(f"  n={n} nnz={A.nnz} DIA data {A.data.numel() * 4 / 1e6:.1f} MB")
+    reset_counts()   # the main-path run of this slice starts here
+    nonsym = {}
+    for method, kw, carriers in (
+            ("bicgstab", {}, ("dia_bicgstab_q", "dia_bicgstab_t",
+                              "dia_bicgstab_update")),
+            ("gmres", dict(restart=20), ("dia_spmv_ext_f32",))):
+        before = counts()
+        x, res = tpu_sparse_torch.solve(A, b, method=method, tol=1e-6,
+                                        maxiter=500, **kw)
+        torch.cuda.synchronize()
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        true_rel = float(torch.linalg.vector_norm(b - ref.dia_spmv(A, x))
+                         / torch.linalg.vector_norm(b))
+        print(f"  {method}: {res}; true rel res {true_rel:.2e}; launches "
+              f"{grew}")
+        check(res.converged, f"{method} main-path solve did not converge")
+        check(true_rel <= 1e-5, f"{method} true residual {true_rel}")
+        check(all(grew.get(k, 0) > 0 for k in carriers),
+              f"{method}: {carriers} did not carry the solve")
+        nonsym[method] = res.iterations
+    for method in ("bicgstab", "gmres"):
+        for precision in ("auto", "full"):
+            before = counts()
+            x64, res = tpu_sparse_torch.solve(A64, b64, method=method,
+                                              tol=1e-8, precision=precision)
+            grew = counts()["dia_spmv_ext_f64"] - before["dia_spmv_ext_f64"]
+            err = float(torch.linalg.vector_norm(x64 - x64_true)
+                        / torch.linalg.vector_norm(x64_true))
+            print(f"  {method} f64 precision={precision}: {res}; rel error "
+                  f"to x_true {err:.2e}; fp64 kernel-1 launches {grew}")
+            check(res.converged and res.residual <= 1e-8,
+                  f"{method} f64 {precision} did not converge")
+            check(grew > 0, f"fp64 kernel 1 did not carry {method} "
+                  f"{precision}")
+    main_runs["phase (8)"] = counts()
+    print("  launches in the main-path run (phase 8): "
+          f"{main_runs['phase (8)']}")
+
+    # ---- (9) the adjoint on the card ---------------------------------------
+    phase("(9) adjoint: x.sum() backward through solve() on the card "
+          "against the CPU")
+    rng9 = np.random.default_rng(SEED + 9)
+    reset_counts()
+    for method, make in (("cg", gen.poisson3d_27pt),
+                         ("bicgstab", gen.convection_diffusion_3d_27pt)):
+        Ac = make(32, device="cpu")
+        bc = torch.from_numpy(rng9.standard_normal(Ac.shape[0]).astype(
+            np.float32))
+        grads = {}
+        for where in ("cpu", dev):
+            data = Ac.data.to(where, copy=True).requires_grad_()
+            bb = bc.to(where, copy=True).requires_grad_()
+            x, res = tpu_sparse_torch.solve(Ac.with_data(data), bb,
+                                            method=method, tol=1e-6)
+            before = counts()
+            x.sum().backward()
+            torch.cuda.synchronize()
+            grew = {k: v - before[k] for k, v in counts().items()
+                    if v != before[k]}
+            check(res.converged, f"{method} forward on {where}")
+            grads[where] = (data.grad.cpu(), bb.grad.cpu(), grew)
+        gA, gb, grew = grads[dev]
+        eA = rel_err(gA, grads["cpu"][0])
+        eb = rel_err(gb, grads["cpu"][1])
+        print(f"  {method}: backward launches on the card {grew}; grad rel "
+              f"err card vs CPU: A {eA:.2e}, b {eb:.2e}")
+        # float32 solves at tol 1e-6 by two loops (fused on the card, the
+        # plain loop on the CPU) agree to ~1e-4 relative
+        check(eA <= 5e-3 and eb <= 5e-3, f"{method} adjoint: card and CPU "
+              "gradients disagree")
+        carrier = ("dia_cg_spmv_dot" if method == "cg"
+                   else "dia_bicgstab_q")
+        check(grew.get(carrier, 0) > 0,
+              f"{method} backward did not launch {carrier} on A^T")
+    main_runs["phase (9)"] = counts()
+
+    # ---- (10) K10 at the main-path shape, times, bounds --------------------
+    phase("(10) K10 launches against their plain versions at the main-path "
+          "shape; times (CUDA events) and bounds")
+    op = cuda_spmv.ExtendedStencilOperator(A)
+    bx = op.extend(b)
+    st = cuda_bicgstab.FusedBiCGStabState(op, bx)
+    st.run(torch.empty(3, dtype=torch.float32, device=dev))  # mid-solve
+    pl_ = {k: v.clone() for k, v in dict(
+        x=st.x, r=st.r, p0=st.p[st.cur], q0=st.q[st.cur], s=st.s, t=st.t,
+        scal=st.scal, part=st.part).items()}
+    zero = lambda: torch.zeros_like(bx)  # noqa: E731
+    pk, qk, pp, qp = zero(), zero(), zero(), zero()
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+    cuda_bicgstab.dia_bicgstab_q(op, st.r, st.p[st.cur], st.q[st.cur],
+                                 st.rhat, pk, qk, st.scal, st.part)
+    cuda_bicgstab.dia_bicgstab_q_plain(op, pl_["r"], pl_["p0"], pl_["q0"],
+                                       st.rhat, pp, qp, pl_["scal"],
+                                       pl_["part"])
+    torch.cuda.synchronize()
+    e_q = max(float((pk - pp).abs().max()), float((qk - qp).abs().max()))
+    cuda_bicgstab.dia_bicgstab_t(op, st.r, qk, st.s, st.t, st.scal, st.part,
+                                 st.counter)
+    cuda_bicgstab.dia_bicgstab_t_plain(op, pl_["r"], qp, pl_["s"], pl_["t"],
+                                       pl_["scal"], pl_["part"], cnt)
+    torch.cuda.synchronize()
+    e_t = max(float((st.s - pl_["s"]).abs().max()),
+              float((st.t - pl_["t"]).abs().max()))
+    e_scal_t = rel_err(st.scal, pl_["scal"])
+    h_k = torch.zeros(1, dtype=torch.float32, device=dev)
+    h_p = torch.zeros(1, dtype=torch.float32, device=dev)
+    cuda_bicgstab.dia_bicgstab_update(op, st.x, st.r, pk, st.s, st.t,
+                                      st.rhat, st.scal, st.part, st.counter,
+                                      h_k)
+    cuda_bicgstab.dia_bicgstab_update_plain(op, pl_["x"], pl_["r"], pp,
+                                            pl_["s"], pl_["t"], st.rhat,
+                                            pl_["scal"], pl_["part"], cnt,
+                                            h_p)
+    torch.cuda.synchronize()
+    e_u = max(float((st.x - pl_["x"]).abs().max()),
+              float((st.r - pl_["r"]).abs().max()))
+    e_h = abs(float(h_k) - float(h_p)) / max(abs(float(h_p)), 1e-30)
+    e_scal_u = rel_err(st.scal, pl_["scal"])
+    print(f"  dia_bicgstab_q max abs err {e_q:.2e} (max|q| "
+          f"{float(qp.abs().max()):.2e}); dia_bicgstab_t {e_t:.2e}, scalars "
+          f"rel {e_scal_t:.1e}; dia_bicgstab_update {e_u:.2e}, ||r||^2 rel "
+          f"{e_h:.1e}, scalars rel {e_scal_u:.1e}")
+    # the kernels fuse multiply-adds and sum in double; 1e-5 of the
+    # vectors' scale is a few float32 ulps
+    scale = float(bx.abs().max())
+    check(e_q <= 1e-5 * float(qp.abs().max()) and e_t <= 1e-5 * scale
+          and e_u <= 1e-5 * scale and e_h <= 1e-5 and e_scal_t <= 1e-5
+          and e_scal_u <= 1e-5,
+          "K10 launches disagree with the plain versions")
+    note("dia_bicgstab_q", max_abs_err=e_q,
+         ms=cuda_time_ms(lambda: cuda_bicgstab.dia_bicgstab_q(
+             op, st.r, st.p[st.cur], st.q[st.cur], st.rhat, pk, qk, st.scal,
+             st.part)),
+         plain_ms=cuda_time_ms(lambda: cuda_bicgstab.dia_bicgstab_q_plain(
+             op, pl_["r"], pl_["p0"], pl_["q0"], st.rhat, pp, qp,
+             pl_["scal"], pl_["part"])))
+    note("dia_bicgstab_t", max_abs_err=e_t,
+         ms=cuda_time_ms(lambda: cuda_bicgstab.dia_bicgstab_t(
+             op, st.r, qk, st.s, st.t, st.scal, st.part, st.counter)),
+         plain_ms=cuda_time_ms(lambda: cuda_bicgstab.dia_bicgstab_t_plain(
+             op, pl_["r"], qp, pl_["s"], pl_["t"], pl_["scal"], pl_["part"],
+             cnt)))
+    note("dia_bicgstab_update", max_abs_err=e_u,
+         ms=cuda_time_ms(lambda: cuda_bicgstab.dia_bicgstab_update(
+             op, st.x, st.r, pk, st.s, st.t, st.rhat, st.scal, st.part,
+             st.counter, h_k)),
+         plain_ms=cuda_time_ms(
+             lambda: cuda_bicgstab.dia_bicgstab_update_plain(
+                 op, pl_["x"], pl_["r"], pp, pl_["s"], pl_["t"], st.rhat,
+                 pl_["scal"], pl_["part"], cnt, h_p)))
+    del st, pl_, pk, qk, pp, qp
+
+    # library yardstick for kernel 1: one cuSPARSE CSR matvec of the same
+    # matrix (torch.sparse_csr_tensor), timed here and used nowhere in the
+    # port
+    def csr_of(A_):
+        offs = torch.tensor(A_.offsets, device=dev)
+        order = torch.argsort(offs)
+        cols = (torch.arange(A_.shape[0], device=dev)[:, None]
+                + offs[order][None, :])
+        mask = (cols >= 0) & (cols < A_.shape[1])
+        crow = torch.zeros(A_.shape[0] + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(mask.sum(1), 0)
+        return torch.sparse_csr_tensor(
+            crow.to(torch.int32), cols[mask].to(torch.int32),
+            A_.data[order].T[mask], size=A_.shape)
+
+    for key, A_, label in (("f32", A_cg, f"poisson3d_27pt({MAIN_NX})"),
+                           ("f64", A64_cg, f"poisson3d_27pt({F64_NX})")):
+        Acsr = csr_of(A_)
+        xv = torch.from_numpy(np.random.default_rng(SEED + 10).standard_normal(
+            A_.shape[0])).to(dev, A_.data.dtype)
+        e_lib = rel_err(torch.mv(Acsr, xv), ref.dia_spmv(A_, xv))
+        lib_ms = cuda_time_ms(lambda: torch.mv(Acsr, xv))
+        print(f"  cuSPARSE CSR matvec, {label} {key}: {lib_ms:.4f} ms "
+              f"(rel err to the plain SpMV {e_lib:.1e})")
+        check(e_lib <= 1e-5, "the CSR yardstick computes another function")
+        note(f"dia_spmv_{key}", library_ms=lib_ms)
+        note(f"dia_spmv_ext_{key}", library_ms=lib_ms)
+        del Acsr
+
+    # least time for each kernel's work: bytes over 3.35 TB/s, operations
+    # over 67 TFLOP/s (float32) / 34 TFLOP/s (float64), the H100 SXM data
+    # sheet at 700 W; each input read once and each output written once
+    def bound(name, n_, ndiag, rows, flops_per_row, size):
+        t_bytes = (ndiag + rows) * n_ * size / 3.35e12 * 1e3
+        t_ops = (2 * ndiag + flops_per_row) * n_ / (
+            67e12 if size == 4 else 34e12) * 1e3
+        note(name, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+    nd = len(A.offsets)
+    n64 = A64_cg.shape[0]
+    bound("dia_spmv_ext_f32", n, nd, 2, 0, 4)
+    bound("dia_spmv_f64", n64, nd, 2, 0, 8)
+    bound("dia_spmv_ext_f64", n64, nd, 2, 0, 8)
+    bound("dia_cg_spmv_dot", n, nd, 4, 4, 4)
+    bound("dia_cg_update", n, 0, 6, 6, 4)
+    bound("dia_bicgstab_q", n, nd, 6, 6, 4)
+    bound("dia_bicgstab_t", n, nd, 4, 8, 4)
+    bound("dia_bicgstab_update", n, 0, 7, 10, 4)
+    for k in ("dia_cg_spmv_dot", "dia_cg_update", "dia_bicgstab_q",
+              "dia_bicgstab_t", "dia_bicgstab_update"):
+        note(k, library_ms=None)   # no one PyTorch call computes these
+    per_it = sum(results[k]["ms"] for k in
+                 ("dia_bicgstab_q", "dia_bicgstab_t", "dia_bicgstab_update"))
+    for k in ("dia_spmv_ext_f32", "dia_spmv_f64", "dia_spmv_ext_f64",
+              "dia_cg_spmv_dot", "dia_cg_update", "dia_bicgstab_q",
+              "dia_bicgstab_t", "dia_bicgstab_update"):
+        v = results[k]
+        lib = ("none" if v["library_ms"] is None
+               else f"{v['library_ms']:.4f} ms")
+        print(f"  {k:22s} kernel {v['ms']:.4f} ms  bound {v['bound_ms']:.4f}"
+              f" ms ({v['bound_by']}, {v['bound_ms'] / v['ms']:.2f} of it)"
+              f"  plain {v['plain_ms']:.4f} ms  library {lib}")
+    print(f"  K10 iteration (three launches) {per_it:.4f} ms at n={n}")
+
+    # ---- (11) nonsymmetric solve times -------------------------------------
+    phase("(11) nonsymmetric solves: times (CUDA events, median and min-max "
+          "of 5) beside the plain versions")
+    rows = [
+        ("bicgstab f32 (K10)", lambda: tpu_sparse_torch.solve(
+            A, b, method="bicgstab", tol=1e-6, maxiter=500)[1].iterations,
+         lambda: int(bicgstab_full(lambda v: ref.dia_spmv(A, v), b,
+                                   tol=1e-6, maxiter=500)[2])),
+        ("gmres(20) f32 (kernel 1)", lambda: tpu_sparse_torch.solve(
+            A, b, method="gmres", restart=20, tol=1e-6,
+            maxiter=500)[1].iterations,
+         lambda: int(gmres_full(lambda v: ref.dia_spmv(A, v), b, tol=1e-6,
+                                restart=20, maxiter=500)[2])),
+    ]
+    for method, full in (("bicgstab", bicgstab_full), ("gmres", gmres_full)):
+        rows += [
+            (f"{method} f64 full {F64_NX}^3", lambda m=method: (
+                tpu_sparse_torch.solve(A64, b64, method=m, tol=1e-8,
+                                       precision="full")[1].iterations),
+             lambda f=full: int(f(lambda v: ref.dia_spmv(A64, v), b64,
+                                  tol=1e-8)[2])),
+            (f"{method} f64 auto {F64_NX}^3", lambda m=method: (
+                tpu_sparse_torch.solve(A64, b64, method=m,
+                                       tol=1e-8)[1].iterations), None)]
+    for label, fn, plain in rows:
+        ms = solve_ms(fn)
+        pms = solve_ms(plain) if plain is not None else None
+        its = fn()
+        pits = plain() if plain is not None else None
+        print(f"  solve {label:30s} {fmt(ms)} {its} it;   plain "
+              + (f"{fmt(pms)} {pits} it" if pms is not None
+                 else "not measured (no plain refinement loop)"),
+              flush=True)
+
     # ---- results -----------------------------------------------------------
     src_spmv = "tpu_sparse_torch/csrc/dia_spmv.cu"
     src_cg = "tpu_sparse_torch/csrc/dia_cg.cu"
+    src_bicg = "tpu_sparse_torch/csrc/dia_bicgstab.cu"
+    k10 = "tpu_sparse/kernels/pallas_bicgstab.py:52"
     origin = {
         "dia_spmv_ext_f32": (src_spmv,
                              "tpu_sparse/kernels/pallas_spmv.py:279"),
@@ -411,15 +744,25 @@ def main() -> int:
                              "tpu_sparse/kernels/pallas_spmv.py:662"),
         "dia_cg_spmv_dot": (src_cg, "tpu_sparse/kernels/pallas_cg.py:51"),
         "dia_cg_update": (src_cg, "tpu_sparse/kernels/pallas_cg.py:51"),
+        "dia_bicgstab_q": (src_bicg, k10),
+        "dia_bicgstab_t": (src_bicg, k10),
+        "dia_bicgstab_update": (src_bicg, k10),
     }
+    launches = {k: sum(run[k] for run in main_runs.values() if k in run)
+                for k in origin}
+    print(f"  main-path launches by run: {main_runs}")
+    for k in origin:
+        check(launches[k] > 0, f"kernel {k} was not launched on the main "
+              "path")
     kernels = []
-    for name in MAIN_PATH_KERNELS:
-        src, repl = origin[name]
+    for name, (src, repl) in origin.items():
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": main_launches[name],
+                        "replaces": repl, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     print()
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -427,7 +770,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

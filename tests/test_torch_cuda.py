@@ -10,7 +10,14 @@ file imports no JAX, so it runs on a machine that has only torch:
 Tolerances: SpMV rel 1e-5 (f32) / 1e-13 (f64) against the plain version
 (the kernel fuses multiply-adds); fused CG iterations within 1 of the plain
 fused loop (dot products accumulate in double in the kernels) and x
-rtol 5e-3 / atol 5e-4.
+rtol 5e-3 / atol 5e-4. K10: each launch within 1e-5 of the vectors' scale
+of its plain version on the same mid-solve state; a whole fused solve
+with the plain loop's info, stopping between 2 iterations before and one
+block of 12 after the loop's first crossing (the rule of the JAX
+fused_bicgstab_ext). Solves on the card against the CPU: iterations
+(GMRES: cycles) within 2, x rtol 1e-3 (f32) / 1e-6 (f64); gradients
+through solve() rtol 5e-3 (f32: fused loops on the card, plain loops on
+the CPU, both at tol 1e-5) / 1e-6 (f64).
 """
 
 import numpy as np
@@ -18,7 +25,7 @@ import pytest
 import torch
 
 import tpu_sparse_torch
-from tpu_sparse_torch.kernels import cuda_cg, cuda_spmv
+from tpu_sparse_torch.kernels import cuda_bicgstab, cuda_cg, cuda_spmv
 from tpu_sparse_torch.kernels import reference as ref
 from tpu_sparse_torch.sparse import generators as gen
 
@@ -39,9 +46,9 @@ def _rel(a, b):
 @pytest.mark.parametrize("dtype,bound", [(np.float32, 1e-5),
                                          (np.float64, 1e-13)])
 @pytest.mark.parametrize("make", [
-    lambda dt: gen.tridiagonal(1500, dtype=dt),
-    lambda dt: gen.poisson2d(40, dtype=dt),
-    lambda dt: gen.poisson3d_27pt(13, 11, 7, dtype=dt),
+    lambda dt: gen.tridiagonal(1500, dtype=dt, device="cpu"),
+    lambda dt: gen.poisson2d(40, dtype=dt, device="cpu"),
+    lambda dt: gen.poisson3d_27pt(13, 11, 7, dtype=dt, device="cpu"),
 ], ids=["tridiagonal", "poisson2d", "poisson3d-odd"])
 def test_dia_spmv_kernel_matches_plain(dev, make, dtype, bound):
     A = make(dtype).to(dev)
@@ -76,7 +83,7 @@ def test_dia_spmv_kernel_rectangular_and_refusals(dev):
 
 @pytest.mark.parametrize("jacobi", [False, True])
 def test_fused_cg_kernels_match_plain_loop(dev, jacobi):
-    A = gen.poisson2d(64, dtype=np.float32)
+    A = gen.poisson2d(64, dtype=np.float32, device="cpu")
     if jacobi:
         data = A.data.clone()
         k = A.offsets.index(0)
@@ -112,7 +119,7 @@ def test_fused_cg_kernels_match_plain_loop(dev, jacobi):
     (np.float64, "full", "jacobi"),
 ])
 def test_solve_on_card_matches_cpu(dev, dtype, precision, M):
-    A = gen.poisson3d_27pt(24, dtype=dtype)
+    A = gen.poisson3d_27pt(24, dtype=dtype, device="cpu")
     x_true = torch.from_numpy(np.random.default_rng(2).standard_normal(
         A.shape[0]).astype(dtype))
     b = ref.dia_spmv(A, x_true)
@@ -125,3 +132,124 @@ def test_solve_on_card_matches_cpu(dev, dtype, precision, M):
     rtol = 1e-3 if dtype == np.float32 else 1e-6
     np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=rtol,
                                atol=rtol * float(xc.abs().max()))
+
+
+def _skewed(nx):
+    A = gen.poisson2d(nx, dtype=np.float32, device="cpu")
+    data = A.data.clone()
+    data[A.offsets.index(-1)] *= 1.3
+    data[A.offsets.index(1)] *= 0.7
+    return A.with_data(data)
+
+
+def test_fused_bicgstab_launches_match_plain(dev):
+    A = gen.convection_diffusion_3d_27pt(32, device=dev)
+    b = ref.dia_spmv(A, torch.from_numpy(np.random.default_rng(0)
+                                         .standard_normal(A.shape[0])
+                                         .astype(np.float32)).to(dev))
+    op = cuda_spmv.ExtendedStencilOperator(A)
+    bx = op.extend(b)
+    st = cuda_bicgstab.FusedBiCGStabState(op, bx)
+    st.run(torch.empty(3, device=dev))
+    pl = {k: v.clone() for k, v in dict(
+        x=st.x, r=st.r, p=st.p[st.cur], q=st.q[st.cur], s=st.s, t=st.t,
+        scal=st.scal, part=st.part).items()}
+    z = [torch.zeros_like(bx) for _ in range(4)]
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+    scale = float(bx.abs().max())
+    cuda_bicgstab.dia_bicgstab_q(op, st.r, st.p[st.cur], st.q[st.cur],
+                                 st.rhat, z[0], z[1], st.scal, st.part)
+    cuda_bicgstab.dia_bicgstab_q_plain(op, pl["r"], pl["p"], pl["q"],
+                                       st.rhat, z[2], z[3], pl["scal"],
+                                       pl["part"])
+    assert float((z[0] - z[2]).abs().max()) <= 1e-5 * scale
+    assert _rel(z[1], z[3]) <= 1e-5
+    cuda_bicgstab.dia_bicgstab_t(op, st.r, z[1], st.s, st.t, st.scal,
+                                 st.part, st.counter)
+    cuda_bicgstab.dia_bicgstab_t_plain(op, pl["r"], z[3], pl["s"], pl["t"],
+                                       pl["scal"], pl["part"], cnt)
+    assert _rel(st.s, pl["s"]) <= 1e-5 and _rel(st.t, pl["t"]) <= 1e-5
+    assert _rel(st.scal, pl["scal"]) <= 1e-5
+    hk = torch.zeros(1, device=dev)
+    hp = torch.zeros(1, device=dev)
+    cuda_bicgstab.dia_bicgstab_update(op, st.x, st.r, z[0], st.s, st.t,
+                                      st.rhat, st.scal, st.part, st.counter,
+                                      hk)
+    cuda_bicgstab.dia_bicgstab_update_plain(op, pl["x"], pl["r"], z[2],
+                                            pl["s"], pl["t"], st.rhat,
+                                            pl["scal"], pl["part"], cnt, hp)
+    assert _rel(st.x, pl["x"]) <= 1e-5 and _rel(st.r, pl["r"]) <= 1e-5
+    assert _rel(hk, hp) <= 1e-5 and _rel(st.scal, pl["scal"]) <= 1e-5
+    assert int(st.counter) == 0
+
+
+def test_fused_bicgstab_solve_matches_plain_loop_and_repeats(dev):
+    from tpu_sparse_torch.solvers import bicgstab_full
+
+    A = _skewed(64)
+    b = ref.dia_spmv(A, torch.from_numpy(np.random.default_rng(1)
+                                         .standard_normal(A.shape[0])
+                                         .astype(np.float32)))
+    Ad, bd = A.to(dev), b.to(dev)
+    before = dict(cuda_bicgstab.LAUNCHES)
+    xg, ig, itg, _ = cuda_bicgstab.fused_bicgstab_ext(
+        cuda_spmv.ExtendedStencilOperator(Ad), bd, tol=1e-5, maxiter=2000)
+    assert cuda_bicgstab.LAUNCHES["dia_bicgstab_q"] > before["dia_bicgstab_q"]
+    xp, ip, itp, _ = bicgstab_full(Ad, bd, tol=1e-5, maxiter=2000)
+    assert int(ig) == int(ip) == 0
+    # fused_bicgstab_ext counts the first crossing inside its final block
+    # of 12 (the JAX rule), and BiCGStab's residual is not monotone:
+    # it may stop up to one block after the loop's first crossing
+    assert int(itp) - 2 <= int(itg) <= int(itp) + 12, (int(itg), int(itp))
+    assert float(torch.linalg.vector_norm(bd - ref.dia_spmv(Ad, xg))) <= \
+        10 * 1e-5 * float(torch.linalg.vector_norm(bd))
+    xg2, _, itg2, _ = cuda_bicgstab.fused_bicgstab_ext(
+        cuda_spmv.ExtendedStencilOperator(Ad), bd, tol=1e-5, maxiter=2000)
+    assert int(itg2) == int(itg) and torch.equal(xg2, xg)
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "gmres"])
+@pytest.mark.parametrize("dtype,precision,M", [
+    (np.float32, "auto", None), (np.float32, "auto", "jacobi"),
+    (np.float64, "auto", None), (np.float64, "full", None),
+    (np.float64, "full", "jacobi"),
+])
+def test_nonsymmetric_solve_on_card_matches_cpu(dev, method, dtype,
+                                                precision, M):
+    A = gen.convection_diffusion_3d_27pt(24, dtype=dtype, device="cpu")
+    x_true = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        A.shape[0]).astype(dtype))
+    b = ref.dia_spmv(A, x_true)
+    tol = 1e-6 if dtype == np.float32 else 1e-9
+    kw = dict(method=method, tol=tol, precision=precision, M=M)
+    xc, rc = tpu_sparse_torch.solve(A, b, **kw)
+    xg, rg = tpu_sparse_torch.solve(A.to(dev), b.to(dev), **kw)
+    assert rc.converged and rg.converged
+    assert abs(rc.iterations - rg.iterations) <= 2
+    rtol = 1e-3 if dtype == np.float32 else 1e-6
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=rtol,
+                               atol=rtol * float(xc.abs().max()))
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab", "gmres"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_adjoint_on_card_matches_cpu(dev, method, dtype):
+    make = gen.poisson3d_27pt if method == "cg" \
+        else gen.convection_diffusion_3d_27pt
+    A = make(16, dtype=dtype, device="cpu")
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        A.shape[0]).astype(dtype))
+    # float32 GMRES stagnates near 1e-6 on the adjoint system x_bar = 1
+    tol = 1e-5 if dtype == np.float32 else 1e-10
+    grads = []
+    for where in ("cpu", dev):
+        data = A.data.to(where, copy=True).requires_grad_()
+        bb = b.to(where, copy=True).requires_grad_()
+        x, r = tpu_sparse_torch.solve(A.with_data(data), bb, method=method,
+                                      tol=tol, maxiter=500, precision="full")
+        assert r.converged
+        x.sum().backward()
+        grads.append((data.grad.cpu(), bb.grad.cpu()))
+    rtol = 5e-3 if dtype == np.float32 else 1e-6
+    for got, want in zip(grads[1], grads[0]):
+        assert _rel(got, want) <= rtol

@@ -32,7 +32,8 @@ MATRICES = {
 
 def _system(name, seed=0):
     Aj = MATRICES[name]()
-    At = dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape)
+    At = dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape,
+                        device="cpu")
     b = np.random.default_rng(seed).standard_normal(Aj.shape[0])
     return Aj, At, b
 

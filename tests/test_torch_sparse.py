@@ -21,13 +21,16 @@ GENERATORS = [
     ("poisson3d_27pt", (4, 3, 2), {"dtype": np.float64}),
     ("convection_diffusion", (30,), {"beta": 0.3}),
     ("poisson2d_anisotropic", (6,), {"eps": 10.0}),
+    ("convection_diffusion_3d_27pt", (5,), {}),
+    ("convection_diffusion_3d_27pt", (4,), {"beta": 0.5,
+                                            "dtype": np.float64}),
 ]
 
 
 @pytest.mark.parametrize("name,args,kw", GENERATORS)
 def test_generators_byte_equal(name, args, kw):
     Aj = getattr(jgen, name)(*args, **kw)
-    At = getattr(tgen, name)(*args, **kw)
+    At = getattr(tgen, name)(*args, device="cpu", **kw)
     dj = np.asarray(Aj.data)
     dt = At.data.numpy()
     assert dt.dtype == dj.dtype
@@ -36,14 +39,31 @@ def test_generators_byte_equal(name, args, kw):
     assert At.shape == Aj.shape
 
 
+def test_entry_points_default_to_the_card():
+    """Generators and the DIA constructors build on the card unless asked
+    for the CPU; without a card that default fails with torch's error."""
+    import inspect
+
+    fns = [getattr(tgen, name) for name, _, _ in GENERATORS]
+    fns += [tconvert.dia_from_offsets, tconvert.dia_from_numpy]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            tgen.poisson2d(3)
+        with pytest.raises((AssertionError, RuntimeError)):
+            tconvert.dia_from_numpy(np.ones((1, 3)), (0,), (3, 3))
+
+
 def test_poisson3d_default_dtype_float32():
-    assert tgen.poisson3d_27pt(3).data.dtype == torch.float32
-    assert tgen.poisson2d(3).data.dtype == torch.float64
+    assert tgen.poisson3d_27pt(3, device="cpu").data.dtype == torch.float32
+    assert tgen.poisson2d(3, device="cpu").data.dtype == torch.float64
 
 
 def test_dia_from_numpy_carries_jax_state():
     Aj = jgen.poisson2d(6)
-    At = tconvert.dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape)
+    At = tconvert.dia_from_numpy(np.asarray(Aj.data), Aj.offsets, Aj.shape,
+                                 device="cpu")
     assert np.array_equal(At.data.numpy(), np.asarray(Aj.data))
     assert At.offsets == Aj.offsets and At.shape == Aj.shape
     # a copy: the torch container owns writable memory
@@ -60,7 +80,7 @@ def test_dia_tocoo_todense_transpose_nnz(shape, offsets):
     rng = np.random.default_rng(3)
     data = rng.standard_normal((len(offsets), shape[0]))
     Aj = jconvert.dia_from_offsets(offsets, jnp.asarray(data), shape)
-    At = tconvert.dia_from_numpy(data, offsets, shape)
+    At = tconvert.dia_from_numpy(data, offsets, shape, device="cpu")
     np.testing.assert_array_equal(At.todense().numpy(),
                                   np.asarray(Aj.todense()))
     np.testing.assert_array_equal(At.T.todense().numpy(),
@@ -71,7 +91,7 @@ def test_dia_tocoo_todense_transpose_nnz(shape, offsets):
 
 def test_dia_to_csr_matches_jax():
     Aj = jgen.poisson2d(5)
-    At = tgen.poisson2d(5)
+    At = tgen.poisson2d(5, device="cpu")
     Cj = jconvert.to_csr(Aj)
     Ct = tconvert.to_csr(At)
     np.testing.assert_array_equal(Ct.data.numpy(), np.asarray(Cj.data))
@@ -86,7 +106,7 @@ def test_dia_to_csr_matches_jax():
 
 
 def test_containers_move_between_devices_keep_structure():
-    A = tgen.tridiagonal(8)
+    A = tgen.tridiagonal(8, device="cpu")
     B = A.to("cpu")
     assert B.offsets == A.offsets and B.shape == A.shape
     C = tconvert.to_csr(A).to("cpu")

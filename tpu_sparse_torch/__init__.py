@@ -1,23 +1,27 @@
 """tpu_sparse_torch — the PyTorch / NVIDIA H100 port of ``tpu_sparse``.
 
-This slice ports the stencil-CG main path: DIA/CSR/COO containers and
-generators, CG (no preconditioner or Jacobi) with mixed-precision
-refinement, and the ``SparseSolver`` / ``solve`` router, with hand-written
-CUDA kernels for the DIA SpMV and the fused CG iteration
-(``tpu_sparse_torch/csrc``). The package imports ``torch`` and never
-``jax``; on CPU tensors every kernel runs its plain PyTorch version.
+Ported so far: DIA/CSR/COO containers and generators; the Krylov core (CG,
+BiCGStab, GMRES with no preconditioner or Jacobi) with mixed-precision
+refinement and the adjoint gradient; the ``SparseSolver`` / ``solve``
+router; hand-written CUDA kernels for the DIA SpMV, the fused CG iteration
+and the fused BiCGStab iteration (``tpu_sparse_torch/csrc``). The package
+imports ``torch`` and never ``jax``; on CPU tensors every kernel runs its
+plain PyTorch version. Entry points that build matrices default to the
+card (``device="cuda"``).
 """
 
-from tpu_sparse_torch import config, kernels, sparse, utils
+from tpu_sparse_torch import autodiff, config, kernels, sparse, utils
 from tpu_sparse_torch.api import SolverResult, SparseSolver, solve
-from tpu_sparse_torch.solvers import cg
+from tpu_sparse_torch.autodiff import bicgstab_diff, cg_diff, gmres_diff
+from tpu_sparse_torch.solvers import bicgstab, cg, gmres
 from tpu_sparse_torch.sparse import COO, CSR, DIA
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
-    "config", "kernels", "sparse", "utils",
+    "autodiff", "config", "kernels", "sparse", "utils",
     "COO", "CSR", "DIA",
-    "cg",
+    "bicgstab", "cg", "gmres",
+    "bicgstab_diff", "cg_diff", "gmres_diff",
     "SparseSolver", "SolverResult", "solve",
 ]

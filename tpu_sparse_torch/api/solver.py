@@ -1,17 +1,26 @@
 """Unified solver router: ``SparseSolver``, ``solve``, ``SolverResult``.
 
 Counterpart of ``tpu_sparse/api/solver.py`` for the slice this package
-ports: the ``krylov`` backend with method ``cg``, no preconditioner or
-Jacobi, on any operand, with the extended-layout CUDA fast paths for square
-DIA systems:
+ports: the ``krylov`` backend with methods ``cg``, ``bicgstab`` and
+``gmres``, no preconditioner or Jacobi, on any operand, with the
+extended-layout CUDA fast paths for square DIA systems:
 
-* float32 ``b`` on CUDA: fused CG kernels (``autodiff.implicit.ext_run``);
+* float32 ``b`` on CUDA: ``autodiff.implicit.ext_run`` (fused CG kernels,
+  K10 for bicgstab without x0 and M, else the method's loop over kernel 1);
 * float64 ``b``, ``precision="auto"`` (tol >= 1e-12): defect correction
-  (``solvers.mixed.cg_refined``), f32 inner sweeps over the extended
-  operator and f64 outer residuals by the fp64 kernel on CUDA;
-* float64 ``b``, ``precision="full"`` on CUDA (tol >= 1e-11): CG with
-  matvecs by the fp64 extended kernel (``ext_run_f64``);
-* everything else: ``cg_full`` on the operand (CUDA DIA SpMV is kernel 1).
+  (``solvers.mixed.cg_refined`` / ``bicgstab_refined`` / ``gmres_refined``),
+  f32 inner sweeps over the extended operator and f64 outer residuals by
+  the fp64 kernel on CUDA;
+* float64 ``b``, ``precision="full"`` on CUDA (tol >= 1e-11): the method
+  with matvecs by the fp64 extended kernel (``ext_run_f64``);
+* everything else: the method's ``*_full`` on the operand (CUDA DIA SpMV
+  is kernel 1).
+
+Every full-precision solve runs through the adjoint wrappers of
+``autodiff.implicit``, as in the JAX router, so ``solve()`` is
+differentiable in ``b`` and in a matrix operand's values. The
+mixed-precision path is not (nor is it in JAX), and refuses inputs that
+require grad.
 
 The JAX ``jit``/``lru_cache`` wrappers are plain calls here. Parts of the
 JAX router outside this slice raise ``NotImplementedError`` naming their
@@ -43,9 +52,8 @@ _BACKEND_ALIASES = {
 }
 
 _Q1 = "ROADMAP queue 1, item "
+_KRYLOV_METHODS = ("cg", "bicgstab", "gmres")
 _DEFERRED_METHODS = {
-    "bicgstab": _Q1 + "3 (Krylov core: BiCGStab, with fused kernel K10)",
-    "gmres": _Q1 + "3 (Krylov core: GMRES)",
     "cg_sr": _Q1 + "14 (other solvers)",
     "fcg": _Q1 + "14 (other solvers)",
     "minres": _Q1 + "14 (other solvers)",
@@ -176,15 +184,16 @@ class SparseSolver:
               **kwargs) -> Tuple[torch.Tensor, SolverResult]:
         """Solve Ax = b. Returns (x, SolverResult).
 
-        precision: 'full' solves in b's dtype; 'mixed' runs f32 inner CG
-        sweeps with defect correction to the requested tolerance; 'auto'
-        picks 'mixed' for real float64 solves with tol >= 1e-12 and a matrix
-        operand, 'full' otherwise.
+        precision: 'full' solves in b's dtype; 'mixed' runs f32 inner
+        Krylov sweeps with defect correction to the requested tolerance;
+        'auto' picks 'mixed' for real float64 solves with tol >= 1e-12 and
+        a matrix operand, 'full' otherwise. 'full' is differentiable in b
+        and a matrix operand's values (one adjoint solve); 'mixed' is not.
 
         M: None, a preconditioner callable, or 'jacobi'.
 
-        restart and solve_method are the JAX router's GMRES options,
-        accepted for the same signature; CG does not read them.
+        restart and solve_method: GMRES's restart length and
+        'batched' | 'incremental'; the other methods do not read them.
         """
         if precision not in ("auto", "full", "mixed"):
             raise ValueError(f"unknown precision '{precision}'; use "
@@ -205,24 +214,32 @@ class SparseSolver:
         if sel_method in _DEFERRED_METHODS:
             raise _not_ported(f"method '{sel_method}'",
                               _DEFERRED_METHODS[sel_method])
-        if sel_method != "cg":
+        if sel_method not in _KRYLOV_METHODS:
             raise ValueError(f"unknown krylov method: {sel_method}")
         _check_in_slice(A, b, x0, M)
         if precision == "auto":
             precision = ("mixed" if _auto_mixed_ok(A, b, tol, sel_backend)
                          else "full")
+        if precision == "mixed" and _requires_grad(A, b, x0, M):
+            raise ValueError(
+                "precision='mixed' is not differentiable (its inner solves "
+                "are iteration loops; the JAX package refuses the same): "
+                "pass precision='full' to differentiate through solve()")
         if self.verbose:
             print(f"[SparseSolver] backend={sel_backend} "
                   f"method={sel_method} precision={precision}")
         if isinstance(M, str):
             M = self._precond_M(A, M)
 
+        kw = dict(tol=tol, atol=atol, maxiter=maxiter)
+        if sel_method == "gmres":
+            kw.update(restart=restart, solve_method=solve_method)
         if precision == "mixed":
             x, info, iters, res, rel = self._solve_krylov_mixed(
-                A, b, x0, sel_method, tol, atol, maxiter, M)
+                A, b, x0, sel_method, kw, M)
         else:
             x, info, iters, res, rel = self._solve_krylov(
-                A, b, x0, sel_method, tol, atol, maxiter, M)
+                A, b, x0, sel_method, kw, M)
         result = SolverResult(x=x, converged=(info == 0), iterations=iters,
                               residual=rel, backend=sel_backend,
                               method=sel_method)
@@ -245,47 +262,62 @@ class SparseSolver:
                 "matrix-free callables must pass M as a callable")
         return jacobi_preconditioner(A)
 
-    def _solve_krylov(self, A, b, x0, method, tol, atol, maxiter, M):
-        from tpu_sparse_torch.autodiff.implicit import ext_run, ext_run_f64
-        from tpu_sparse_torch.solvers.krylov import cg_full
+    def _solve_krylov(self, A, b, x0, method, kw, M):
+        from tpu_sparse_torch.autodiff import implicit
 
-        kw = dict(tol=tol, atol=atol, maxiter=maxiter)
         fast = (isinstance(A, DIA) and _extendable_m(M)
                 and isinstance(b, torch.Tensor) and b.is_cuda
                 and A.data.is_cuda and A.data.dtype == b.dtype
                 and extendable(A))
         if fast and b.dtype == torch.float32:
-            out = ext_run(method, kw, A, b, x0, M)
-            return out + (out[3] / _safe_norm(b),)
-        if fast and b.dtype == torch.float64 and tol >= 1e-11:
-            out = ext_run_f64(method, kw, A, b, x0, M)
-            return out + (out[3] / _safe_norm(b),)
-        out = cg_full(A, b, x0, M=M, **kw)
+            out = implicit.ext_krylov_diff(method, kw, A, b, x0, M)
+            return out + (out[3] / _safe_norm(b.detach()),)
+        if fast and b.dtype == torch.float64 and kw["tol"] >= 1e-11:
+            out = implicit.ext_krylov_diff_f64(method, kw, A, b, x0, M)
+            return out + (out[3] / _safe_norm(b.detach()),)
+        diff = {"cg": implicit.cg_diff, "bicgstab": implicit.bicgstab_diff,
+                "gmres": implicit.gmres_diff}[method]
+        out = diff(A, b, x0, M=M, **kw)
         return out + (_relative_residual(A, b, out[0]),)
 
-    def _solve_krylov_mixed(self, A, b, x0, method, tol, atol, maxiter, M):
-        from tpu_sparse_torch.solvers.mixed import cg_refined
+    def _solve_krylov_mixed(self, A, b, x0, method, kw, M):
+        from tpu_sparse_torch.solvers import mixed
 
-        out = cg_refined(A, b, x0, tol=tol, atol=atol, maxiter=maxiter, M=M)
+        refined = {"cg": mixed.cg_refined,
+                   "bicgstab": mixed.bicgstab_refined,
+                   "gmres": mixed.gmres_refined}[method]
+        out = refined(A, b, x0, M=M, **kw)
         return out + (_relative_residual(A, b, out[0]),)
 
     def cg(self, A, b, **kw):
         return self.solve(A, b, method="cg", **kw)
 
+    def bicgstab(self, A, b, **kw):
+        return self.solve(A, b, method="bicgstab", **kw)
+
+    def gmres(self, A, b, **kw):
+        return self.solve(A, b, method="gmres", **kw)
+
+
+def _tensors(A, b, x0, M) -> list:
+    out = [b, x0, A if isinstance(A, torch.Tensor)
+           else getattr(A, "data", None)]
+    if isinstance(M, DiagonalPreconditioner):
+        out.append(M.dinv)
+    return [t for t in out if isinstance(t, torch.Tensor)]
+
+
+def _requires_grad(A, b, x0, M) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensors(A, b, x0, M))
+
 
 def _check_in_slice(A, b, x0, M) -> None:
     """Refuse inputs the slice does not cover yet, naming the queue item."""
-    tensors = [b, x0, A if isinstance(A, torch.Tensor)
-               else getattr(A, "data", None)]
-    if isinstance(M, DiagonalPreconditioner):
-        tensors.append(M.dinv)
-    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise _not_ported(
-            "differentiating through solve() (inputs that require grad)",
-            _Q1 + "6 (adjoint torch.autograd.Function)")
+    tensors = _tensors(A, b, x0, M)
     if isinstance(b, torch.Tensor) and b.dim() == 2:
         raise _not_ported("multi-RHS b", _Q1 + "13 (multi-RHS)")
-    if any(isinstance(t, torch.Tensor) and t.is_complex() for t in tensors):
+    if any(t.is_complex() for t in tensors):
         raise _not_ported("complex input", _Q1 + "13 (native complex)")
 
 
@@ -295,7 +327,9 @@ def _safe_norm(b) -> torch.Tensor:
 
 
 def _relative_residual(A, b, x) -> torch.Tensor:
-    return tree_norm(tree_sub(b, as_matvec(A)(x))) / _safe_norm(b)
+    """||b - A x|| / ||b||, off the autograd graph (a report)."""
+    with torch.no_grad():
+        return tree_norm(tree_sub(b, as_matvec(A)(x))) / _safe_norm(b)
 
 
 def _extendable_m(M) -> bool:
@@ -332,3 +366,11 @@ def solve(A, b, method: str = "cg", backend: str = "auto", **kwargs):
 
 def cg(A, b, **kwargs):
     return solve(A, b, method="cg", **kwargs)
+
+
+def bicgstab(A, b, **kwargs):
+    return solve(A, b, method="bicgstab", **kwargs)
+
+
+def gmres(A, b, **kwargs):
+    return solve(A, b, method="gmres", **kwargs)

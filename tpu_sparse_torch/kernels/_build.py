@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``tpu_sparse_torch/csrc``.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded through ``ctypes``. The build runs at first
+The sources compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source
+started together, and link into one shared library with a plain C
+interface, loaded through ``ctypes``. The build runs at first
 use into ``tpu_sparse_torch/_build/<hash>/``, keyed by a hash of the
 sources and flags, so a fresh checkout builds everything on its first
 kernel launch and an edited source rebuilds. Nothing here runs at import:
@@ -26,7 +27,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libtpu_sparse_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -73,20 +74,36 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
+    nvcc = find_nvcc()
+    work = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    steps = []  # (command, process), all compiles started together
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+               str(work / (src.stem + ".o")), str(src)]
+        steps.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, proc in steps:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{err}")
+    if not failed:
+        tmp = work / LIB_NAME
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *sorted(str(o) for o in work.glob("*.o"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stderr}")
     build_seconds = time.perf_counter() - t0
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+    (out_dir / "nvcc.log").write_text("".join(log))
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)
+    shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 
@@ -108,6 +125,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         # counter, hist, init, grid, stream
         "ts_dia_cg_update": [L, L, P, P, P, P, P, P, I, P, P, P, P, P, I, I,
                              P],
+        # data, ld, offsets, ndiag, n, wl, r, p_prev, q_prev, rhat, p_new,
+        # q_new, scal, part, grid, stream
+        "ts_dia_bicgstab_q": [P, L, P, I, L, L, P, P, P, P, P, P, P, P, I, P],
+        # data, ld, offsets, ndiag, n, wl, r, q, s, t, scal, part, counter,
+        # grid, stream
+        "ts_dia_bicgstab_t": [P, L, P, I, L, L, P, P, P, P, P, P, P, I, P],
+        # n, wl, x, r, p, s, t, rhat, scal, part, counter, hist, init, grid,
+        # stream
+        "ts_dia_bicgstab_update": [L, L, P, P, P, P, P, P, P, P, P, P, I, I,
+                                   P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

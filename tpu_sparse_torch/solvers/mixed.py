@@ -1,7 +1,7 @@
 """Mixed-precision iterative refinement (defect correction).
 
 Counterpart of ``tpu_sparse/solvers/mixed.py`` (``refined_solve``,
-``_make_inner``, ``cg_refined``):
+``_make_inner``, ``cg_refined``, ``bicgstab_refined``, ``gmres_refined``):
 
     x = 0  (f64)
     repeat:
@@ -12,8 +12,9 @@ Counterpart of ``tpu_sparse/solvers/mixed.py`` (``refined_solve``,
 
 followed by one full-precision rescue solve when the sweeps stall. On CUDA
 DIA operands the outer f64 residuals run the fp64 extended kernel and the
-inner f32 sweeps run CG over the f32 extended operator. The JAX version is
-a static unroll with masked no-op sweeps; here the sweep loop is Python
+inner f32 sweeps run the method's loop over the f32 extended operator.
+The JAX version is a static unroll with masked no-op sweeps; here the sweep
+loop is Python
 with one host read per sweep and stops at the first done sweep, which
 gives the same x, info and iteration count (a done sweep of the unroll
 solves a zero right-hand side in 0 iterations and is never accepted).
@@ -29,13 +30,15 @@ from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.kernels.cuda_spmv import (make_extended_operator,
                                                 make_extended_operator_f64)
 from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
-from tpu_sparse_torch.solvers.krylov import _default_maxiter, cg_full
+from tpu_sparse_torch.solvers.krylov import (_default_maxiter, bicgstab_full,
+                                             cg_full, gmres_full)
 from tpu_sparse_torch.sparse.containers import DIA, is_sparse
 from tpu_sparse_torch.utils.tree import (
     tree_add,
     tree_leaves,
     tree_map,
     tree_norm,
+    tree_size,
     tree_sub,
     tree_where,
     tree_zeros_like,
@@ -186,3 +189,46 @@ def cg_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
     return refined_solve(cg_full, A, b, x0, tol=tol, atol=atol,
                          inner_tol=inner_tol, maxiter=maxiter,
                          max_sweeps=max_sweeps, M=M)
+
+
+def bicgstab_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
+                     inner_tol: float = 1e-5, maxiter: Optional[int] = None,
+                     max_sweeps: int = 8, M=None):
+    """f64-accurate BiCGStab at f32 speed via defect correction."""
+    return refined_solve(bicgstab_full, A, b, x0, tol=tol, atol=atol,
+                         inner_tol=inner_tol, maxiter=maxiter,
+                         max_sweeps=max_sweeps, M=M)
+
+
+# Systems at or below this size run full GMRES (restart = n) under the
+# adaptive-restart policy: exact termination in <= n Arnoldi steps beats
+# thousands of small restart cycles on ill-conditioned systems.
+_ADAPTIVE_FULL_GMRES_N = 1024
+
+
+def gmres_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
+                  inner_tol: float = 1e-5, restart: int = 20,
+                  maxiter: Optional[int] = None, max_sweeps: int = 8,
+                  M=None, solve_method: str = "batched",
+                  adaptive_restart: bool = True):
+    """Mixed-precision GMRES via defect correction.
+
+    ``adaptive_restart`` treats ``restart`` as a hint: for n <= 1024 the
+    restart is raised to n (full GMRES). When the restart reaches n, each
+    f32 sweep runs one cycle and the f64 rescue at most four: exact
+    termination makes further cycles waste for a stalled inner solve.
+    ``adaptive_restart=False`` keeps the reference's fixed restart."""
+    n = tree_size(b)
+    inner_cap = None
+    rescue_cap = None
+    if adaptive_restart and restart < n and n <= _ADAPTIVE_FULL_GMRES_N:
+        restart = n
+    if restart >= n:
+        inner_cap = 1
+        rescue_cap = 4
+    return refined_solve(gmres_full, A, b, x0, tol=tol, atol=atol,
+                         inner_tol=inner_tol, maxiter=maxiter,
+                         max_sweeps=max_sweeps, M=M, restart=restart,
+                         solve_method=solve_method,
+                         inner_maxiter=inner_cap,
+                         rescue_maxiter=rescue_cap)

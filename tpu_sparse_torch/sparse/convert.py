@@ -20,24 +20,21 @@ def _np(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def dia_from_offsets(offsets, diag_data, shape, device=None) -> DIA:
-    """DIA from offsets and an (ndiag, n) array; numpy input is wrapped
-    without a copy on the CPU."""
+def dia_from_offsets(offsets, diag_data, shape, device="cuda") -> DIA:
+    """DIA from offsets and an (ndiag, n) array on ``device`` (the card
+    unless the caller asks for the CPU); numpy input is wrapped without a
+    copy when it stays on the CPU."""
     if isinstance(diag_data, np.ndarray) and diag_data.flags.writeable:
         data = torch.from_numpy(diag_data)
     else:
         data = torch.as_tensor(_np(diag_data).copy())
-    return DIA(data.to(device) if device is not None else data,
-               tuple(int(o) for o in offsets), shape)
+    return DIA(data.to(device), tuple(int(o) for o in offsets), shape)
 
 
-def dia_from_numpy(data, offsets, shape, device=None) -> DIA:
+def dia_from_numpy(data, offsets, shape, device="cuda") -> DIA:
     """Copy an (ndiag, n) array-like and its offsets into a DIA on
-    ``device`` (default CPU)."""
-    arr = np.array(data, copy=True)
-    t = torch.from_numpy(arr)
-    if device is not None:
-        t = t.to(device)
+    ``device`` (the card unless the caller asks for the CPU)."""
+    t = torch.from_numpy(np.array(data, copy=True)).to(device)
     return DIA(t, tuple(int(o) for o in offsets), tuple(int(s) for s in shape))
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``tpu_sparse/sparse/generators.py``: the same numpy
 construction, offsets and default dtypes, so both packages give byte-equal
-arrays. Matrices come back as DIA on ``device`` (default CPU).
+arrays. Matrices come back as DIA on ``device``: the card unless the
+caller asks for ``device="cpu"`` (with no card the default fails with
+torch's own error).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from tpu_sparse_torch.sparse.convert import dia_from_offsets
 
 
 def tridiagonal(n: int, main: float = 2.0, off: float = -1.0,
-                dtype=np.float64, device=None) -> DIA:
+                dtype=np.float64, device="cuda") -> DIA:
     """Tridiagonal Toeplitz matrix (reference: matrix_utils.py:143-190)."""
     data = np.zeros((3, n), dtype=dtype)
     data[0, :] = off  # offset -1: A[i, i-1], valid for i >= 1
@@ -26,7 +28,7 @@ def tridiagonal(n: int, main: float = 2.0, off: float = -1.0,
 
 
 def poisson2d(nx: int, ny: "int | None" = None, dtype=np.float64,
-              device=None) -> DIA:
+              device="cuda") -> DIA:
     """2-D 5-point Poisson (Dirichlet), row-major grid ordering
     (reference: matrix_utils.py:193-257)."""
     if ny is None:
@@ -45,7 +47,7 @@ def poisson2d(nx: int, ny: "int | None" = None, dtype=np.float64,
 
 
 def poisson3d_27pt(nx: int, ny: "int | None" = None, nz: "int | None" = None,
-                   dtype=np.float32, device=None) -> DIA:
+                   dtype=np.float32, device="cuda") -> DIA:
     """3-D 27-point Poisson-like stencil (BASELINE.json configs[4]):
     center 26, all 26 neighbors -1 (zeroed outside the grid), offsets
     sorted."""
@@ -84,7 +86,7 @@ def poisson3d_27pt(nx: int, ny: "int | None" = None, nz: "int | None" = None,
 
 
 def convection_diffusion(n: int, beta: float = 0.5, dtype=np.float64,
-                         device=None) -> DIA:
+                         device="cuda") -> DIA:
     """Nonsymmetric diagonally dominant tridiagonal (upwind)
     convection-diffusion operator."""
     data = np.zeros((3, n), dtype=dtype)
@@ -97,7 +99,7 @@ def convection_diffusion(n: int, beta: float = 0.5, dtype=np.float64,
 
 
 def poisson2d_anisotropic(nx: int, eps: float = 100.0, dtype=np.float64,
-                          device=None) -> DIA:
+                          device="cuda") -> DIA:
     """2-D 5-point Poisson with anisotropic coefficients: -u_xx - eps u_yy."""
     n = nx * nx
     i = np.arange(n)
@@ -110,3 +112,17 @@ def poisson2d_anisotropic(nx: int, eps: float = 100.0, dtype=np.float64,
     data[3] = np.where(ix < nx - 1, -1.0, 0.0)
     data[4] = np.where(iy < nx - 1, -eps, 0.0)
     return dia_from_offsets((-nx, -1, 0, 1, nx), data, (n, n), device)
+
+
+def convection_diffusion_3d_27pt(nx: int, beta: float = 0.3,
+                                 dtype=np.float32, device="cuda") -> DIA:
+    """Nonsymmetric 3-D 27-point convection-diffusion: the 27-point Poisson
+    stencil with upwind-skewed +-x couplings (-(1+beta) upstream, -(1-beta)
+    downstream); row sums stay diagonally dominant, so BiCGStab and GMRES
+    converge unpreconditioned (the at-scale nonsymmetric system)."""
+    A = poisson3d_27pt(nx, dtype=dtype, device="cpu")
+    data = A.data.numpy().copy()
+    offs = list(A.offsets)
+    data[offs.index(-1)] *= dtype(1.0 + beta)
+    data[offs.index(1)] *= dtype(1.0 - beta)
+    return dia_from_offsets(tuple(offs), data, A.shape, device)
