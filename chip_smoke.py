@@ -14,7 +14,13 @@ counters set to 0 just before it and read just after:
   27-point convection-diffusion system at n = 160^3, then both methods in
   float64 'auto' and 'full' at 64^3; phase (9) differentiates a cg and a
   bicgstab solve on the card (the bicgstab backward runs K10 on A^T) and
-  holds the gradients against the CPU's.
+  holds the gradients against the CPU's;
+* phase (13): the general-structure path, CG / BiCGStab / GMRES(20) on the
+  CWELL packs of the same 160^3 systems taken as general CSR (every matvec
+  K4, f32), f64 'full' (K5) and 'auto' (K4 inner sweeps, K5 outer
+  residuals), the adjoint on a CWELL, and ``reorder="rcm"``. Phase (12)
+  checks K4/K5 on edge packs and the card's packer against the CPU's;
+  phase (14) times K4/K5 and the CWELL solves beside the DIA ones.
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
@@ -70,7 +76,7 @@ def main() -> int:
 
     import tpu_sparse_torch
     from tpu_sparse_torch.kernels import (_build, cuda_bicgstab, cuda_cg,
-                                          cuda_spmv)
+                                          cuda_cwell, cuda_spmv)
     from tpu_sparse_torch.kernels import reference as ref
     from tpu_sparse_torch.precond.jacobi import (DiagonalPreconditioner,
                                                  jacobi_preconditioner)
@@ -413,16 +419,17 @@ def main() -> int:
               flush=True)
 
     A_cg, A64_cg = A, A64   # kernel 1 was timed on these
+    b_cg = b                # cg_110M's right-hand side, for phase (13)
     del A64L, b64L, x64L_true
     torch.cuda.empty_cache()
     main_runs = {"phases (4)-(5)": main_launches}
 
     def counts():
         return {**cuda_spmv.LAUNCHES, **cuda_cg.LAUNCHES,
-                **cuda_bicgstab.LAUNCHES}
+                **cuda_bicgstab.LAUNCHES, **cuda_cwell.LAUNCHES}
 
     def reset_counts():
-        for mod in (cuda_spmv, cuda_cg, cuda_bicgstab):
+        for mod in (cuda_spmv, cuda_cg, cuda_bicgstab, cuda_cwell):
             mod.reset_launch_counts()
 
     # ---- (7) K10 against the plain versions --------------------------------
@@ -731,6 +738,17 @@ def main() -> int:
                  else "not measured (no plain refinement loop)"),
               flush=True)
 
+    # ---- (12)-(14) the general-structure path (CWELL, K4 / K5) ------------
+    def times(fn, inner):
+        ts = cuda_times_ms(fn, warmup=1 if inner == 1 else 2, reps=5,
+                           inner=inner)
+        return float(np.median(ts)), min(ts), max(ts)
+
+    general_structure_phases(
+        dev, MAIN_NX, note=note, counts=counts, reset_counts=reset_counts,
+        main_runs=main_runs, times=times, cg_dia_iters=solves[None],
+        A_cg=A_cg, b_cg=b_cg, A_cd=A, b_cd=b)
+
     # ---- results -----------------------------------------------------------
     src_spmv = "tpu_sparse_torch/csrc/dia_spmv.cu"
     src_cg = "tpu_sparse_torch/csrc/dia_cg.cu"
@@ -747,6 +765,10 @@ def main() -> int:
         "dia_bicgstab_q": (src_bicg, k10),
         "dia_bicgstab_t": (src_bicg, k10),
         "dia_bicgstab_update": (src_bicg, k10),
+        "cwell_spmv_f32": ("tpu_sparse_torch/csrc/cwell_spmv.cu",
+                           "tpu_sparse/kernels/pallas_cwell.py:48"),
+        "cwell_spmv_f64": ("tpu_sparse_torch/csrc/cwell_spmv.cu",
+                           "tpu_sparse/kernels/pallas_cwell.py:307"),
     }
     launches = {k: sum(run[k] for run in main_runs.values() if k in run)
                 for k in origin}
@@ -770,6 +792,318 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+def check_cwell_refusals(W, dev) -> None:
+    """K4's wrapper raises on CPU operands, a non-contiguous x and mixed
+    dtypes (a float32 pack W of width 200 on the card)."""
+    import torch
+
+    from tpu_sparse_torch.kernels import cuda_cwell
+
+    x = torch.ones(200, device=dev)
+    for bad_W, bad_x, exc in ((W, x.cpu(), ValueError),
+                              (W.to("cpu"), x, ValueError),
+                              (W, torch.ones(400, device=dev)[::2],
+                               ValueError),
+                              (W, x.double(), TypeError)):
+        try:
+            cuda_cwell.cwell_spmv_cuda(bad_W, bad_x)
+        except exc:
+            continue
+        raise AssertionError("cwell_spmv_cuda took an operand it must "
+                             "refuse")
+    print("  cwell_spmv_cuda refuses CPU operands, a non-contiguous x and "
+          "mixed dtypes")
+
+
+def general_structure_phases(dev, nx, *, note, counts, reset_counts,
+                             main_runs, times, cg_dia_iters, A_cg, b_cg,
+                             A_cd, b_cd):
+    """Phases (12)-(14): K4 / K5 on edge packs, the general-structure main
+    path on the CWELL packs of the nx^3 systems, and their times.
+
+    ``A_cg`` / ``b_cg``: the Poisson DIA system of phase (4), whose CG took
+    ``cg_dia_iters`` iterations there; ``A_cd`` / ``b_cd``: the
+    convection-diffusion DIA system of phase (8); ``times(fn, inner)``:
+    (median, min, max) ms of 5 device-timed rounds."""
+    import scipy.sparse as sp
+    import torch
+
+    import tpu_sparse_torch
+    from tpu_sparse_torch.kernels import cuda_cwell
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.sparse import CWELL, DIA, to_gpu_operator
+    from tpu_sparse_torch.sparse import convert as conv
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.cwell import coo_arrays_to_csr, csr_to_cwell
+
+    bound = {torch.float32: 1e-5, torch.float64: 1e-13}
+    norm = torch.linalg.vector_norm
+
+    # ---- (12) K4 and K5 against their plain versions -----------------------
+    phase("(12) K4 / K5 (cwell_spmv) against the plain version on edge "
+          "packs; the card's packer against the CPU's")
+    rng = np.random.default_rng(SEED)
+
+    def random_csr(n_, m_, per_row, dtype, where=dev):
+        """Up to per_row random entries a row (duplicates summed)."""
+        rows = np.repeat(np.arange(n_), per_row)
+        S = sp.csr_matrix((rng.standard_normal(rows.size).astype(dtype),
+                           (rows, rng.integers(0, m_, rows.size))),
+                          shape=(n_, m_))
+        S.sort_indices()
+        return conv.csr_from_arrays(S.data, S.indices, S.indptr, (n_, m_),
+                                    device=where)
+
+    def check_cwell(label, W, x):
+        """K4/K5 against reference.cwell_spmv: max abs error <= bound *
+        max|y| (exactly 0 where y is 0); a rerun gives the same bits."""
+        y0 = ref.cwell_spmv(W, x)
+        y1 = cuda_cwell.cwell_spmv_cuda(W, x)
+        y2 = cuda_cwell.cwell_spmv_cuda(W, x)
+        torch.cuda.synchronize()
+        scale = float(y0.abs().max()) if y0.numel() else 0.0
+        err = float((y1 - y0).abs().max()) if y0.numel() else 0.0
+        name = str(x.dtype).replace("torch.", "")
+        print(f"  {label:34s} {name} S={W.planes:<4d} fill {W.fill:.3f} "
+              f"Q={W.group}: max abs err {err:.2e} (max|y| {scale:.2e})")
+        check(err <= bound[x.dtype] * scale,
+              f"K4/K5 disagree with the plain version on {label} {name}")
+        check(torch.equal(y1, y2), f"K4/K5 rerun differs on {label} {name}")
+        return err
+
+    for label, n_, m_, k_ in (("random 6000x5000", 6000, 5000, 8),
+                              ("rectangular 1000x3001", 1000, 3001, 6),
+                              ("rectangular 3001x1000", 3001, 1000, 6),
+                              ("m < 256: 300x200", 300, 200, 5),
+                              ("n, m not x128: 1001x777", 1001, 777, 7),
+                              ("empty 300x300", 300, 300, 0),
+                              ("empty 5x5", 5, 5, 0)):
+        for dt in (np.float32, np.float64):
+            A_ = random_csr(n_, m_, k_, dt)
+            x_ = torch.from_numpy(rng.standard_normal(m_).astype(dt)).to(dev)
+            for Q in (1, 2, 4, 8) if label.startswith("random") else (1,):
+                check_cwell(label, csr_to_cwell(A_, group=Q), x_)
+    # the card's packer against the CPU's, byte for byte, at 32^3
+    A32 = conv.to_csr(gen.poisson3d_27pt(32, device=dev))
+    x32 = torch.from_numpy(rng.standard_normal(A32.shape[1]).astype(
+        np.float32)).to(dev)
+    for Q in (1, 4):
+        Wg, Wc = csr_to_cwell(A32, group=Q), csr_to_cwell(A32.to("cpu"),
+                                                           group=Q)
+        same = all(torch.equal(getattr(Wg, k).cpu(), getattr(Wc, k))
+                   for k in ("vals", "idx2", "srow"))
+        print(f"  poisson3d_27pt(32) as CSR, Q={Q}: card pack == CPU pack: "
+              f"{same} (S={Wg.planes}, fill {Wg.fill:.4f})")
+        check(same and Wg.fill == Wc.fill, "the card's pack differs")
+        check_cwell(f"poisson3d_27pt(32) CSR, Q={Q}", Wg, x32)
+        check_cwell(f"poisson3d_27pt(32) CSR, Q={Q}",
+                    Wg.with_data(Wg.vals.double()), x32.double())
+    check_cwell_refusals(csr_to_cwell(random_csr(300, 200, 5, np.float32)),
+                         dev)
+    del A32, Wg, Wc
+
+    # ---- (13) main path: general structure ---------------------------------
+    phase(f"(13) main path: solve() on CWELL packs of the {nx}^3 systems "
+          f"taken as general CSR")
+    rng = np.random.default_rng(SEED)
+    A_dia, b = A_cg, b_cg
+    n = A_dia.shape[0]
+    t0 = time.perf_counter()
+    A = conv.to_csr(A_dia)
+    torch.cuda.synchronize()
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    W = csr_to_cwell(A)
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    print(f"  poisson3d_27pt({nx}) as CSR: n={n} nnz={A.nnz} (to_csr "
+          f"{t_csr:.2f} s); CWELL pack on the card {t_pack * 1e3:.1f} ms "
+          f"(wall): S={W.planes} fill {W.fill:.4f} slots {W.vals.numel()}")
+    nz = A.data != 0
+    A_nz = coo_arrays_to_csr(A.row_ids()[nz], A.indices[nz], A.data[nz],
+                             A.shape)
+    Wc = W.tocsr()
+    check(all(torch.equal(getattr(Wc, k), getattr(A_nz, k))
+              for k in ("data", "indices", "indptr")),
+          "W.tocsr() differs from A")
+    print(f"  W.tocsr() == A without its {A.nnz - A_nz.nnz} explicit zeros")
+    del nz, A_nz, Wc
+    op_d = to_gpu_operator(A)
+    op_c = to_gpu_operator(A, max_diags=16)
+    print(f"  to_gpu_operator(A) -> {op_d}; (A, max_diags=16) -> {op_c}")
+    check(isinstance(op_d, DIA) and op_d.offsets == A_dia.offsets,
+          "to_gpu_operator did not return the DIA matrix")
+    check(isinstance(op_c, CWELL) and torch.equal(op_c.vals, W.vals),
+          "to_gpu_operator(max_diags=16) did not return the CWELL pack")
+    del op_d, op_c
+    C = conv.to_csr(A_cd)
+    WC = csr_to_cwell(C)
+    print(f"  convection_diffusion_3d_27pt({nx}) as CSR: CWELL S="
+          f"{WC.planes} fill {WC.fill:.4f}")
+    A64_dia = gen.poisson3d_27pt(nx, dtype=np.float64, device=dev)
+    A64 = conv.to_csr(A64_dia)
+    W64 = csr_to_cwell(A64)
+    x64_true = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    b64 = ref.dia_spmv(A64_dia, x64_true)
+    del C
+    torch.cuda.synchronize()
+
+    reset_counts()  # the main-path run of this slice starts here
+
+    def run(label, W_, b_, truth, tol, carriers, limit, **kw):
+        before = counts()
+        t0 = time.perf_counter()
+        x, res = tpu_sparse_torch.solve(W_, b_, tol=tol, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        true_rel = float(norm(b_ - truth(x)) / norm(b_))
+        print(f"  {label}: {res}; true rel res {true_rel:.2e}; first-call "
+              f"wall {wall * 1e3:.1f} ms; launches {grew}")
+        check(res.converged, f"{label} did not converge")
+        check(true_rel <= limit, f"{label}: true residual {true_rel}")
+        check(all(grew.get(k, 0) > 0 for k in carriers),
+              f"{label}: {carriers} did not carry the solve")
+        return res
+
+    f32, f64 = ("cwell_spmv_f32",), ("cwell_spmv_f64",)
+    res = run("cg f32 on CWELL", W, b, lambda v: ref.dia_spmv(A_dia, v),
+              1e-6, f32, 1e-5, method="cg", maxiter=500)
+    print(f"  cg on CWELL {res.iterations} iterations; on DIA (phase 4) "
+          f"{cg_dia_iters}")
+    for method, kw in (("bicgstab", {}), ("gmres", dict(restart=20))):
+        run(f"{method} f32 on CWELL (convection-diffusion)", WC, b_cd,
+            lambda v: ref.dia_spmv(A_cd, v), 1e-6, f32, 1e-5,
+            method=method, maxiter=500, **kw)
+    run("cg f64 full on CWELL", W64, b64,
+        lambda v: ref.dia_spmv(A64_dia, v), 1e-8, f64, 1.01e-8,
+        method="cg", precision="full")
+    run("cg f64 auto on CWELL", W64, b64,
+        lambda v: ref.dia_spmv(A64_dia, v), 1e-8, f32 + f64, 1.01e-8,
+        method="cg", precision="auto")
+
+    # the adjoint on a 32^3 CWELL, on the card against the CPU
+    for method, make in (("cg", gen.poisson3d_27pt),
+                         ("bicgstab", gen.convection_diffusion_3d_27pt)):
+        Wcpu = csr_to_cwell(conv.to_csr(make(32, device="cpu")))
+        bc = torch.from_numpy(rng.standard_normal(Wcpu.shape[0]).astype(
+            np.float32))
+        grads = {}
+        for where in ("cpu", dev):
+            W_ = Wcpu.to(where)
+            vals = W_.vals.clone().requires_grad_()
+            bb = bc.to(where, copy=True).requires_grad_()
+            x, res = tpu_sparse_torch.solve(W_.with_data(vals), bb,
+                                            method=method, tol=1e-6)
+            before = counts()
+            x.sum().backward()
+            torch.cuda.synchronize()
+            check(res.converged, f"{method} forward on {where}")
+            grads[where] = (vals.grad.cpu(), bb.grad.cpu(),
+                            {k: v - before[k] for k, v in counts().items()
+                             if v != before[k]})
+        gA, gb, grew = grads[dev]
+        eA, eb = rel_err(gA, grads["cpu"][0]), rel_err(gb, grads["cpu"][1])
+        print(f"  adjoint {method} on a 32^3 CWELL: backward launches on "
+              f"the card {grew}; grad rel err card vs CPU: vals {eA:.2e}, "
+              f"b {eb:.2e}")
+        check(eA <= 5e-3 and eb <= 5e-3,
+              f"{method} adjoint on CWELL: card and CPU disagree")
+        check(grew.get("cwell_spmv_f32", 0) > 0,
+              f"{method} backward did not run K4")
+
+    # reorder="rcm" on a renumbered 32^3 system (solved as CSR, as in JAX)
+    P = conv.to_scipy_csr(gen.poisson3d_27pt(32, device="cpu"))
+    perm = rng.permutation(P.shape[0])
+    Ps = P[perm][:, perm].tocsr()
+    Ps.sort_indices()
+    As = conv.csr_from_arrays(Ps.data, Ps.indices, Ps.indptr, Ps.shape,
+                              device=dev)
+    xs_true = torch.from_numpy(rng.standard_normal(Ps.shape[0]).astype(
+        np.float32)).to(dev)
+    bs = ref.csr_spmv(As, xs_true)
+    natural = conv.csr_from_arrays(P.data, P.indices, P.indptr, P.shape,
+                                   device=dev)
+    print(f"  renumbered 32^3: CWELL fill {csr_to_cwell(As).fill:.4f} "
+          f"(natural order {csr_to_cwell(natural).fill:.4f})")
+    run("cg f32 reorder='rcm' (renumbered 32^3)", As, bs,
+        lambda v: ref.csr_spmv(As, v), 1e-6, (), 1e-5, method="cg",
+        reorder="rcm")
+    main_runs["phase (13)"] = counts()
+    print(f"  launches in the main-path run (phase 13): "
+          f"{main_runs['phase (13)']}")
+    for k in f32 + f64:
+        check(main_runs["phase (13)"][k] > 0,
+              f"kernel {k} was not launched on the main path")
+
+    # ---- (14) times --------------------------------------------------------
+    phase("(14) times (CUDA events, median and min-max of 5): K4 / K5 at "
+          f"the {nx}^3 packs beside bounds and cuSPARSE; CWELL solves "
+          "beside the DIA solves")
+
+    def fmt(t):
+        return f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
+
+    for key, W_, Ac in (("cwell_spmv_f32", W, A),
+                        ("cwell_spmv_f64", W64, A64)):
+        dt = W_.vals.dtype
+        xk = torch.from_numpy(np.random.default_rng(SEED + 14)
+                              .standard_normal(n)).to(dev, dt)
+        err = check_cwell(f"poisson3d_27pt({nx}) pack", W_, xk)
+        t_k = times(lambda: cuda_cwell.cwell_spmv_cuda(W_, xk), 10)
+        t_p = times(lambda: ref.cwell_spmv(W_, xk), 2)
+        lib = torch.sparse_csr_tensor(Ac.indptr, Ac.indices, Ac.data,
+                                      size=Ac.shape)
+        e_lib = rel_err(torch.mv(lib, xk), ref.cwell_spmv(W_, xk))
+        check(e_lib <= (1e-5 if dt == torch.float32 else 1e-12),
+              "the CSR yardstick computes another function")
+        t_l = times(lambda: torch.mv(lib, xk), 10)
+        size = W_.vals.element_size()
+        nb, S = W_.srow.shape
+        nbytes = (W_.vals.numel() * (size + 4) + nb * S * 4
+                  + (W_.shape[0] + W_.shape[1]) * size)
+        t_bytes = nbytes / 3.35e12 * 1e3
+        t_ops = 2 * W_.nnz / (67e12 if size == 4 else 34e12) * 1e3
+        note(key, max_abs_err=err, ms=t_k[0], plain_ms=t_p[0],
+             library_ms=t_l[0], bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"  {key}: kernel {fmt(t_k)}; bound {max(t_bytes, t_ops):.4f}"
+              f" ms ({nbytes / 1e6:.1f} MB, {max(t_bytes, t_ops) / t_k[0]:.2f}"
+              f" of it); plain {fmt(t_p)}; cuSPARSE CSR matvec {fmt(t_l)} "
+              f"(rel err {e_lib:.1e}); kernel / cuSPARSE "
+              f"{t_k[0] / t_l[0]:.2f}; {W_.nnz / (t_k[0] * 1e-3) / 1e9:.2f} "
+              f"Gnnz/s", flush=True)
+        del lib
+
+    def its(fn):
+        return lambda: fn()[1].iterations
+
+    solve = tpu_sparse_torch.solve
+    rows = [
+        ("cg f32", its(lambda: solve(W, b, tol=1e-6, maxiter=500)),
+         its(lambda: solve(A_dia, b, tol=1e-6, maxiter=500))),
+        ("bicgstab f32", its(lambda: solve(WC, b_cd, method="bicgstab",
+                                           tol=1e-6, maxiter=500)),
+         its(lambda: solve(A_cd, b_cd, method="bicgstab", tol=1e-6,
+                           maxiter=500))),
+        ("gmres(20) f32", its(lambda: solve(WC, b_cd, method="gmres",
+                                            restart=20, tol=1e-6,
+                                            maxiter=500)),
+         its(lambda: solve(A_cd, b_cd, method="gmres", restart=20,
+                           tol=1e-6, maxiter=500))),
+        ("cg f64 full", its(lambda: solve(W64, b64, tol=1e-8,
+                                          precision="full")),
+         its(lambda: solve(A64_dia, b64, tol=1e-8, precision="full"))),
+        ("cg f64 auto", its(lambda: solve(W64, b64, tol=1e-8)),
+         its(lambda: solve(A64_dia, b64, tol=1e-8))),
+    ]
+    for label, on_cwell, on_dia in rows:
+        t_c, t_d = times(on_cwell, 1), times(on_dia, 1)
+        print(f"  solve {label:14s} CWELL {fmt(t_c)} {on_cwell()} it;   DIA "
+              f"{fmt(t_d)} {on_dia()} it", flush=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -17,7 +17,11 @@ block of 12 after the loop's first crossing (the rule of the JAX
 fused_bicgstab_ext). Solves on the card against the CPU: iterations
 (GMRES: cycles) within 2, x rtol 1e-3 (f32) / 1e-6 (f64); gradients
 through solve() rtol 5e-3 (f32: fused loops on the card, plain loops on
-the CPU, both at tol 1e-5) / 1e-6 (f64).
+the CPU, both at tol 1e-5) / 1e-6 (f64). K4 / K5 (CWELL SpMV): 1e-5 /
+1e-13 of max|y| against the plain version, exactly 0 where y is 0, and
+bit-identical reruns; the card's pack byte-equal to the CPU's; solves on
+CWELL as on DIA, but paths with float32 arithmetic within 5 iterations
+or a fifth of the count (see the test).
 """
 
 import numpy as np
@@ -25,7 +29,8 @@ import pytest
 import torch
 
 import tpu_sparse_torch
-from tpu_sparse_torch.kernels import cuda_bicgstab, cuda_cg, cuda_spmv
+from tpu_sparse_torch.kernels import (cuda_bicgstab, cuda_cg, cuda_cwell,
+                                      cuda_spmv)
 from tpu_sparse_torch.kernels import reference as ref
 from tpu_sparse_torch.sparse import generators as gen
 
@@ -253,3 +258,145 @@ def test_adjoint_on_card_matches_cpu(dev, method, dtype):
     rtol = 5e-3 if dtype == np.float32 else 1e-6
     for got, want in zip(grads[1], grads[0]):
         assert _rel(got, want) <= rtol
+
+
+def _random_csr(n, m, per_row, dtype, seed):
+    import scipy.sparse as sp
+
+    from tpu_sparse_torch.sparse.convert import csr_from_arrays
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), per_row)
+    S = sp.csr_matrix((rng.standard_normal(rows.size).astype(dtype),
+                       (rows, rng.integers(0, m, rows.size))), shape=(n, m))
+    S.sort_indices()
+    return csr_from_arrays(S.data, S.indices, S.indptr, (n, m), device="cpu")
+
+
+@pytest.mark.parametrize("dtype,bound", [(np.float32, 1e-5),
+                                         (np.float64, 1e-13)])
+@pytest.mark.parametrize("n,m,per_row,group", [
+    (6000, 5000, 8, 1), (6000, 5000, 8, 2), (6000, 5000, 8, 4),
+    (6000, 5000, 8, 8), (1000, 3001, 6, 1), (3001, 1000, 6, 1),
+    (300, 200, 5, 1), (1001, 777, 7, 1), (300, 300, 0, 1), (5, 5, 0, 1),
+])
+def test_cwell_spmv_kernel_matches_plain(dev, n, m, per_row, group, dtype,
+                                         bound):
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    W = csr_to_cwell(_random_csr(n, m, per_row, dtype, n + m).to(dev),
+                     group=group)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(m).astype(
+        dtype)).to(dev)
+    before = dict(cuda_cwell.LAUNCHES)
+    y0 = ref.cwell_spmv(W, x)
+    y1 = cuda_cwell.cwell_spmv_cuda(W, x)
+    y2 = tpu_sparse_torch.kernels.spmv(W, x)  # the dispatch runs the kernel
+    sfx = "f32" if dtype == np.float32 else "f64"
+    assert cuda_cwell.LAUNCHES["cwell_spmv_" + sfx] == \
+        before["cwell_spmv_" + sfx] + 2
+    assert float((y1 - y0).abs().max()) <= bound * float(y0.abs().max())
+    assert torch.equal(y1, y2)  # reruns give the same bits
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_cwell_pack_on_card_equals_cpu_pack(dev, group):
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A = to_csr(gen.poisson3d_27pt(24, device="cpu"))
+    Wc = csr_to_cwell(A, group=group)
+    Wg = csr_to_cwell(A.to(dev), group=group)
+    for k in ("vals", "idx2", "srow"):
+        assert torch.equal(getattr(Wg, k).cpu(), getattr(Wc, k)), k
+    assert Wg.fill == Wc.fill
+    Tg, Tc = Wg.tocsr(), Wc.tocsr()
+    for k in ("data", "indices", "indptr"):
+        assert torch.equal(getattr(Tg, k).cpu(), getattr(Tc, k)), k
+
+
+def test_cwell_spmv_kernel_refusals(dev):
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    W = csr_to_cwell(_random_csr(300, 200, 5, np.float32, 0).to(dev))
+    x = torch.ones(200, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_cwell.cwell_spmv_cuda(W, x.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_cwell.cwell_spmv_cuda(W.to("cpu"), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_cwell.cwell_spmv_cuda(W, torch.ones(400, device=dev)[::2])
+    with pytest.raises(TypeError):
+        cuda_cwell.cwell_spmv_cuda(W, x.double())
+    with pytest.raises(ValueError, match="length"):
+        cuda_cwell.cwell_spmv_cuda(W, torch.ones(201, device=dev))
+
+
+def test_dense_to_csr_keeps_the_card(dev):
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+
+    Ad = torch.from_numpy(np.random.default_rng(4).standard_normal((30, 20)))
+    Ad[Ad.abs() < 1.0] = 0.0
+    Cg, Cc = dense_to_csr(Ad.to(dev)), dense_to_csr(Ad)
+    for k in ("data", "indices", "indptr"):
+        assert getattr(Cg, k).is_cuda
+        assert torch.equal(getattr(Cg, k).cpu(), getattr(Cc, k))
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab", "gmres"])
+@pytest.mark.parametrize("dtype,precision,M", [
+    (np.float32, "auto", None), (np.float32, "auto", "jacobi"),
+    (np.float64, "auto", None), (np.float64, "full", None),
+    (np.float64, "full", "jacobi"),
+])
+def test_cwell_solve_on_card_matches_cpu(dev, method, dtype, precision, M):
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    make = gen.poisson3d_27pt if method == "cg" \
+        else gen.convection_diffusion_3d_27pt
+    W = csr_to_cwell(to_csr(make(16, dtype=dtype, device="cpu")))
+    x_true = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        W.shape[0]).astype(dtype))
+    b = ref.cwell_spmv(W, x_true)
+    tol = 1e-6 if dtype == np.float32 else 1e-9
+    kw = dict(method=method, tol=tol, precision=precision, M=M)
+    sfx = "f32" if dtype == np.float32 else "f64"
+    xc, rc = tpu_sparse_torch.solve(W, b, **kw)
+    before = cuda_cwell.LAUNCHES["cwell_spmv_" + sfx]
+    xg, rg = tpu_sparse_torch.solve(W.to(dev), b.to(dev), **kw)
+    assert cuda_cwell.LAUNCHES["cwell_spmv_" + sfx] > before
+    assert rc.converged and rg.converged
+    # K4 sums each row's planes in order with fused multiply-adds, the
+    # plain version by torch.sum: float32 BiCGStab, whose residual is not
+    # monotone, then crosses tol some iterations apart, in a float32 solve
+    # and in the float32 inner sweeps of 'auto' (there summed over sweeps)
+    slack = 2 if precision == "full" else max(5, rc.iterations // 5)
+    assert abs(rc.iterations - rg.iterations) <= slack
+    rtol = 1e-3 if dtype == np.float32 else 1e-6
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=rtol,
+                               atol=rtol * float(xc.abs().max()))
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab", "gmres"])
+def test_cwell_adjoint_on_card_matches_cpu(dev, method):
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    make = gen.poisson3d_27pt if method == "cg" \
+        else gen.convection_diffusion_3d_27pt
+    W = csr_to_cwell(to_csr(make(12, dtype=np.float64, device="cpu")))
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        W.shape[0]))
+    grads = []
+    for where in ("cpu", dev):
+        vals = W.vals.to(where, copy=True).requires_grad_()
+        bb = b.to(where, copy=True).requires_grad_()
+        x, r = tpu_sparse_torch.solve(W.to(where).with_data(vals), bb,
+                                      method=method, tol=1e-10, maxiter=500,
+                                      precision="full")
+        assert r.converged
+        x.sum().backward()
+        grads.append((vals.grad.cpu(), bb.grad.cpu()))
+    for got, want in zip(grads[1], grads[0]):
+        assert _rel(got, want) <= 1e-6

@@ -217,7 +217,7 @@ def _a_b():
     dict(method="minres"),
     dict(method="direct"), dict(method="amg"), dict(backend="amg"),
     dict(backend="module_c"), dict(M="ilu0"), dict(M="amg"),
-    dict(reorder="rcm"),
+    dict(M="chebyshev"),
 ])
 def test_out_of_slice_raises_not_implemented(kw):
     A, b = _a_b()

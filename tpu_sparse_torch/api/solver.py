@@ -2,8 +2,9 @@
 
 Counterpart of ``tpu_sparse/api/solver.py`` for the slice this package
 ports: the ``krylov`` backend with methods ``cg``, ``bicgstab`` and
-``gmres``, no preconditioner or Jacobi, on any operand, with the
-extended-layout CUDA fast paths for square DIA systems:
+``gmres``, no preconditioner or Jacobi, on any operand (a CWELL pack runs
+every matvec on K4 / K5), ``reorder="rcm"``, with the extended-layout CUDA
+fast paths for square DIA systems:
 
 * float32 ``b`` on CUDA: ``autodiff.implicit.ext_run`` (fused CG kernels,
   K10 for bicgstab without x0 and M, else the method's loop over kernel 1);
@@ -38,7 +39,7 @@ from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.kernels.cuda_spmv import extendable
 from tpu_sparse_torch.precond.jacobi import (DiagonalPreconditioner,
                                              jacobi_preconditioner)
-from tpu_sparse_torch.sparse.containers import DIA, is_sparse
+from tpu_sparse_torch.sparse.containers import DIA, is_sparse, values
 from tpu_sparse_torch.utils.tree import tree_norm, tree_sub
 
 _BACKEND_ALIASES = {
@@ -108,6 +109,12 @@ class SolverResult:
         self._iterations = None if i is None else int(i)
         self._residual = None if r is None else float(r)
         self._fetched = True
+
+    def replace_x(self, x) -> "SolverResult":
+        out = SolverResult(x, self._converged, self._iterations,
+                           self._residual, self.backend, self.method)
+        out._fetched = self._fetched
+        return out
 
     @property
     def converged(self) -> bool:
@@ -192,6 +199,11 @@ class SparseSolver:
 
         M: None, a preconditioner callable, or 'jacobi'.
 
+        reorder: 'rcm' symmetrically permutes the system with a
+        reverse-Cuthill-McKee ordering (on the host, cached per matrix
+        content), solves the permuted system as CSR and un-permutes the
+        solution. It needs a matrix operand.
+
         restart and solve_method: GMRES's restart length and
         'batched' | 'incremental'; the other methods do not read them.
         """
@@ -204,10 +216,10 @@ class SparseSolver:
                 f"dimension mismatch: A is {tuple(A.shape)}, b has length "
                 f"{b.shape[0]}")
         if reorder is not None:
-            if reorder != "rcm":
-                raise ValueError(f"unknown reorder '{reorder}'; use 'rcm'")
-            raise _not_ported("reorder='rcm'",
-                              _Q1 + "11 (general structure)")
+            return self._solve_reordered(
+                A, b, x0, reorder, method=method, backend=backend, tol=tol,
+                atol=atol, maxiter=maxiter, M=M, restart=restart,
+                solve_method=solve_method, precision=precision, **kwargs)
         method = method or self.default_method
         backend = backend or self.default_backend
         sel_backend, sel_method = self._select_backend(backend, method)
@@ -262,6 +274,58 @@ class SparseSolver:
                 "matrix-free callables must pass M as a callable")
         return jacobi_preconditioner(A)
 
+    def _reorder_cached(self, A):
+        """(A_rcm as CSR, perm, inverse perm) for a matrix operand, cached
+        per matrix content. The permuted matrix lives on A's device."""
+        from tpu_sparse_torch.utils.opcache import OperandCache
+
+        cached = getattr(self, "_reorder_cache", None)
+        if cached is None:
+            cached = self._reorder_cache = OperandCache(max_entries=8)
+
+        def build():
+            import numpy as np
+            from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+            from tpu_sparse_torch.sparse.convert import (csr_from_arrays,
+                                                         to_scipy_csr)
+
+            # one scipy matrix serves the ordering and the permutation
+            S = to_scipy_csr(A)
+            perm = np.array(reverse_cuthill_mckee(S, symmetric_mode=False),
+                            dtype=np.int64)  # scipy may return a reversed view
+            Sp = S[perm][:, perm].tocsr()
+            Sp.sort_indices()
+            dev = A.device
+            Ap = csr_from_arrays(Sp.data, Sp.indices, Sp.indptr, S.shape,
+                                 device=dev)
+            return (Ap, torch.from_numpy(perm).to(dev),
+                    torch.from_numpy(np.argsort(perm)).to(dev))
+
+        return cached.get_or_build(A, build, extra=("rcm",))
+
+    def _solve_reordered(self, A, b, x0, reorder: str, *, M=None, **kw):
+        """Symmetric RCM permutation (JAX ``_solve_reordered``): solve
+        P A P^T (P x) = P b and un-permute. The permuted system is solved
+        as CSR, as in the JAX package."""
+        if reorder != "rcm":
+            raise ValueError(f"unknown reorder '{reorder}'; use 'rcm'")
+        if callable(A) and not is_sparse(A) \
+                and not isinstance(A, torch.Tensor):
+            raise ValueError("reorder requires a matrix operand, not a "
+                             "matrix-free callable")
+        if M is not None and not isinstance(M, str):
+            raise ValueError(
+                "reorder supports M=None or a built-in string name (the "
+                "preconditioner is then built from the permuted matrix); a "
+                "user callable M would act in the wrong ordering")
+        Ap, perm, inv = self._reorder_cached(A)
+        bp = b[perm.to(b.device)]
+        x0p = None if x0 is None else x0[perm.to(x0.device)]
+        x, result = self.solve(Ap, bp, x0p, M=M, reorder=None, **kw)
+        xu = x[inv.to(x.device)]
+        return xu, result.replace_x(xu)
+
     def _solve_krylov(self, A, b, x0, method, kw, M):
         from tpu_sparse_torch.autodiff import implicit
 
@@ -301,7 +365,7 @@ class SparseSolver:
 
 def _tensors(A, b, x0, M) -> list:
     out = [b, x0, A if isinstance(A, torch.Tensor)
-           else getattr(A, "data", None)]
+           else values(A) if is_sparse(A) else None]
     if isinstance(M, DiagonalPreconditioner):
         out.append(M.dinv)
     return [t for t in out if isinstance(t, torch.Tensor)]

@@ -16,7 +16,8 @@ JAX ``custom_vjp``s ``_implicit_matrix_solve``, ``ext_krylov_diff`` and
 argument. A_bar is the vector-Jacobian product of the plain
 ``spmv_reference`` with respect to A's values at cotangent -v, taken by
 ``torch.autograd`` on the plain SpMV, never on a kernel; for DIA, entries
-whose column lies outside the matrix get zero, as in JAX. x0 and M get no
+whose column lies outside the matrix get zero, as in JAX; for CWELL every
+slot gets one, padding slots included, as in JAX. x0 and M get no
 gradient. Nonsymmetric methods solve the adjoint system without M (M^H of
 an arbitrary operator cannot be formed).
 
@@ -45,7 +46,10 @@ from tpu_sparse_torch.kernels.cuda_spmv import (ExtendedStencilOperator,
                                                 make_extended_operator_f64)
 from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
 from tpu_sparse_torch.solvers.krylov import bicgstab_full, cg_full, gmres_full
-from tpu_sparse_torch.sparse.containers import CSR, DIA, is_sparse
+from tpu_sparse_torch.sparse.containers import (CSR, DIA, is_sparse, values,
+                                                with_values)
+from tpu_sparse_torch.sparse.cwell import CWELL, CWELLSeg
+from tpu_sparse_torch.utils.opcache import OperandCache
 
 _SOLVERS = {"cg": cg_full, "bicgstab": bicgstab_full, "gmres": gmres_full}
 
@@ -108,12 +112,49 @@ def _matrix_run(method: str, kw: dict, A, b, x0, M):
     return _SOLVERS[method](A, b, x0, M=M, **kw)
 
 
+# Transpose plans of CWELL / CWELLSeg packs, keyed on the pack's structure
+# (its idx2 tensors, shared by every ``with_data`` copy): the values of each
+# forward solve are new tensors, the structure is not.
+_TRANSPOSES = OperandCache(max_entries=4)
+
+
+def _transpose_plan(A):
+    """(nonzero mask of A's values, A^T packed with 1-based slot ids of A as
+    its values; 0 in padding). One repack on A's device."""
+    v = values(A)
+    ids = torch.arange(1, v.numel() + 1, device=v.device).reshape(v.shape)
+    mask = v != 0
+    return mask, with_values(A, torch.where(mask, ids, 0)).T
+
+
+def _packed_transpose(A):
+    """A^T for a CWELL or CWELLSeg, byte-equal to ``A.T`` (a repack of the
+    transposed CSR), by one gather through a cached plan. The plan holds
+    while the values' nonzero pattern does, since ``tocsr`` drops zeros;
+    a pack whose CSR has duplicate entries repacks on every call."""
+    segs = A.segments if isinstance(A, CWELLSeg) else (A,)
+    v = values(A)
+    mask, At_ids = _TRANSPOSES.get_or_build(
+        segs[0].idx2, lambda: _transpose_plan(A),
+        extra=tuple(id(W.idx2) for W in segs[1:]))
+    if not torch.equal(mask, v != 0):
+        mask, At_ids = _transpose_plan(A)
+    g = values(At_ids)
+    if int(torch.count_nonzero(g)) != int(torch.count_nonzero(mask)):
+        return A.T  # duplicates were summed: ids do not map one to one
+    flat = v.reshape(-1)
+    return with_values(At_ids, torch.where(
+        g > 0, flat[(g - 1).clamp_min(0)], flat.new_zeros(())))
+
+
 def _adjoint_matrix(A, symmetric: bool):
     """A^H for a container or a dense matrix."""
     if symmetric:
         return A
     if isinstance(A, DIA):
         At = A.T
+    elif isinstance(A, (CWELL, CWELLSeg)):
+        At = _packed_transpose(A)
     elif isinstance(A, CSR):
         At = A.tocoo().T
     elif is_sparse(A):
@@ -127,11 +168,11 @@ def _adjoint_matrix(A, symmetric: bool):
 
 def _values(A) -> torch.Tensor:
     """The differentiable values of a matrix operand."""
-    return A if isinstance(A, torch.Tensor) else A.data
+    return A if isinstance(A, torch.Tensor) else values(A)
 
 
 def _with_values(A, vals):
-    return vals if isinstance(A, torch.Tensor) else A.with_data(vals)
+    return vals if isinstance(A, torch.Tensor) else with_values(A, vals)
 
 
 class _MatrixSolve(torch.autograd.Function):
@@ -177,7 +218,7 @@ def implicit_solve(runner: Callable, method: str, kw: dict, A, b, x0, M):
     a_vals = _values(A)
     if not _needs_grad(a_vals, b):
         return runner(method, kw, A, b, x0, M)
-    A_const = A if isinstance(A, torch.Tensor) else A.with_data(None)
+    A_const = A if isinstance(A, torch.Tensor) else with_values(A, None)
     x0 = None if x0 is None else x0.detach()
     return _MatrixSolve.apply(runner, method, kw, A_const, x0, M, a_vals, b)
 

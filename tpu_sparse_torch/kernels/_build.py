@@ -135,6 +135,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         # stream
         "ts_dia_bicgstab_update": [L, L, P, P, P, P, P, P, P, P, P, P, I, I,
                                    P],
+        # vals, idx2, srow, x, y, n_blocks, planes, n_rows, n_cols, stream
+        "ts_cwell_spmv_f32": [P, P, P, P, P, L, L, L, L, P],
+        "ts_cwell_spmv_f64": [P, P, P, P, P, L, L, L, L, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -2,7 +2,8 @@
 
 Counterpart of ``tpu_sparse/kernels/reference.py``. ``dia_spmv`` accumulates
 the diagonals in ``offsets`` order exactly like the JAX loop; the CSR/COO
-versions scatter-add products onto rows.
+versions scatter-add products onto rows; ``cwell_spmv`` gathers x per
+slot and sums the planes.
 """
 
 from __future__ import annotations
@@ -40,3 +41,15 @@ def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
     if y is None:
         return x.new_zeros(n)
     return y
+
+
+def cwell_spmv(A, x: torch.Tensor) -> torch.Tensor:
+    """y[row] = sum over planes of vals * x[srow * 128 + idx2], where a
+    column at or past m gathers 0 (JAX ``mode="fill"``), so a padding slot
+    adds exactly 0 * x[col] or 0. Computed in the values' dtype."""
+    n, m = A.shape
+    gc = A.srow[:, :, None].long() * 128 + A.idx2
+    x_fill = torch.cat([x, x.new_zeros(1)])  # x_fill[m] = 0
+    xg = x_fill[torch.where((gc >= 0) & (gc < m), gc, m)]
+    y = torch.sum(A.vals * xg.to(A.vals.dtype), dim=1)
+    return y.reshape(-1)[:n]

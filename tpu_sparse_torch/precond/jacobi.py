@@ -3,7 +3,9 @@
 Counterpart of ``tpu_sparse/precond/jacobi.py``. ``jacobi_preconditioner``
 returns a ``DiagonalPreconditioner``, which the router and the extended
 fast path recognise as a diagonal (as the JAX router recognises
-``Partial(_apply_diag, dinv)``).
+``Partial(_apply_diag, dinv)``). ``diagonal`` also reads CWELL and
+CWELLSeg packs, which the JAX ``diagonal`` refuses with a TypeError
+(ROADMAP queue 3, R6).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from tpu_sparse_torch.sparse.containers import COO, CSR, DIA
+from tpu_sparse_torch.sparse.cwell import LW, CWELL, CWELLSeg
 from tpu_sparse_torch.utils.tree import tree_map
 
 
@@ -20,6 +23,15 @@ def diagonal(A) -> torch.Tensor:
         if 0 in A.offsets:
             return A.data[A.offsets.index(0)]
         return A.data.new_zeros(A.shape[0])
+    if isinstance(A, CWELL):
+        return _cwell_diagonal(A, 0, 0)[:A.shape[0]]
+    if isinstance(A, CWELLSeg):
+        out = A.segments[0].vals.new_zeros(A.shape[0])
+        for W, j0, r0 in zip(A.segments, A.starts, A.rstarts):
+            d = _cwell_diagonal(W, r0, j0)[:W.shape[0]]
+            out = torch.cat([out[:r0], out[r0:r0 + d.shape[0]] + d,
+                             out[r0 + d.shape[0]:]])
+        return out
     if isinstance(A, CSR):
         A = A.tocoo()
     if isinstance(A, COO):
@@ -27,6 +39,16 @@ def diagonal(A) -> torch.Tensor:
         out = A.data.new_zeros(A.shape[0])
         return out.index_add_(0, A.row.long(), A.data * mask)
     return torch.diagonal(A)
+
+
+def _cwell_diagonal(W: CWELL, r0: int, j0: int) -> torch.Tensor:
+    """Per packed row, the sum of the slots whose global column equals the
+    global row (the pack's rows start at r0, its columns at j0); one value
+    per row of the n_blocks * 128 padded rows."""
+    rows = torch.arange(W.n_blocks * LW, device=W.device).reshape(
+        W.n_blocks, 1, LW) + r0
+    on_diag = W.gcols() + j0 == rows
+    return torch.sum(W.vals * on_diag, dim=1).reshape(-1)
 
 
 class DiagonalPreconditioner:

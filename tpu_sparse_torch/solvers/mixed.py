@@ -12,7 +12,10 @@ Counterpart of ``tpu_sparse/solvers/mixed.py`` (``refined_solve``,
 
 followed by one full-precision rescue solve when the sweeps stall. On CUDA
 DIA operands the outer f64 residuals run the fp64 extended kernel and the
-inner f32 sweeps run the method's loop over the f32 extended operator.
+inner f32 sweeps run the method's loop over the f32 extended operator. A
+CWELL operand is cast through ``with_values`` (the JAX ``_cast_operator``
+reads ``A.data`` and fails on CWELL, ROADMAP queue 3, R5), so its inner
+matvecs run K4 and its outer residuals K5.
 The JAX version is a static unroll with masked no-op sweeps; here the sweep
 loop is Python
 with one host read per sweep and stops at the first done sweep, which
@@ -32,7 +35,8 @@ from tpu_sparse_torch.kernels.cuda_spmv import (make_extended_operator,
 from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
 from tpu_sparse_torch.solvers.krylov import (_default_maxiter, bicgstab_full,
                                              cg_full, gmres_full)
-from tpu_sparse_torch.sparse.containers import DIA, is_sparse
+from tpu_sparse_torch.sparse.containers import (DIA, is_sparse, values,
+                                                with_values)
 from tpu_sparse_torch.utils.tree import (
     tree_add,
     tree_leaves,
@@ -51,7 +55,7 @@ def _cast_tree(tree, dtype):
 
 def _cast_operator(A, dtype, outer_dtype=torch.float64):
     if is_sparse(A):
-        return A.with_data(A.data.to(dtype))
+        return with_values(A, values(A).to(dtype))
     if callable(A) and not isinstance(A, torch.Tensor):
         # matrix-free: cast around the user's operator, which expects the
         # outer system's dtype

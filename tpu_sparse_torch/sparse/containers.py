@@ -12,7 +12,7 @@ from typing import Any, Sequence
 
 import torch
 
-__all__ = ["COO", "CSR", "DIA", "is_sparse"]
+__all__ = ["COO", "CSR", "DIA", "is_sparse", "values", "with_values"]
 
 
 def _matvec(A, x):
@@ -233,8 +233,21 @@ def _shift(v: torch.Tensor, k: int, out_len: int) -> torch.Tensor:
     return out
 
 
-SPARSE_TYPES = [COO, CSR, DIA]
+SPARSE_TYPES = [COO, CSR, DIA]  # sparse/cwell.py appends CWELL, CWELLSeg
 
 
 def is_sparse(A: Any) -> bool:
     return isinstance(A, tuple(SPARSE_TYPES))
+
+
+def values(A) -> torch.Tensor:
+    """The value tensor of a container: ``A.data``, ``A.vals`` for CWELL,
+    and for CWELLSeg its segments' values flattened and concatenated."""
+    if hasattr(A, "segments"):
+        return torch.cat([values(W).reshape(-1) for W in A.segments])
+    return A.vals if hasattr(A, "vals") else A.data
+
+
+def with_values(A, vals):
+    """``A`` with its value tensor replaced (the inverse of ``values``)."""
+    return A.with_data(vals)

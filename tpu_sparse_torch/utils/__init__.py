@@ -1,5 +1,5 @@
-"""Pytree helpers and device timing."""
+"""Pytree helpers, device timing and the per-matrix operand cache."""
 
-from tpu_sparse_torch.utils import timing, tree
+from tpu_sparse_torch.utils import opcache, timing, tree
 
-__all__ = ["timing", "tree"]
+__all__ = ["opcache", "timing", "tree"]
