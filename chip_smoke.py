@@ -20,12 +20,22 @@ counters set to 0 just before it and read just after:
   K4, f32), f64 'full' (K5) and 'auto' (K4 inner sweeps, K5 outer
   residuals), the adjoint on a CWELL, and ``reorder="rcm"``. Phase (12)
   checks K4/K5 on edge packs and the card's packer against the CPU's;
-  phase (14) times K4/K5 and the CWELL solves beside the DIA ones.
+  phase (14) times K4/K5 and the CWELL solves beside the DIA ones;
+* phase (17): the multi-RHS path, ``solve(A, B)`` with B of 8 columns on
+  the same 160^3 CWELL packs (batched CG, block CG with Jacobi, batched
+  BiCGStab and GMRES(20): every matvec one K6/K7 launch; f64 'auto' at 4
+  columns: K6/K7 in float and double) and on a block-structured BELL,
+  kron(poisson3d_27pt(40), C8) with 110.6M stored entries (K8; its
+  single-RHS solve runs K4 on the cached CWELL repack), each column held
+  against the single-RHS solve of that column. Phases (15)-(16) check K6/K7
+  and K8 on edge cases; phase (18) times them beside their bounds, a
+  cuSPARSE SpMM and k K4 launches, and the multi-RHS solves beside k
+  single-RHS solves.
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
 (solves: median and min-max of 5), beside each kernel's bound (bytes over
-the card's 3.35 TB/s) and, for the SpMV, a cuSPARSE CSR matvec. Phases
+the card's 3.35 TB/s) and a cuSPARSE CSR matvec (SpMV) or SpMM. Phases
 print as they pass; any failed check raises and the exit code is non-zero.
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
@@ -75,8 +85,8 @@ def main() -> int:
         return 2
 
     import tpu_sparse_torch
-    from tpu_sparse_torch.kernels import (_build, cuda_bicgstab, cuda_cg,
-                                          cuda_cwell, cuda_spmv)
+    from tpu_sparse_torch.kernels import (_build, cuda_bell, cuda_bicgstab,
+                                          cuda_cg, cuda_cwell, cuda_spmv)
     from tpu_sparse_torch.kernels import reference as ref
     from tpu_sparse_torch.precond.jacobi import (DiagonalPreconditioner,
                                                  jacobi_preconditioner)
@@ -426,10 +436,12 @@ def main() -> int:
 
     def counts():
         return {**cuda_spmv.LAUNCHES, **cuda_cg.LAUNCHES,
-                **cuda_bicgstab.LAUNCHES, **cuda_cwell.LAUNCHES}
+                **cuda_bicgstab.LAUNCHES, **cuda_cwell.LAUNCHES,
+                **cuda_bell.LAUNCHES}
 
     def reset_counts():
-        for mod in (cuda_spmv, cuda_cg, cuda_bicgstab, cuda_cwell):
+        for mod in (cuda_spmv, cuda_cg, cuda_bicgstab, cuda_cwell,
+                    cuda_bell):
             mod.reset_launch_counts()
 
     # ---- (7) K10 against the plain versions --------------------------------
@@ -744,10 +756,18 @@ def main() -> int:
                            inner=inner)
         return float(np.median(ts)), min(ts), max(ts)
 
-    general_structure_phases(
+    systems = general_structure_phases(
         dev, MAIN_NX, note=note, counts=counts, reset_counts=reset_counts,
         main_runs=main_runs, times=times, cg_dia_iters=solves[None],
         A_cg=A_cg, b_cg=b_cg, A_cd=A, b_cd=b)
+    del A, b, A_cg, b_cg, A64, b64, A64_cg, op, bx
+    torch.cuda.empty_cache()
+
+    # ---- (15)-(18) the multi-RHS path (K6/K7, K8) ------------------------
+    errs = spmm_kernel_phases(dev)
+    multirhs_phases(dev, systems, note=note, counts=counts,
+                    reset_counts=reset_counts, main_runs=main_runs,
+                    times=times, results=results, edge_errs=errs)
 
     # ---- results -----------------------------------------------------------
     src_spmv = "tpu_sparse_torch/csrc/dia_spmv.cu"
@@ -769,6 +789,14 @@ def main() -> int:
                            "tpu_sparse/kernels/pallas_cwell.py:48"),
         "cwell_spmv_f64": ("tpu_sparse_torch/csrc/cwell_spmv.cu",
                            "tpu_sparse/kernels/pallas_cwell.py:307"),
+        "cwell_spmm_f32": ("tpu_sparse_torch/csrc/cwell_spmm.cu",
+                           "tpu_sparse/kernels/pallas_cwell.py:639"),
+        "cwell_spmm_f64": ("tpu_sparse_torch/csrc/cwell_spmm.cu",
+                           "tpu_sparse/kernels/pallas_cwell.py:505"),
+        "bell_spmm_f32": ("tpu_sparse_torch/csrc/bell_spmm.cu",
+                          "tpu_sparse/kernels/pallas_bell.py:34"),
+        "bell_spmm_f64": ("tpu_sparse_torch/csrc/bell_spmm.cu",
+                          "tpu_sparse/kernels/pallas_bell.py:34"),
     }
     launches = {k: sum(run[k] for run in main_runs.values() if k in run)
                 for k in origin}
@@ -814,6 +842,146 @@ def check_cwell_refusals(W, dev) -> None:
                              "refuse")
     print("  cwell_spmv_cuda refuses CPU operands, a non-contiguous x and "
           "mixed dtypes")
+
+
+def check_spmm_refusals(W, bell, dev) -> None:
+    """The K6/K7 and K8 wrappers raise on a CPU operand, a dtype mismatch,
+    a non-contiguous B and a B of the wrong shape (a float32 pack W of
+    width 200 and a float32 BELL of width 64 on the card)."""
+    import torch
+
+    from tpu_sparse_torch.kernels import cuda_bell, cuda_cwell
+
+    cases = []
+    for fn, A_, m in ((cuda_cwell.cwell_spmm_cuda, W, 200),
+                      (cuda_bell.bell_spmm_cuda, bell, 64)):
+        B = torch.ones(m, 3, device=dev)
+        cases += [(fn, A_, B.cpu(), ValueError),
+                  (fn, A_.to("cpu"), B, ValueError),
+                  (fn, A_, B.double(), TypeError),
+                  (fn, A_, torch.ones(m, 6, device=dev)[:, ::2], ValueError),
+                  (fn, A_, torch.ones(m + 1, 3, device=dev), ValueError),
+                  (fn, A_, torch.ones(m, device=dev), ValueError)]
+    big = bell.with_data(torch.ones(bell.n_block_rows, bell.ell_width, 72, 72,
+                                    device=dev))
+    big.shape = (bell.n_block_rows * 72, 72 * 8)
+    cases.append((cuda_bell.bell_spmm_cuda, big,
+                  torch.ones(72 * 8, 3, device=dev), ValueError))
+    for fn, A_, B, exc in cases:
+        try:
+            fn(A_, B)
+        except exc:
+            continue
+        raise AssertionError(f"{fn.__name__} took an operand it must refuse")
+    print("  cwell_spmm_cuda and bell_spmm_cuda refuse CPU operands, mixed "
+          "dtypes, a non-contiguous B, wrong shapes; bell_spmm_cuda bs > 64")
+
+
+def spmm_kernel_phases(dev) -> dict:
+    """Phases (15)-(16): K6/K7 and K8 against their plain versions on edge
+    cases, float32 within 1e-5 and float64 within 1e-12 of max|Y|, reruns
+    bit-identical, and the wrappers' refusals. Returns the largest abs
+    error per kernel name."""
+    import scipy.sparse as sp
+    import torch
+
+    from tpu_sparse_torch.kernels import cuda_bell, cuda_cwell
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse import convert as conv
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    rng = np.random.default_rng(SEED + 15)
+    bound = {torch.float32: 1e-5, torch.float64: 1e-12}
+    worst = {}
+
+    def random_csr(n_, m_, per_row, dtype):
+        rows = np.repeat(np.arange(n_), per_row)
+        S = sp.csr_matrix((rng.standard_normal(rows.size).astype(dtype),
+                           (rows, rng.integers(0, m_, rows.size))),
+                          shape=(n_, m_))
+        S.sort_indices()
+        return conv.csr_from_arrays(S.data, S.indices, S.indptr, (n_, m_),
+                                    device=dev)
+
+    def check_spmm(label, kernel, plain, A_, B, name):
+        Y0 = plain(A_, B)
+        Y1 = kernel(A_, B)
+        Y2 = kernel(A_, B)
+        torch.cuda.synchronize()
+        scale = float(Y0.abs().max()) if Y0.numel() else 0.0
+        err = float((Y1 - Y0).abs().max()) if Y0.numel() else 0.0
+        key = f"{name}_f{str(B.dtype)[-2:]}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        check(err <= bound[B.dtype] * scale,
+              f"{name} disagrees with the plain version on {label}: "
+              f"{err} > {bound[B.dtype]} * {scale}")
+        check(torch.equal(Y1, Y2), f"{name} rerun differs on {label}")
+        return err, scale
+
+    # ---- (15) K6/K7 ----------------------------------------------------
+    phase("(15) K6/K7 (cwell_spmm) against the plain version on edge cases")
+    ks = (1, 3, 8, 33, 128, 130)
+    for label, n_, m_, per_row, groups in (
+            ("random 3000x2500", 3000, 2500, 8, (1, 2, 4)),
+            ("n, m not x128: 1001x777", 1001, 777, 7, (1,)),
+            ("m < 256: 300x200", 300, 200, 5, (1, 2)),
+            ("empty 300x300", 300, 300, 0, (1,))):
+        for dt in (np.float32, np.float64):
+            A_ = random_csr(n_, m_, per_row, dt)
+            for Q in groups:
+                W = csr_to_cwell(A_, group=Q)
+                if label.startswith("m < 256"):
+                    # padding slots (value 0) pointing at columns >= m
+                    pad = (W.vals == 0) & (torch.arange(128, device=dev)
+                                           % 3 == 0)
+                    W.idx2[pad] = 250 - 128 * W.srow[:, :, None].expand_as(
+                        W.idx2)[pad]
+                    check(int((W.gcols() >= m_).sum()) > 0,
+                          "no padding column past m")
+                errs = []
+                for k in ks:
+                    B = torch.from_numpy(rng.standard_normal((m_, k)).astype(
+                        dt)).to(dev)
+                    errs.append(check_spmm(f"{label} Q={Q} k={k}",
+                                           cuda_cwell.cwell_spmm_cuda,
+                                           ref.cwell_spmm, W, B,
+                                           "cwell_spmm")[0])
+                print(f"  {label:26s} {str(np.dtype(dt)):7s} Q={Q} "
+                      f"n_blocks*128={W.n_blocks * 128}: k={ks} max abs "
+                      f"err {max(errs):.2e}")
+
+    # ---- (16) K8 -------------------------------------------------------
+    phase("(16) K8 (bell_spmm) against the plain version on edge cases")
+    for nb, bs, density, pad in ((40, 8, 0.2, 0), (40, 8, 0.2, 5),
+                                 (30, 3, 0.3, 2), (12, 16, 0.5, 0),
+                                 (6, 64, 0.5, 1)):
+        mask = rng.random((nb, nb)) < density
+        np.fill_diagonal(mask, True)
+        Ad = np.zeros((nb * bs, nb * bs))
+        for i, j in zip(*np.nonzero(mask)):
+            Ad[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = \
+                rng.standard_normal((bs, bs))
+        for dt in (torch.float32, torch.float64):
+            S = csr_to_bsr(conv.dense_to_csr(torch.from_numpy(Ad).to(
+                dev, dt)), bs)
+            L = int(torch.diff(S.indptr.long()).max()) + pad
+            bell = bsr_to_bell(S, ell_width=L)
+            errs = []
+            for k in (1, 5, 130, 300):
+                B = torch.from_numpy(rng.standard_normal((nb * bs, k))).to(
+                    dev, dt)
+                errs.append(check_spmm(f"bs={bs} L={L} k={k}",
+                                       cuda_bell.bell_spmm_cuda,
+                                       ref.bell_spmm, bell, B,
+                                       "bell_spmm")[0])
+            print(f"  {nb} block rows, bs={bs}, L={L} ({pad} padding "
+                  f"blocks), {str(dt)[6:]}: k=(1, 5, 130, 300) max abs err "
+                  f"{max(errs):.2e}")
+    W = csr_to_cwell(random_csr(300, 200, 5, np.float32))
+    S = csr_to_bsr(conv.dense_to_csr(torch.eye(64, device=dev)), 8)
+    check_spmm_refusals(W, bsr_to_bell(S), dev)
+    return worst
 
 
 def general_structure_phases(dev, nx, *, note, counts, reset_counts,
@@ -1103,7 +1271,253 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
         t_c, t_d = times(on_cwell, 1), times(on_dia, 1)
         print(f"  solve {label:14s} CWELL {fmt(t_c)} {on_cwell()} it;   DIA "
               f"{fmt(t_d)} {on_dia()} it", flush=True)
+    return dict(A=A, W=W, WC=WC, W64=W64, A_dia=A_dia, A_cd=A_cd,
+                A64_dia=A64_dia)
 
+
+def kron_bell(dev, nx, rng, bs=8):
+    """kron(poisson3d_27pt(nx), C) as a BELL through
+    ``bsr_to_bell(csr_to_bsr(CSR, bs))``, built on the card: the shape of a
+    PDE with bs coupled unknowns per grid node. C = Q diag(1 + u) Q^T is
+    SPD with eigenvalues in [1, 2) from the seed. Returns (BELL, CSR, the
+    smallest eigenvalue of C)."""
+    import torch
+
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse import convert as conv
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.cwell import coo_arrays_to_csr
+
+    Qm, _ = np.linalg.qr(rng.standard_normal((bs, bs)))
+    C = (Qm * (1.0 + rng.random(bs))) @ Qm.T
+    C = (C + C.T) / 2
+    lmin = float(np.linalg.eigvalsh(C).min())
+    P = conv.to_csr(gen.poisson3d_27pt(nx, device=dev))
+    rows, cols = P.row_ids().long(), P.indices.long()
+    ii = torch.arange(bs, device=dev)
+    R = (rows[:, None, None] * bs + ii[None, :, None]).expand(-1, bs, bs)
+    Cc = (cols[:, None, None] * bs + ii[None, None, :]).expand(-1, bs, bs)
+    V = P.data[:, None, None] * torch.from_numpy(C.astype(np.float32)).to(
+        dev)[None]
+    K = coo_arrays_to_csr(R.reshape(-1), Cc.reshape(-1), V.reshape(-1),
+                          (P.shape[0] * bs, P.shape[1] * bs))
+    del R, Cc, V, rows, cols
+    return bsr_to_bell(csr_to_bsr(K, bs)), K, lmin
+
+
+def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
+                    times, results, edge_errs, bell_nx=40):
+    """Phases (17)-(18): the multi-RHS main path (K6/K7 on the 160^3 CWELL
+    packs, K8 on a block-structured BELL) through ``solve(A, B)``, each
+    column against the single-RHS solve of that column; then K6/K7 and K8
+    times beside their bounds, plain versions, cuSPARSE SpMM and k x K4,
+    and the multi-RHS solves beside k single-RHS solves. ``g``: the
+    systems of phases (13)-(14)."""
+    import torch
+
+    import tpu_sparse_torch
+    from tpu_sparse_torch.kernels import cuda_bell, cuda_cwell
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.solvers.batched import cols_norm
+
+    solve = tpu_sparse_torch.solve
+    W, WC, W64 = g["W"], g["WC"], g["W64"]
+    n, K = W.shape[0], 8
+    rng = np.random.default_rng(SEED)
+
+    # ---- (17) main path ------------------------------------------------
+    phase(f"(17) main path: solve(A, B) with B of {K} columns on the "
+          "160^3 CWELL packs and on a block-structured BELL")
+    B = torch.from_numpy(rng.standard_normal((n, K)).astype(np.float32)).to(
+        dev)
+    B64 = torch.from_numpy(rng.standard_normal((n, 4))).to(dev)
+    t0 = time.perf_counter()
+    bell, bell_csr, lmin = kron_bell(dev, bell_nx, rng)
+    torch.cuda.synchronize()
+    print(f"  kron(poisson3d_27pt({bell_nx}), C8): n={bell.shape[0]}, "
+          f"{bell.n_block_rows} block rows, L={bell.ell_width}, "
+          f"{bell.n_block_rows * bell.ell_width} stored 8x8 blocks "
+          f"({bell.blocks.numel() * 4 / 1e6:.1f} MB f32), CSR nnz "
+          f"{bell_csr.nnz}; smallest eigenvalue of C {lmin:.4f}; built on "
+          f"the card in {time.perf_counter() - t0:.2f} s (wall)")
+    check(lmin > 0.5, "the coupling block is not SPD")
+    bell64 = bell.with_data(bell.blocks.double())
+    Bb = torch.from_numpy(rng.standard_normal((bell.shape[0], K)).astype(
+        np.float32)).to(dev)
+    Bb64 = Bb[:, :4].double()
+    truth = {id(W): lambda X: ref.dia_spmm(g["A_dia"], X),
+             id(WC): lambda X: ref.dia_spmm(g["A_cd"], X),
+             id(W64): lambda X: ref.dia_spmm(g["A64_dia"], X),
+             id(bell): lambda X: ref.bell_spmm(bell, X),
+             id(bell64): lambda X: ref.bell_spmm(bell64, X)}
+    # (label, operand, B, kw, carriers, x agreement bound, iteration gap):
+    # float32 batched solves run the single-RHS recurrence, but K6/K7 and
+    # K8 sum each row in another order than K4, so a column crosses tol
+    # some iterations apart (BiCGStab's residual is not monotone) and its
+    # x differs at the level of the solve's error; block CG is another
+    # algorithm, so only its x is held to the singles, at kappa * tol of
+    # the 160^3 system (~1e-2); the float64 refinements at 1e-4 (kappa *
+    # 1e-8)
+    runs = [
+        ("cg batched f32", W, B, dict(method="cg", tol=1e-6, maxiter=500),
+         ("cwell_spmm_f32",), 1e-3, 5),
+        ("cg block (M='jacobi') f32", W, B,
+         dict(method="cg", M="jacobi", tol=1e-6, maxiter=500),
+         ("cwell_spmm_f32",), 1e-2, None),
+        ("bicgstab batched f32", WC, B,
+         dict(method="bicgstab", tol=1e-6, maxiter=500),
+         ("cwell_spmm_f32",), 1e-3, "bicgstab"),
+        ("gmres(20) batched f32", WC, B,
+         dict(method="gmres", restart=20, tol=1e-6, maxiter=500),
+         ("cwell_spmm_f32",), 1e-3, 1),
+        ("cg f64 auto (batched refinement, k=4)", W64, B64,
+         dict(method="cg", tol=1e-8), ("cwell_spmm_f32", "cwell_spmm_f64"),
+         1e-4, None),
+        ("cg batched f32 on BELL", bell, Bb,
+         dict(method="cg", tol=1e-6, maxiter=500), ("bell_spmm_f32",), 1e-3,
+         5),
+        ("cg f64 auto on BELL (k=4)", bell64, Bb64,
+         dict(method="cg", tol=1e-8), ("bell_spmm_f32", "bell_spmm_f64"),
+         1e-4, None),
+    ]
+    reset_counts()  # the main-path run of this slice starts here
+    for label, op, Bm, kw, carriers, xbound, gap in runs:
+        before = counts()
+        t0 = time.perf_counter()
+        X, res = solve(op, Bm, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        rel = cols_norm(Bm - truth[id(op)](X)) / cols_norm(Bm)
+        print(f"  {label}: {res}; true rel res per column max "
+              f"{float(rel.max()):.2e}; first-call wall {wall * 1e3:.1f} ms;"
+              f" launches {grew}")
+        check(res.converged, f"{label} did not converge")
+        check(float(rel.max()) <= 10 * kw["tol"],
+              f"{label}: true residual {float(rel.max())}")
+        check(all(grew.get(k, 0) > 0 for k in carriers),
+              f"{label}: {carriers} did not carry the solve")
+        # each column against the single-RHS solve of that column
+        diffs, its = [], []
+        for j in range(Bm.shape[1]):
+            xj, rj = solve(op, Bm[:, j].contiguous(), **kw)
+            check(rj.converged, f"{label}: single column {j}")
+            diffs.append(float(torch.linalg.vector_norm(X[:, j] - xj)
+                               / torch.linalg.vector_norm(xj)))
+            its.append(rj.iterations)
+        if gap == "bicgstab":
+            gap = max(5, max(its) // 5)
+        print(f"    single-RHS solves of the columns: iterations {its} "
+              f"(multi-RHS max {res.iterations}); rel x difference max "
+              f"{max(diffs):.2e}")
+        check(max(diffs) <= xbound,
+              f"{label}: columns disagree with the single-RHS solves")
+        if gap is not None:
+            check(abs(res.iterations - max(its)) <= gap,
+                  f"{label}: iterations {res.iterations} against {its}")
+    # the single-RHS BELL solve runs K4 on the cached CWELL repack
+    before = counts()
+    x, res = solve(bell, Bb[:, 0].contiguous(), tol=1e-6, maxiter=500)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    print(f"  single-RHS solve(bell, b): {res}; launches {grew}")
+    check(res.converged and grew.get("cwell_spmv_f32", 0) > 0
+          and not grew.get("bell_spmm_f32"),
+          "the single-RHS BELL solve did not run K4 on the repack")
+    main_runs["phase (17)"] = counts()
+    print(f"  launches in the main-path run (phase 17): "
+          f"{main_runs['phase (17)']}")
+    for k in ("cwell_spmm_f32", "cwell_spmm_f64", "bell_spmm_f32",
+              "bell_spmm_f64"):
+        check(main_runs["phase (17)"][k] > 0,
+              f"kernel {k} was not launched on the main path")
+
+    # ---- (18) times ----------------------------------------------------
+    phase("(18) times (CUDA events, median and min-max of 5): K6/K7 and K8 "
+          "beside bounds, plain versions, cuSPARSE SpMM and k x K4; "
+          "multi-RHS solves beside k single-RHS solves")
+
+    def fmt(t):
+        return f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
+
+    def spmm_row(key, kernel, plain, A_, csr, k, nbytes, flops, ktag):
+        dt = A_.vals.dtype if hasattr(A_, "vals") else A_.blocks.dtype
+        Bk = torch.from_numpy(np.random.default_rng(SEED + 18)
+                              .standard_normal((A_.shape[1], k))).to(dev, dt)
+        Y0, Y1 = plain(A_, Bk), kernel(A_, Bk)
+        err = float((Y1 - Y0).abs().max())
+        scale = float(Y0.abs().max())
+        check(err <= (1e-5 if dt == torch.float32 else 1e-12) * scale,
+              f"{key} disagrees with the plain version at k={k}")
+        lib = torch.sparse_csr_tensor(csr.indptr, csr.indices,
+                                      csr.data.to(dt), size=csr.shape)
+        e_lib = rel_err(torch.sparse.mm(lib, Bk), Y0)
+        check(e_lib <= (1e-5 if dt == torch.float32 else 1e-12),
+              "the cuSPARSE yardstick computes another function")
+        t_k = times(lambda: kernel(A_, Bk), 5)
+        t_p = times(lambda: plain(A_, Bk), 1)
+        t_l = times(lambda: torch.sparse.mm(lib, Bk), 5)
+        size = torch.finfo(dt).bits // 8
+        t_bytes = nbytes(size, k) / 3.35e12 * 1e3
+        t_ops = flops * k / (67e12 if size == 4 else 34e12) * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        k4 = results.get(f"cwell_spmv_f{size * 8}", {}).get("ms")
+        k4s = "" if k4 is None else f"; {k} x K4 {k * k4:.4f} ms"
+        print(f"  {key} k={k:3d}: kernel {fmt(t_k)}; bound {bound_ms:.4f} "
+              f"ms ({nbytes(size, k) / 1e6:.1f} MB, {bound_ms / t_k[0]:.2f} "
+              f"of it); plain {fmt(t_p)}; cuSPARSE SpMM {fmt(t_l)} (kernel /"
+              f" cuSPARSE {t_k[0] / t_l[0]:.2f}){k4s}; max abs err "
+              f"{err:.2e} (max|Y| {scale:.2e})", flush=True)
+        if ktag:
+            note(key, max_abs_err=max(err, edge_errs.get(key, 0.0)),
+                 ms=t_k[0], plain_ms=t_p[0], library_ms=t_l[0],
+                 bound_ms=bound_ms,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+        del lib
+
+    def cwell_bytes(W_):
+        nb, S = W_.srow.shape
+        return lambda size, k: (W_.vals.numel() * (size + 4) + nb * S * 4
+                                + (W_.shape[0] + W_.shape[1]) * k * size)
+
+    def bell_bytes(A_):
+        return lambda size, k: (A_.blocks.numel() * size
+                                + A_.indices.numel() * 4
+                                + (A_.shape[0] + A_.shape[1]) * k * size)
+
+    for k in (8, 32, 128):
+        spmm_row("cwell_spmm_f32", cuda_cwell.cwell_spmm_cuda, ref.cwell_spmm,
+                 W, g["A"], k, cwell_bytes(W), 2 * W.nnz, k == 8)
+    from tpu_sparse_torch.sparse import convert as conv
+
+    A64 = conv.to_csr(g["A64_dia"])
+    spmm_row("cwell_spmm_f64", cuda_cwell.cwell_spmm_cuda, ref.cwell_spmm,
+             W64, A64, 4, cwell_bytes(W64), 2 * W64.nnz, True)
+    del A64
+    for k in (8, 32):
+        spmm_row("bell_spmm_f32", cuda_bell.bell_spmm_cuda, ref.bell_spmm,
+                 bell, bell_csr, k, bell_bytes(bell), 2 * bell.blocks.numel(),
+                 k == 8)
+    spmm_row("bell_spmm_f64", cuda_bell.bell_spmm_cuda, ref.bell_spmm,
+             bell64, bell_csr, 4, bell_bytes(bell64),
+             2 * bell64.blocks.numel(), True)
+
+    def multi_and_singles(op, Bm, kw):
+        def multi():
+            return solve(op, Bm, **kw)[1].iterations
+
+        def singles():
+            return [solve(op, Bm[:, j].contiguous(), **kw)[1].iterations
+                    for j in range(Bm.shape[1])]
+        return multi, singles
+
+    for label, op, Bm, kw, *_ in runs:
+        multi, singles = multi_and_singles(op, Bm, kw)
+        t_m, t_s = times(multi, 1), times(singles, 1)
+        print(f"  solve {label:38s} {fmt(t_m)} ({multi()} it);   "
+              f"{Bm.shape[1]} single-RHS solves {fmt(t_s)} ({singles()} it);"
+              f" ratio {t_s[0] / t_m[0]:.2f}", flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -21,7 +21,10 @@ the CPU, both at tol 1e-5) / 1e-6 (f64). K4 / K5 (CWELL SpMV): 1e-5 /
 1e-13 of max|y| against the plain version, exactly 0 where y is 0, and
 bit-identical reruns; the card's pack byte-equal to the CPU's; solves on
 CWELL as on DIA, but paths with float32 arithmetic within 5 iterations
-or a fifth of the count (see the test).
+or a fifth of the count (see the test). K6/K7 (CWELL SpMM) and K8 (BELL
+SpMM): 1e-5 (f32) / 1e-12 (f64) of max|Y| against the plain version,
+bit-identical reruns; multi-RHS solves on the card against the CPU with
+the CWELL solves' iteration slack and x tolerances.
 """
 
 import numpy as np
@@ -29,8 +32,8 @@ import pytest
 import torch
 
 import tpu_sparse_torch
-from tpu_sparse_torch.kernels import (cuda_bicgstab, cuda_cg, cuda_cwell,
-                                      cuda_spmv)
+from tpu_sparse_torch.kernels import (cuda_bell, cuda_bicgstab, cuda_cg,
+                                      cuda_cwell, cuda_spmv)
 from tpu_sparse_torch.kernels import reference as ref
 from tpu_sparse_torch.sparse import generators as gen
 
@@ -400,3 +403,160 @@ def test_cwell_adjoint_on_card_matches_cpu(dev, method):
         grads.append((vals.grad.cpu(), bb.grad.cpu()))
     for got, want in zip(grads[1], grads[0]):
         assert _rel(got, want) <= 1e-6
+
+
+_SPMM_BOUND = {np.float32: 1e-5, np.float64: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 3, 8, 33, 130])
+@pytest.mark.parametrize("n,m,per_row,group", [
+    (3000, 2500, 8, 1), (3000, 2500, 8, 4), (1001, 777, 7, 2),
+    (300, 200, 5, 1), (300, 300, 0, 1),
+])
+def test_cwell_spmm_kernel_matches_plain(dev, n, m, per_row, group, k, dtype):
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    W = csr_to_cwell(_random_csr(n, m, per_row, dtype, n + m).to(dev),
+                     group=group)
+    B = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (m, k)).astype(dtype)).to(dev)
+    sfx = "f32" if dtype == np.float32 else "f64"
+    before = cuda_cwell.LAUNCHES["cwell_spmm_" + sfx]
+    Y0 = ref.cwell_spmm(W, B)
+    Y1 = cuda_cwell.cwell_spmm_cuda(W, B)
+    Y2 = tpu_sparse_torch.kernels.spmm(W, B)  # the dispatch runs the kernel
+    assert cuda_cwell.LAUNCHES["cwell_spmm_" + sfx] == before + 2
+    assert float((Y1 - Y0).abs().max()) <= \
+        _SPMM_BOUND[dtype] * float(Y0.abs().max())
+    assert torch.equal(Y1, Y2)  # reruns give the same bits
+
+
+def _block_dense(nb, bs, density, seed):
+    rng = np.random.default_rng(seed)
+    mask = rng.random((nb, nb)) < density
+    np.fill_diagonal(mask, True)
+    A = np.zeros((nb * bs, nb * bs))
+    for i, j in zip(*np.nonzero(mask)):
+        A[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = rng.standard_normal(
+            (bs, bs))
+    return A
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 5, 130, 300])
+@pytest.mark.parametrize("nb,bs,pad", [(40, 8, 0), (40, 8, 4), (30, 3, 1),
+                                       (6, 64, 1)])
+def test_bell_spmm_kernel_matches_plain(dev, nb, bs, pad, k, dtype):
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+
+    Ad = torch.from_numpy(_block_dense(nb, bs, 0.3, nb + bs).astype(dtype))
+    S = csr_to_bsr(dense_to_csr(Ad.to(dev)), bs)
+    A = bsr_to_bell(S, ell_width=int(torch.diff(S.indptr.long()).max())
+                    + pad)
+    B = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (nb * bs, k)).astype(dtype)).to(dev)
+    sfx = "f32" if dtype == np.float32 else "f64"
+    before = cuda_bell.LAUNCHES["bell_spmm_" + sfx]
+    Y0 = ref.bell_spmm(A, B)
+    Y1 = cuda_bell.bell_spmm_cuda(A, B)
+    Y2 = A @ B
+    assert cuda_bell.LAUNCHES["bell_spmm_" + sfx] == before + 2
+    assert float((Y1 - Y0).abs().max()) <= \
+        _SPMM_BOUND[dtype] * float(Y0.abs().max())
+    assert torch.equal(Y1, Y2)
+    torch.testing.assert_close(Y1.cpu(), Ad @ B.cpu(), rtol=1e-4, atol=1e-4)
+
+
+def test_spmm_kernel_refusals(dev):
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    W = csr_to_cwell(_random_csr(300, 200, 5, np.float32, 0).to(dev))
+    A = bsr_to_bell(csr_to_bsr(dense_to_csr(torch.eye(64, device=dev)), 8))
+    for fn, op, m in ((cuda_cwell.cwell_spmm_cuda, W, 200),
+                      (cuda_bell.bell_spmm_cuda, A, 64)):
+        B = torch.ones(m, 3, device=dev)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(op, B.cpu())
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(op.to("cpu"), B)
+        with pytest.raises(TypeError):
+            fn(op, B.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(op, torch.ones(m, 6, device=dev)[:, ::2])
+        with pytest.raises(ValueError, match="shape"):
+            fn(op, torch.ones(m + 1, 3, device=dev))
+    big = A.with_data(torch.ones(8, 1, 72, 72, device=dev))
+    with pytest.raises(ValueError, match="exceeds"):
+        cuda_bell.bell_spmm_cuda(big, torch.ones(64, 3, device=dev))
+
+
+def test_bell_spmv_on_card_runs_k4_on_the_repack(dev):
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse.bell import block_cwell
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+
+    Ad = torch.from_numpy(_block_dense(40, 8, 0.3, 5))
+    A = bsr_to_bell(csr_to_bsr(dense_to_csr(Ad.to(dev)), 8))
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(320)).to(dev)
+    before = dict(cuda_cwell.LAUNCHES)
+    y = tpu_sparse_torch.kernels.spmv(A, x)
+    assert cuda_cwell.LAUNCHES["cwell_spmv_f64"] == \
+        before["cwell_spmv_f64"] + 1
+    assert block_cwell(A) is block_cwell(A)  # repacked once
+    assert _rel(y, ref.bell_spmv(A, x)) <= 1e-13
+
+
+@pytest.mark.parametrize("operand", ["dia", "cwell", "bell"])
+@pytest.mark.parametrize("method,multi_rhs", [("cg", "auto"),
+                                              ("cg", "block"),
+                                              ("bicgstab", "auto"),
+                                              ("gmres", "auto")])
+@pytest.mark.parametrize("dtype,precision", [(np.float32, "full"),
+                                             (np.float64, "full"),
+                                             (np.float64, "auto")])
+def test_multirhs_solve_on_card_matches_cpu(dev, operand, method, multi_rhs,
+                                            dtype, precision):
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse.convert import dense_to_csr, to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    make = gen.poisson3d_27pt if method == "cg" \
+        else gen.convection_diffusion_3d_27pt
+    A = make(12, dtype=dtype, device="cpu")
+    if operand == "cwell":
+        A = csr_to_cwell(to_csr(A))
+    elif operand == "bell":
+        # diagonally dominant (and symmetric for cg) 8 x 8 block matrix
+        Ad = _block_dense(24, 8, 0.2, 7)
+        if method == "cg":
+            Ad = Ad + Ad.T
+        Ad = torch.from_numpy((Ad + 2 * 192 * np.eye(192)).astype(dtype))
+        A = bsr_to_bell(csr_to_bsr(dense_to_csr(Ad), 8))
+    B = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (A.shape[0], 3)).astype(dtype))
+    tol = 1e-6 if dtype == np.float32 else 1e-9
+    kw = dict(method=method, multi_rhs=multi_rhs, tol=tol,
+              precision=precision, maxiter=500)
+    Xc, rc = tpu_sparse_torch.solve(A, B, **kw)
+    before = {**cuda_cwell.LAUNCHES, **cuda_bell.LAUNCHES}
+    Xg, rg = tpu_sparse_torch.solve(A.to(dev), B.to(dev), **kw)
+    after = {**cuda_cwell.LAUNCHES, **cuda_bell.LAUNCHES}
+    carrier = {"cwell": "cwell_spmm_", "bell": "bell_spmm_"}.get(operand)
+    # 'auto' stays full precision under multi_rhs='block'
+    full64 = dtype == np.float64 and (precision == "full"
+                                      or multi_rhs == "block")
+    if carrier is not None:
+        sfx = "f64" if full64 else "f32"
+        assert after[carrier + sfx] > before[carrier + sfx]
+    assert rc.converged and rg.converged
+    # float32 arithmetic (a float32 solve, the float32 sweeps of 'auto')
+    # sums in another order on the card: see test_cwell_solve_on_card
+    slack = 2 if full64 else max(5, rc.iterations // 5)
+    assert abs(rc.iterations - rg.iterations) <= slack
+    rtol = 1e-3 if dtype == np.float32 else 1e-6
+    np.testing.assert_allclose(Xg.cpu().numpy(), Xc.numpy(), rtol=rtol,
+                               atol=rtol * float(Xc.abs().max()))

@@ -224,11 +224,14 @@ def test_to_gpu_operator_picks_jax_format():
     Aj, At = _both_csr(stencil)
     assert isinstance(to_tpu_operator(Aj, max_diags=2), JCWELL)
     assert isinstance(to_gpu_operator(At, max_diags=2), CWELL)
-    # block-structured: JAX promotes to BELL, which is not ported yet
+    # block-structured: both promote to BELL, with the same blocks
+    from tpu_sparse_torch.sparse import BELL as TBELL
+
     Ab = _bell_matrix()
-    assert isinstance(to_tpu_operator(jdense_to_csr(Ab)), BELL)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        to_gpu_operator(tconvert.dense_to_csr(torch.from_numpy(Ab)))
+    Bj = to_tpu_operator(jdense_to_csr(Ab))
+    Bt = to_gpu_operator(tconvert.dense_to_csr(torch.from_numpy(Ab)))
+    assert isinstance(Bj, BELL) and isinstance(Bt, TBELL)
+    assert _same(Bt.blocks, Bj.blocks) and _same(Bt.indices, Bj.indices)
 
 
 def test_to_gpu_operator_wide_matrix_single_cwell():

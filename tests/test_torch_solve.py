@@ -243,8 +243,8 @@ def test_unknown_names_raise_value_error_like_jax(kw, msg):
 
 def test_inputs_requiring_grad_multi_rhs_and_complex_raise():
     """Inputs that require grad: a matrix operand differentiates through
-    the full-precision solve (one adjoint solve); a matrix-free callable
-    and the mixed path refuse."""
+    the full-precision solve (one adjoint solve); a matrix-free callable,
+    the mixed path and a multi-RHS solve refuse."""
     A, b = _a_b()
     for method in ("cg", "bicgstab", "gmres"):
         bg = b.clone().requires_grad_()
@@ -268,8 +268,13 @@ def test_inputs_requiring_grad_multi_rhs_and_complex_raise():
         with pytest.raises(ValueError, match="not differentiable"):
             tpu_sparse_torch.solve(A, b.clone().requires_grad_(),
                                    precision=precision)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpu_sparse_torch.solve(A, torch.ones(16, 2, dtype=torch.float64))
+    # multi-RHS solves, but is not differentiable (nor in JAX)
+    X, r = tpu_sparse_torch.solve(A, torch.ones(16, 2, dtype=torch.float64),
+                                  tol=1e-12)
+    assert r.converged and X.shape == (16, 2)
+    with pytest.raises(ValueError, match="not differentiable"):
+        tpu_sparse_torch.solve(A, torch.ones(16, 2, dtype=torch.float64,
+                                             requires_grad=True))
     with pytest.raises(NotImplementedError, match="item 13"):
         tpu_sparse_torch.solve(A, b.to(torch.complex128))
     with pytest.raises(ValueError, match="dimension mismatch"):

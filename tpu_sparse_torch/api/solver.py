@@ -23,6 +23,13 @@ differentiable in ``b`` and in a matrix operand's values. The
 mixed-precision path is not (nor is it in JAX), and refuses inputs that
 require grad.
 
+A 2-D ``b`` of shape (n, k) is a multi-RHS solve (``_solve_multirhs``,
+JAX ``_solve_multirhs``): block CG (``solvers.block``) or the batched
+solvers (``solvers.batched``), chosen by ``multi_rhs="auto" | "block" |
+"batch"``, and ``batch_refined`` for the mixed precision; every matvec is
+one SpMM. As in the JAX package it is not differentiable (its loops run
+outside the adjoint wrappers), so inputs that require grad are refused.
+
 The JAX ``jit``/``lru_cache`` wrappers are plain calls here. Parts of the
 JAX router outside this slice raise ``NotImplementedError`` naming their
 ROADMAP queue-1 item; unknown names raise the JAX router's ``ValueError``.
@@ -30,6 +37,7 @@ ROADMAP queue-1 item; unknown names raise the JAX router's ``ValueError``.
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
@@ -206,6 +214,13 @@ class SparseSolver:
 
         restart and solve_method: GMRES's restart length and
         'batched' | 'incremental'; the other methods do not read them.
+
+        A 2-D b (n, k) solves every column: ``multi_rhs='auto'`` runs CG as
+        block CG when M is given and batched otherwise, BiCGStab and GMRES
+        batched; 'block' and 'batch' force CG's choice. 'auto' precision
+        stays 'full' under multi_rhs='block'. The result reports the
+        largest iteration count and relative residual over the columns,
+        and converged only if every column did.
         """
         if precision not in ("auto", "full", "mixed"):
             raise ValueError(f"unknown precision '{precision}'; use "
@@ -229,9 +244,18 @@ class SparseSolver:
         if sel_method not in _KRYLOV_METHODS:
             raise ValueError(f"unknown krylov method: {sel_method}")
         _check_in_slice(A, b, x0, M)
+        multi = isinstance(b, torch.Tensor) and b.dim() == 2
         if precision == "auto":
+            # an explicit multi_rhs='block' keeps full precision: the mixed
+            # multi-RHS path is the batched refinement (JAX router :240-246)
             precision = ("mixed" if _auto_mixed_ok(A, b, tol, sel_backend)
-                         else "full")
+                         and kwargs.get("multi_rhs") != "block" else "full")
+        if multi and _requires_grad(A, b, x0, M):
+            raise ValueError(
+                "a multi-RHS solve is not differentiable: the JAX package "
+                "runs its block and batched loops (lax.while_loop) outside "
+                "the adjoint wrappers, and the port keeps that contract; "
+                "solve the columns one at a time to differentiate")
         if precision == "mixed" and _requires_grad(A, b, x0, M):
             raise ValueError(
                 "precision='mixed' is not differentiable (its inner solves "
@@ -242,6 +266,11 @@ class SparseSolver:
                   f"method={sel_method} precision={precision}")
         if isinstance(M, str):
             M = self._precond_M(A, M)
+        if multi:
+            return self._solve_multirhs(
+                A, b, x0, sel_backend, sel_method, tol, atol, maxiter, M,
+                restart, solve_method, precision,
+                kwargs.get("multi_rhs", "auto"))
 
         kw = dict(tol=tol, atol=atol, maxiter=maxiter)
         if sel_method == "gmres":
@@ -353,6 +382,49 @@ class SparseSolver:
         out = refined(A, b, x0, M=M, **kw)
         return out + (_relative_residual(A, b, out[0]),)
 
+    def _solve_multirhs(self, A, B, X0, sel_backend, method, tol, atol,
+                        maxiter, M, restart, solve_method, precision,
+                        multi_rhs):
+        """(n, k) right-hand sides (JAX ``_solve_multirhs``): block CG for
+        CG with a preconditioner ('auto') or on request, the batched
+        solvers otherwise; precision='mixed' runs the batched refinement."""
+        from tpu_sparse_torch.solvers import (batch_bicgstab, batch_cg,
+                                              batch_gmres, batch_refined,
+                                              block_cg)
+
+        if multi_rhs not in ("auto", "block", "batch"):
+            raise ValueError(f"unknown multi_rhs '{multi_rhs}'; use "
+                             "'auto', 'block', or 'batch'")
+        kw = dict(tol=tol, atol=atol, maxiter=maxiter, M=M)
+        if method == "gmres":
+            kw.update(restart=restart, solve_method=solve_method)
+        if precision == "mixed":
+            if multi_rhs == "block":
+                warnings.warn(
+                    "multi_rhs='block' is unavailable with "
+                    "precision='mixed'; using the batched refinement "
+                    "instead.", stacklevel=3)
+            X, infos, iters, res = batch_refined(method, A, B, X0, **kw)
+            iters = iters.max()
+        elif method == "cg" and (multi_rhs == "block" or (
+                multi_rhs == "auto" and M is not None)):
+            # measured in the JAX package: for independent right-hand sides
+            # batched CG beats block CG; a preconditioned solve keeps it
+            X, infos, iters, res = block_cg(A, B, X0, **kw)
+        else:
+            fn = {"cg": batch_cg, "bicgstab": batch_bicgstab,
+                  "gmres": batch_gmres}[method]
+            X, infos, iters, res = fn(A, B, X0, **kw)
+            iters = iters.max()
+        with torch.no_grad():
+            bn = torch.linalg.vector_norm(B, dim=0)
+            rel = torch.max(res / torch.where(bn > 0, bn,
+                                              torch.ones_like(bn)))
+        result = SolverResult(x=X, converged=torch.all(infos == 0),
+                              iterations=iters, residual=rel,
+                              backend=sel_backend, method=method)
+        return X, result
+
     def cg(self, A, b, **kw):
         return self.solve(A, b, method="cg", **kw)
 
@@ -379,8 +451,6 @@ def _requires_grad(A, b, x0, M) -> bool:
 def _check_in_slice(A, b, x0, M) -> None:
     """Refuse inputs the slice does not cover yet, naming the queue item."""
     tensors = _tensors(A, b, x0, M)
-    if isinstance(b, torch.Tensor) and b.dim() == 2:
-        raise _not_ported("multi-RHS b", _Q1 + "13 (multi-RHS)")
     if any(t.is_complex() for t in tensors):
         raise _not_ported("complex input", _Q1 + "13 (native complex)")
 

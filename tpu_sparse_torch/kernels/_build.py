@@ -138,6 +138,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         # vals, idx2, srow, x, y, n_blocks, planes, n_rows, n_cols, stream
         "ts_cwell_spmv_f32": [P, P, P, P, P, L, L, L, L, P],
         "ts_cwell_spmv_f64": [P, P, P, P, P, L, L, L, L, P],
+        # vals, idx2, srow, B, Y, n_blocks, planes, n_rows, n_cols, k,
+        # stream
+        "ts_cwell_spmm_f32": [P, P, P, P, P, L, L, L, L, L, P],
+        "ts_cwell_spmm_f64": [P, P, P, P, P, L, L, L, L, L, P],
+        # blocks, indices, B, Y, n_block_rows, L, bs, n_cols, k, stream
+        "ts_bell_spmm_f32": [P, P, P, P, L, L, L, L, L, P],
+        "ts_bell_spmm_f64": [P, P, P, P, L, L, L, L, L, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -83,28 +83,33 @@ def _final_check_relax(dtype: torch.dtype) -> float:
 
 
 def _cg_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
-             maxiter: int, precond_is_identity: bool):
+             maxiter: int, precond_is_identity: bool,
+             vdot_real: Callable = tree_vdot_real):
+    """The CG recurrence. With the default ``vdot_real`` the scalars are
+    0-d; the batched solvers pass column dot products, so that on an
+    (n, k) block every scalar is a (k,) vector and each column runs this
+    recurrence with its own mask (``solvers.batched``)."""
     r = tree_sub(b, A(x0))
     z = M(r)
     p = z
     dtype = _float_dtype(p)
-    gamma = tree_vdot_real(r, z).to(_real_dtype(dtype))
+    gamma = vdot_real(r, z).to(_real_dtype(dtype))
     x = x0
     k = torch.zeros((), dtype=torch.int32, device=gamma.device)
 
     def active_now():
-        rs = gamma if precond_is_identity else tree_vdot_real(r, r)
+        rs = gamma if precond_is_identity else vdot_real(r, r)
         return (k < maxiter) & (rs > atol2)
 
     active = active_now()
-    while bool(active):  # one host read per CHECK_EVERY iterations
+    while bool(active.any()):  # one host read per CHECK_EVERY iterations
         for _ in range(CHECK_EVERY):
             Ap = A(p)
-            alpha = (gamma / tree_vdot_real(p, Ap)).to(dtype)
+            alpha = (gamma / vdot_real(p, Ap)).to(dtype)
             x_new = tree_axpy(alpha, p, x)
             r_new = tree_axpy(-alpha, Ap, r)
             z = M(r_new)
-            gamma_new = tree_vdot_real(r_new, z).to(_real_dtype(dtype))
+            gamma_new = vdot_real(r_new, z).to(_real_dtype(dtype))
             beta = (gamma_new / gamma).to(dtype)
             p_new = tree_axpy(beta, p, z)
             x = tree_where(active, x_new, x)
@@ -164,7 +169,10 @@ def cg_full(A: Operator, b: Any, x0: Optional[Any] = None, *,
 
 
 def _bicgstab_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
-                   maxiter: int):
+                   maxiter: int, vdot: Callable = tree_vdot,
+                   vdot_real: Callable = tree_vdot_real):
+    """The BiCGStab recurrence; batched like ``_cg_loop`` through its dot
+    products."""
     r = tree_sub(b, A(x0))
     rhat = r
     dtype = _float_dtype(r)
@@ -175,24 +183,24 @@ def _bicgstab_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
     k = torch.zeros((), dtype=torch.int32, device=dev)
 
     def active_now():
-        rs = tree_vdot_real(r, r)
+        rs = vdot_real(r, r)
         return (rs > atol2) & (k < maxiter) & (k >= 0)
 
     active = active_now()
-    while bool(active):  # one host read per CHECK_EVERY iterations
+    while bool(active.any()):  # one host read per CHECK_EVERY iterations
         for _ in range(CHECK_EVERY):
-            rho_new = tree_vdot(rhat, r)
+            rho_new = vdot(rhat, r)
             beta = rho_new / rho * alpha / omega
             p_new = tree_axpy(beta, tree_axpy(-omega, q, p), r)
             phat = M(p_new)
             q_new = A(phat)
-            alpha_new = rho_new / tree_vdot(rhat, q_new)
+            alpha_new = rho_new / vdot(rhat, q_new)
             s = tree_axpy(-alpha_new, q_new, r)
-            exit_early = tree_vdot_real(s, s) < atol2
+            exit_early = vdot_real(s, s) < atol2
             shat = M(s)
             t = A(shat)
-            tt = tree_vdot(t, t)
-            omega_new = torch.where(tt.abs() > 0, tree_vdot(t, s) / tt,
+            tt = vdot(t, t)
+            omega_new = torch.where(tt.abs() > 0, vdot(t, s) / tt,
                                     torch.zeros((), dtype=dtype, device=dev))
             x_half = tree_axpy(alpha_new, phat, x)
             x_new = tree_where(exit_early, x_half,

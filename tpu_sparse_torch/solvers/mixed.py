@@ -21,6 +21,15 @@ loop is Python
 with one host read per sweep and stops at the first done sweep, which
 gives the same x, info and iteration count (a done sweep of the unroll
 solves a zero right-hand side in 0 iterations and is never accepted).
+
+``batch_refined`` is the column-batched ``refined_solve`` (the JAX
+``batched.batch_refined`` ``vmap``s it): each column keeps its own
+``done`` / ``stalled`` / ``accept``, the inner float32 sweeps solve the
+(n, k) residual block with the batched solvers (every matvec one ``spmm``
+on the float32-cast operand: K6/K7 on a CWELL, K8 on a BELL on the card),
+the outer float64 residuals are ``spmm`` in float64 (the double builds of
+the same kernels), and the loop reads the host once per sweep, on
+``done.all()``.
 """
 
 from __future__ import annotations
@@ -236,3 +245,105 @@ def gmres_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
                          solve_method=solve_method,
                          inner_maxiter=inner_cap,
                          rescue_maxiter=rescue_cap)
+
+
+def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
+                        X0=None, *, tol: float = 1e-8, atol: float = 0.0,
+                        inner_tol: float = 1e-5,
+                        maxiter: Optional[int] = None, max_sweeps: int = 6,
+                        M=None, inner_dtype=torch.float32,
+                        inner_maxiter: Optional[int] = None,
+                        rescue_maxiter: Optional[int] = None,
+                        **inner_kwargs):
+    """``refined_solve`` for each column of an (n, k) block B, with a
+    batched inner solver (``batch_cg``, ``batch_bicgstab``,
+    ``batch_gmres``). A column that is done solves a zero right-hand side,
+    which takes 0 inner iterations, and is never accepted again: each
+    column ends as ``refined_solve`` would end it alone. Returns (X,
+    infos, inner iterations, res_norms), each per column."""
+    from tpu_sparse_torch.kernels import as_matmat
+    from tpu_sparse_torch.solvers.batched import cols_norm
+
+    A_mm = as_matmat(A)
+    outer_dtype = B.dtype
+    A32 = _cast_operator(A, inner_dtype, outer_dtype)
+    M32 = _cast_precond(M, inner_dtype)
+    maxiter = 10 * B.shape[0] if maxiter is None else int(maxiter)
+    if inner_maxiter is None:
+        inner_maxiter = maxiter
+    if rescue_maxiter is None:
+        rescue_maxiter = maxiter
+
+    thresh = torch.clamp_min(tol * cols_norm(B), atol)
+    X = torch.zeros_like(B) if X0 is None else X0
+    res = cols_norm(B - A_mm(X))
+    zero = torch.zeros((), dtype=B.dtype, device=B.device)
+    inner_iters = torch.zeros(B.shape[1], dtype=torch.int32, device=B.device)
+    stalled = torch.zeros(B.shape[1], dtype=torch.bool, device=B.device)
+
+    for _ in range(max_sweeps):
+        done = (res <= thresh) | (~torch.isfinite(res)) | stalled
+        if bool(done.all()):  # the one host read of the sweep
+            break
+        R = torch.where(done, zero, B - A_mm(X))
+        D32, _, it, _ = inner_solver(A32, R.to(inner_dtype), None,
+                                     tol=inner_tol, maxiter=inner_maxiter,
+                                     M=M32, **inner_kwargs)
+        # accept a column's sweep only if it lowered its true residual
+        X_new = X + D32.to(outer_dtype)
+        res_new = cols_norm(B - A_mm(X_new))
+        accept = torch.isfinite(res_new) & (res_new < res) & ~done
+        X = torch.where(accept, X_new, X)
+        res = torch.where(accept, res_new, res)
+        stalled = stalled | (~accept & ~done)
+        inner_iters = inner_iters + torch.clamp_min(it, 0)
+
+    # full-precision rescue of the columns the sweeps left above threshold
+    failed = (~torch.isfinite(res)) | (res > thresh)
+    if bool(failed.any()):
+        R = torch.where(failed, B - A_mm(X), zero)
+        D, _, it_f, _ = inner_solver(A, R, None, tol=0.0, atol=thresh,
+                                     maxiter=rescue_maxiter, M=M,
+                                     **inner_kwargs)
+        X_new = X + D
+        res_new = cols_norm(B - A_mm(X_new))
+        accept = torch.isfinite(res_new) & (res_new < res) & failed
+        X = torch.where(accept, X_new, X)
+        res = torch.where(accept, res_new, res)
+        inner_iters = inner_iters + torch.clamp_min(it_f, 0)
+        failed = (~torch.isfinite(res)) | (res > thresh)
+    info = torch.where(failed, -1, 0).to(torch.int32)
+    return X, info, inner_iters, res
+
+
+def batch_refined(method: str, A, B: torch.Tensor, X0=None, *,
+                  tol: float = 1e-8, atol: float = 0.0,
+                  maxiter: Optional[int] = None, M=None, **kw):
+    """Mixed-precision solve of each column of B by the defect correction
+    of ``cg_refined`` / ``bicgstab_refined`` / ``gmres_refined`` (their
+    inner tolerance, sweep count and GMRES restart policy). Returns (X,
+    infos, inner_iterations, res_norms)."""
+    from tpu_sparse_torch.solvers.batched import (batch_bicgstab, batch_cg,
+                                                  batch_gmres)
+
+    inner = {"cg": batch_cg, "bicgstab": batch_bicgstab,
+             "gmres": batch_gmres}
+    if method not in inner:
+        raise NotImplementedError(
+            f"batch_refined for '{method}' is not ported yet: ROADMAP "
+            "queue 1, item 14 (other solvers)")
+    caps = {}
+    if method == "gmres":
+        n = B.shape[0]
+        restart = kw.pop("restart", 20)
+        if kw.pop("adaptive_restart", True) and restart < n \
+                and n <= _ADAPTIVE_FULL_GMRES_N:
+            restart = n
+        if restart >= n:
+            caps = dict(inner_maxiter=1, rescue_maxiter=4)
+        kw["restart"] = restart
+    return batch_refined_solve(inner[method], A, B, X0, tol=tol, atol=atol,
+                               inner_tol=kw.pop("inner_tol", 1e-5),
+                               maxiter=maxiter,
+                               max_sweeps=kw.pop("max_sweeps", 8), M=M,
+                               **caps, **kw)

@@ -1,9 +1,10 @@
 """Sparse matrix containers holding torch tensors.
 
-Counterpart of ``tpu_sparse/sparse/containers.py``: ``COO``, ``CSR`` and
-``DIA`` with the same fields and methods. ``DIA`` keeps its offsets as a
-static tuple of Python ints (the stencil kernels take them by value).
-Containers are small classes with ``.to(device)``; nothing here is trained.
+Counterpart of ``tpu_sparse/sparse/containers.py``: ``COO``, ``CSR``,
+``DIA`` and ``BSR`` with the same fields and methods. ``DIA`` keeps its
+offsets as a static tuple of Python ints (the stencil kernels take them by
+value). Containers are small classes with ``.to(device)``; nothing here is
+trained. ``A @ x`` is an SpMV for a vector and an SpMM for an (m, k) block.
 """
 
 from __future__ import annotations
@@ -12,15 +13,14 @@ from typing import Any, Sequence
 
 import torch
 
-__all__ = ["COO", "CSR", "DIA", "is_sparse", "values", "with_values"]
+__all__ = ["BSR", "COO", "CSR", "DIA", "is_sparse", "values", "with_values"]
 
 
 def _matvec(A, x):
-    from tpu_sparse_torch.kernels import spmv  # lazy: kernels use containers
+    from tpu_sparse_torch.kernels import spmm, spmv  # lazy: kernels use us
 
     if getattr(x, "ndim", 1) == 2:
-        raise NotImplementedError(
-            "multi-RHS SpMM is ROADMAP queue 1, item 13 (multi-RHS)")
+        return spmm(A, x)
     return spmv(A, x)
 
 
@@ -233,7 +233,77 @@ def _shift(v: torch.Tensor, k: int, out_len: int) -> torch.Tensor:
     return out
 
 
-SPARSE_TYPES = [COO, CSR, DIA]  # sparse/cwell.py appends CWELL, CWELLSeg
+class BSR:
+    """Block-sparse-row matrix with dense square blocks: ``data``
+    (nblocks, bs, bs), ``indices`` (nblocks,) int32 block columns,
+    ``indptr`` (n_block_rows + 1,) int32, static ``shape`` divisible by
+    bs."""
+
+    def __init__(self, data, indices, indptr, shape):
+        self.data = data
+        self.indices = indices
+        self.indptr = indptr
+        self.shape = tuple(int(s) for s in shape)
+
+    @property
+    def blocksize(self) -> int:
+        return int(self.data.shape[1])
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.shape[0] // self.blocksize
+
+    @property
+    def nnz(self) -> int:
+        return int(self.data.shape[0]) * self.blocksize ** 2
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def block_row_ids(self) -> torch.Tensor:
+        """One block-row id per stored block."""
+        counts = torch.diff(self.indptr.long())
+        rows = torch.arange(self.n_block_rows, dtype=torch.int32,
+                            device=self.indptr.device)
+        return torch.repeat_interleave(rows, counts,
+                                       output_size=int(self.data.shape[0]))
+
+    def with_data(self, data) -> "BSR":
+        return BSR(data, self.indices, self.indptr, self.shape)
+
+    def to(self, device) -> "BSR":
+        return BSR(self.data.to(device), self.indices.to(device),
+                   self.indptr.to(device), self.shape)
+
+    def tocoo(self) -> COO:
+        """Every slot of every block, explicit zeros included, block by
+        block in row-major order within a block."""
+        bs = self.blocksize
+        ii = torch.arange(bs, dtype=torch.int32, device=self.data.device)
+        rows = self.block_row_ids()[:, None, None] * bs + ii[None, :, None]
+        cols = self.indices[:, None, None] * bs + ii[None, None, :]
+        rows = rows.expand(self.data.shape).reshape(-1).to(torch.int32)
+        cols = cols.expand(self.data.shape).reshape(-1).to(torch.int32)
+        return COO(self.data.reshape(-1), rows, cols, self.shape)
+
+    def todense(self) -> torch.Tensor:
+        return self.tocoo().todense()
+
+    def __matmul__(self, x):
+        return _matvec(self, x)
+
+    def __repr__(self):
+        return (f"BSR(shape={self.shape}, blocks={self.data.shape[0]}x"
+                f"{self.blocksize}^2, dtype={self.dtype})")
+
+
+# sparse/cwell.py appends CWELL, CWELLSeg; sparse/bell.py appends BELL
+SPARSE_TYPES = [COO, CSR, DIA, BSR]
 
 
 def is_sparse(A: Any) -> bool:
@@ -242,9 +312,12 @@ def is_sparse(A: Any) -> bool:
 
 def values(A) -> torch.Tensor:
     """The value tensor of a container: ``A.data``, ``A.vals`` for CWELL,
-    and for CWELLSeg its segments' values flattened and concatenated."""
+    ``A.blocks`` for BELL, and for CWELLSeg its segments' values flattened
+    and concatenated."""
     if hasattr(A, "segments"):
         return torch.cat([values(W).reshape(-1) for W in A.segments])
+    if hasattr(A, "blocks"):
+        return A.blocks
     return A.vals if hasattr(A, "vals") else A.data
 
 

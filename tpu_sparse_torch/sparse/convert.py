@@ -4,9 +4,11 @@ Counterpart of ``tpu_sparse/sparse/convert.py``. Conversions are set-up
 work with data-dependent shapes; those that run at the size of the matrix
 on the main path (``dense_to_csr`` of a tensor, ``csr_to_dia``) are torch
 ops on the input's device, the rest run in numpy or scipy on the host.
-``dia_from_numpy`` and ``cwell_from_numpy`` carry a DIA or CWELL matrix
-across from any array-like (for example the numpy view of a JAX
-container's arrays), so that both packages solve the same system.
+``dia_from_numpy``, ``cwell_from_numpy``, ``bsr_from_arrays`` and
+``bell_from_numpy`` carry a DIA, CWELL, BSR or BELL matrix across from any
+array-like (for example the numpy view of a JAX container's arrays), so
+that both packages solve the same system. ``csr_to_bsr`` is torch ops on
+the CSR's device, like the CWELL packer.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_sparse_torch.sparse.containers import COO, CSR, DIA
+from tpu_sparse_torch.sparse.bell import BELL
+from tpu_sparse_torch.sparse.containers import BSR, COO, CSR, DIA
 from tpu_sparse_torch.sparse.cwell import CWELL
 
 
@@ -57,6 +60,45 @@ def cwell_from_numpy(vals, idx2, srow, shape, *, nnz, fill, group,
                  _tensor(srow, device, torch.int32),
                  tuple(int(s) for s in shape), nnz=nnz, fill=fill,
                  group=group)
+
+
+def bsr_from_arrays(data, indices, indptr, shape, device="cuda") -> BSR:
+    """Copy BSR arrays (for example a JAX BSR's, as numpy) into a BSR on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    return BSR(_tensor(data, device), _tensor(indices, device, torch.int32),
+               _tensor(indptr, device, torch.int32),
+               tuple(int(s) for s in shape))
+
+
+def bell_from_numpy(blocks, indices, shape, device="cuda") -> BELL:
+    """Copy a BELL's blocks and block-column ids (for example a JAX
+    BELL's, as numpy) into a BELL on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    return BELL(_tensor(blocks, device),
+                _tensor(indices, device, torch.int32),
+                tuple(int(s) for s in shape))
+
+
+def csr_to_bsr(A: CSR, blocksize: int) -> BSR:
+    """CSR -> BSR with square blocks of ``blocksize`` (the shape must
+    divide), on the CSR's device. Blocks sort by (block row, block column);
+    entries that share a slot sum."""
+    n, m = A.shape
+    bs = int(blocksize)
+    if n % bs or m % bs:
+        raise ValueError(f"shape {A.shape} not divisible by blocksize {bs}")
+    rows = A.row_ids().long()
+    cols = A.indices.long()
+    nbc = m // bs
+    uniq, inv = torch.unique(rows // bs * nbc + cols // bs, sorted=True,
+                             return_inverse=True)
+    blocks = A.data.new_zeros((uniq.numel(), bs, bs))
+    blocks.index_put_((inv, rows % bs, cols % bs), A.data, accumulate=True)
+    indptr = torch.zeros(n // bs + 1, dtype=torch.int64, device=rows.device)
+    indptr[1:] = torch.cumsum(torch.bincount(uniq // nbc, minlength=n // bs),
+                              0)
+    return BSR(blocks, (uniq % nbc).to(torch.int32), indptr.to(torch.int32),
+               (n, m))
 
 
 def dense_to_csr(A, tol: float = 0.0) -> CSR:
@@ -144,12 +186,14 @@ def to_scipy_csr(A):
         S = sp.csr_matrix((data, indices, indptr), shape=A.shape)
         S.has_sorted_indices = True
         return S
+    if isinstance(A, BSR):
+        A = A.tocoo()
     if isinstance(A, COO):
         S = sp.csr_matrix((_np(A.data), (_np(A.row), _np(A.col))),
                           shape=A.shape)
         S.sort_indices()
         return S
-    if hasattr(A, "tocsr"):  # CWELL, CWELLSeg
+    if hasattr(A, "tocsr"):  # CWELL, CWELLSeg, BELL
         A = A.tocsr()
     if isinstance(A, CSR):
         return sp.csr_matrix((_np(A.data), _np(A.indices), _np(A.indptr)),
@@ -169,6 +213,8 @@ def to_csr(A) -> CSR:
         return CSR(torch.from_numpy(np.ascontiguousarray(data)).to(dev),
                    torch.from_numpy(indices).to(dev),
                    torch.from_numpy(indptr).to(dev), A.shape)
-    if hasattr(A, "tocsr"):  # CWELL, CWELLSeg
+    if isinstance(A, BSR):
+        return coo_to_csr(A.tocoo())
+    if hasattr(A, "tocsr"):  # CWELL, CWELLSeg, BELL (zero slots dropped)
         return A.tocsr()
     return dense_to_csr(A)

@@ -6,8 +6,9 @@ its thresholds and its order:
 1. few distinct diagonals (at most ``max_diags``)  -> DIA (kernel 1 and the
    fused Krylov kernels);
 2. column locality (CWELL fill >= ``min_cwell_fill``) -> CWELL (K4 / K5);
-3. dense 8 x 8 blocks (block fill >= ``min_block_fill``) -> BELL, which is
-   not ported yet: NotImplementedError naming ROADMAP queue 1, item 11;
+3. dense 8 x 8 blocks (block fill >= ``min_block_fill``) -> BELL
+   (``bsr_to_bell(csr_to_bsr(A, block_size))``: SpMM K8, SpMV K4 on the
+   cached CWELL repack of the blocks);
 4. otherwise -> CSR (the plain scatter-add SpMV).
 
 Two TPU workarounds are not carried over: the ``m > 1.5M`` column split
@@ -19,8 +20,9 @@ from __future__ import annotations
 
 import torch
 
+from tpu_sparse_torch.sparse.bell import BELL, bsr_to_bell
 from tpu_sparse_torch.sparse.containers import CSR, DIA
-from tpu_sparse_torch.sparse.convert import csr_to_dia, to_csr
+from tpu_sparse_torch.sparse.convert import csr_to_bsr, csr_to_dia, to_csr
 from tpu_sparse_torch.sparse.cwell import CWELL, CWELLSeg, csr_to_cwell
 
 
@@ -37,8 +39,8 @@ def to_gpu_operator(A, *, max_diags: int = 64, block_size: int = 8,
                     min_cwell_fill: float = 0.25,
                     verbose: bool = False):
     """Promote ``A`` to the fastest format the port runs on the card: DIA,
-    CWELL or CSR (the counterpart of JAX ``to_tpu_operator``)."""
-    if isinstance(A, (DIA, CWELL, CWELLSeg)):
+    CWELL, BELL or CSR (the counterpart of JAX ``to_tpu_operator``)."""
+    if isinstance(A, (DIA, BELL, CWELL, CWELLSeg)):
         return A
     Ac = to_csr(A)
     n, m = Ac.shape
@@ -56,11 +58,13 @@ def to_gpu_operator(A, *, max_diags: int = 64, block_size: int = 8,
                   f"S={cw.planes}")
         return cw
 
-    if n % block_size == 0 and m % block_size == 0 \
-            and _block_fill_ratio(Ac, block_size) >= min_block_fill:
-        raise NotImplementedError(
-            "this matrix promotes to BELL (dense blocks), which is not "
-            "ported yet: ROADMAP queue 1, item 11 (BELL, K8)")
+    if n % block_size == 0 and m % block_size == 0:
+        fill = _block_fill_ratio(Ac, block_size)
+        if fill >= min_block_fill:
+            if verbose:
+                print(f"[to_gpu_operator] BELL bs={block_size} "
+                      f"fill={fill:.2f}")
+            return bsr_to_bell(csr_to_bsr(Ac, block_size))
 
     if verbose:
         print(f"[to_gpu_operator] CSR general path "
