@@ -18,9 +18,14 @@ counters set to 0 just before it and read just after:
 * phase (13): the general-structure path, CG / BiCGStab / GMRES(20) on the
   CWELL packs of the same 160^3 systems taken as general CSR (every matvec
   K4, f32), f64 'full' (K5) and 'auto' (K4 inner sweeps, K5 outer
-  residuals), the adjoint on a CWELL, and ``reorder="rcm"``. Phase (12)
-  checks K4/K5 on edge packs and the card's packer against the CPU's;
-  phase (14) times K4/K5 and the CWELL solves beside the DIA ones;
+  residuals), the adjoint on a CWELL, and ``reorder="rcm"``; each solve
+  builds at most one row-compact plan (the layout K4/K5 stream) and
+  gathers its values once per values tensor. Phase (12) checks K4/K5 on
+  edge packs (grouped, carried as numpy, more than 256 planes) against
+  their plain version and the plane reference, and the card's packer
+  against the CPU's; phase (14) times the plan's build, K4/K5 beside the
+  bound of the plan's bytes and cuSPARSE, and the CWELL solves beside the
+  DIA ones;
 * phase (17): the multi-RHS path, ``solve(A, B)`` with B of 8 columns on
   the same 160^3 CWELL packs (batched CG, block CG with Jacobi, batched
   BiCGStab and GMRES(20): every matvec one K6/K7 launch; f64 'auto' at 4
@@ -62,6 +67,17 @@ F64_NX = 64
 # which solve() does not call; phases (2), (4) and (6) check it apart.
 MAIN_PATH_KERNELS = ("dia_spmv_ext_f32", "dia_spmv_f64", "dia_spmv_ext_f64",
                      "dia_cg_spmv_dot", "dia_cg_update")
+
+# Iterations (GMRES: restart cycles) of phase (13)'s solves at MAIN_NX with
+# the plane-walking K4 / K5, which summed each row's nonzeros in the order
+# the compact kernel sums them (NVIDIA H100 80GB HBM3, 700 W).
+PLANE_KERNEL_ITERS = {
+    "cg f32 on CWELL": 106,
+    "bicgstab f32 on CWELL (convection-diffusion)": 58,
+    "gmres f32 on CWELL (convection-diffusion)": 5,
+    "cg f64 full on CWELL": 224,
+    "cg f64 auto on CWELL": 306,
+}
 
 
 def check(cond, msg: str) -> None:
@@ -437,7 +453,7 @@ def main() -> int:
     def counts():
         return {**cuda_spmv.LAUNCHES, **cuda_cg.LAUNCHES,
                 **cuda_bicgstab.LAUNCHES, **cuda_cwell.LAUNCHES,
-                **cuda_bell.LAUNCHES}
+                **cuda_bell.LAUNCHES, **cuda_cwell.PLAN_COUNTS}
 
     def reset_counts():
         for mod in (cuda_spmv, cuda_cg, cuda_bicgstab, cuda_cwell,
@@ -1000,9 +1016,10 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
     import tpu_sparse_torch
     from tpu_sparse_torch.kernels import cuda_cwell
     from tpu_sparse_torch.kernels import reference as ref
-    from tpu_sparse_torch.sparse import CWELL, DIA, to_gpu_operator
+    from tpu_sparse_torch.sparse import CWELL, DIA, cwell_compact
     from tpu_sparse_torch.sparse import convert as conv
     from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse import to_gpu_operator
     from tpu_sparse_torch.sparse.cwell import coo_arrays_to_csr, csr_to_cwell
 
     bound = {torch.float32: 1e-5, torch.float64: 1e-13}
@@ -1024,18 +1041,26 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
                                     device=where)
 
     def check_cwell(label, W, x):
-        """K4/K5 against reference.cwell_spmv: max abs error <= bound *
-        max|y| (exactly 0 where y is 0); a rerun gives the same bits."""
-        y0 = ref.cwell_spmv(W, x)
+        """K4/K5 against their plain version (reference.cwell_compact_spmv
+        on W's compact plan) and the plane reference (reference.cwell_spmv):
+        max abs error <= bound * max|y| (exactly 0 where y is 0); a rerun
+        gives the same bits. Returns the error against the plain version."""
+        plan, cvals = cwell_compact.compact(W)
+        y0 = ref.cwell_compact_spmv(plan, cvals, x)
+        yp = ref.cwell_spmv(W, x)
         y1 = cuda_cwell.cwell_spmv_cuda(W, x)
         y2 = cuda_cwell.cwell_spmv_cuda(W, x)
         torch.cuda.synchronize()
-        scale = float(y0.abs().max()) if y0.numel() else 0.0
+        scale = float(yp.abs().max()) if yp.numel() else 0.0
         err = float((y1 - y0).abs().max()) if y0.numel() else 0.0
+        err_p = float((y1 - yp).abs().max()) if yp.numel() else 0.0
         name = str(x.dtype).replace("torch.", "")
         print(f"  {label:34s} {name} S={W.planes:<4d} fill {W.fill:.3f} "
-              f"Q={W.group}: max abs err {err:.2e} (max|y| {scale:.2e})")
-        check(err <= bound[x.dtype] * scale,
+              f"Q={W.group}: plan {plan.slots} slots"
+              f"{' (int32 columns)' if plan.wide else ''}; max abs err "
+              f"{err:.2e}, to the plane reference {err_p:.2e} (max|y| "
+              f"{scale:.2e})")
+        check(max(err, err_p) <= bound[x.dtype] * scale,
               f"K4/K5 disagree with the plain version on {label} {name}")
         check(torch.equal(y1, y2), f"K4/K5 rerun differs on {label} {name}")
         return err
@@ -1052,6 +1077,22 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
             x_ = torch.from_numpy(rng.standard_normal(m_).astype(dt)).to(dev)
             for Q in (1, 2, 4, 8) if label.startswith("random") else (1,):
                 check_cwell(label, csr_to_cwell(A_, group=Q), x_)
+            if label.startswith("random"):
+                # a pack carried in JAX's layout, as numpy arrays
+                Wh = csr_to_cwell(A_.to("cpu"), group=4)
+                check_cwell(f"{label}, carried pack", conv.cwell_from_numpy(
+                    Wh.vals.numpy(), Wh.idx2.numpy(), Wh.srow.numpy(),
+                    Wh.shape, nnz=Wh.nnz, fill=Wh.fill, group=4,
+                    device=dev), x_)
+    # more than 256 planes (one row over three windows): int32 columns
+    for dt in (np.float32, np.float64):
+        Ad = random_csr(300, 600, 4, dt).todense()
+        Ad[5] = torch.arange(1, 601, dtype=Ad.dtype, device=dev)
+        Ww = csr_to_cwell(conv.dense_to_csr(Ad))
+        check(Ww.planes > 256 and cwell_compact.compact(Ww)[0].wide,
+              "the long-row pack did not take the int32-column plan")
+        check_cwell("long rows 300x600", Ww, torch.from_numpy(
+            rng.standard_normal(600).astype(dt)).to(dev))
     # the card's packer against the CPU's, byte for byte, at 32^3
     A32 = conv.to_csr(gen.poisson3d_27pt(32, device=dev))
     x32 = torch.from_numpy(rng.standard_normal(A32.shape[1]).astype(
@@ -1119,7 +1160,13 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
 
     reset_counts()  # the main-path run of this slice starts here
 
-    def run(label, W_, b_, truth, tol, carriers, limit, **kw):
+    def run(label, W_, b_, truth, tol, carriers, limit, gathers=1,
+            **kw):
+        """One solve: converged, its true residual within ``limit``, the
+        carriers launched, at most one compact plan built (one pack
+        structure a solve) and at most ``gathers`` value gathers (one a
+        values tensor), the iteration count of the plane-walking kernel's
+        runs where one is recorded."""
         before = counts()
         t0 = time.perf_counter()
         x, res = tpu_sparse_torch.solve(W_, b_, tol=tol, **kw)
@@ -1134,6 +1181,16 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
         check(true_rel <= limit, f"{label}: true residual {true_rel}")
         check(all(grew.get(k, 0) > 0 for k in carriers),
               f"{label}: {carriers} did not carry the solve")
+        check(grew.get("plan_builds", 0) <= 1
+              and grew.get("value_gathers", 0) <= gathers,
+              f"{label}: compact plans rebuilt within the solve")
+        want = PLANE_KERNEL_ITERS.get(label) if nx == MAIN_NX else None
+        if want is not None:
+            # f64 sums as the plane kernel did: the same count; f32 within
+            # the slack of the card tests
+            slack = 0 if "f64" in label else max(5, want // 5)
+            check(abs(res.iterations - want) <= slack,
+                  f"{label}: {res.iterations} iterations against {want}")
         return res
 
     f32, f64 = ("cwell_spmv_f32",), ("cwell_spmv_f64",)
@@ -1150,7 +1207,7 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
         method="cg", precision="full")
     run("cg f64 auto on CWELL", W64, b64,
         lambda v: ref.dia_spmv(A64_dia, v), 1e-8, f32 + f64, 1.01e-8,
-        method="cg", precision="auto")
+        gathers=2, method="cg", precision="auto")
 
     # the adjoint on a 32^3 CWELL, on the card against the CPU
     for method, make in (("cg", gen.poisson3d_27pt),
@@ -1181,6 +1238,9 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
               f"{method} adjoint on CWELL: card and CPU disagree")
         check(grew.get("cwell_spmv_f32", 0) > 0,
               f"{method} backward did not run K4")
+        check(grew.get("plan_builds", 0) <= 1
+              and grew.get("value_gathers", 0) <= 1,
+              f"{method} backward rebuilt compact plans")
 
     # reorder="rcm" on a renumbered 32^3 system (solved as CSR, as in JAX)
     P = conv.to_scipy_csr(gen.poisson3d_27pt(32, device="cpu"))
@@ -1214,14 +1274,49 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
     def fmt(t):
         return f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
 
+    # the compact plan of the f32 pack, built anew: build time, gather
+    # time and the memory it holds beside the pack
+    cwell_compact.clear_caches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = cwell_compact.build_plan(W)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    t_gather = times(lambda: cwell_compact.gather_values(plan, W.vals), 5)
+    del plan
+    cwell_compact.clear_caches()
+    xk = torch.from_numpy(np.random.default_rng(SEED + 14).standard_normal(
+        n).astype(np.float32)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_cwell.cwell_spmv_cuda(W, xk)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - mem0
+    peak_spmv = torch.cuda.max_memory_allocated() - mem0
+    plan, cvals = cwell_compact.compact(W)
+    print(f"  compact plan of the {nx}^3 f32 pack: {plan.slots} slots for "
+          f"{W.nnz} entries ({W.vals.numel()} in the pack); build "
+          f"{t_plan * 1e3:.1f} ms (wall) with a peak of {peak / 1e6:.1f} MB "
+          f"above the pack; value gather {fmt(t_gather)}; held beside the "
+          f"pack {held / 1e6:.1f} MB (plan {plan.nbytes / 1e6:.1f} MB, "
+          f"compact values {cvals.numel() * 4 / 1e6:.1f} MB); device "
+          f"memory allocated without the plan {mem0 / 1e9:.3f} GB, with it "
+          f"{(mem0 + held) / 1e9:.3f} GB, peak of the first K4 call (plan "
+          f"build included) {(mem0 + peak_spmv) / 1e9:.3f} GB")
+    del plan, cvals
+
     for key, W_, Ac in (("cwell_spmv_f32", W, A),
                         ("cwell_spmv_f64", W64, A64)):
         dt = W_.vals.dtype
         xk = torch.from_numpy(np.random.default_rng(SEED + 14)
                               .standard_normal(n)).to(dev, dt)
         err = check_cwell(f"poisson3d_27pt({nx}) pack", W_, xk)
+        plan, cvals = cwell_compact.compact(W_)
         t_k = times(lambda: cuda_cwell.cwell_spmv_cuda(W_, xk), 10)
-        t_p = times(lambda: ref.cwell_spmv(W_, xk), 2)
+        t_p = times(lambda: ref.cwell_compact_spmv(plan, cvals, xk), 2)
         lib = torch.sparse_csr_tensor(Ac.indptr, Ac.indices, Ac.data,
                                       size=Ac.shape)
         e_lib = rel_err(torch.mv(lib, xk), ref.cwell_spmv(W_, xk))
@@ -1230,8 +1325,13 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
         t_l = times(lambda: torch.mv(lib, xk), 10)
         size = W_.vals.element_size()
         nb, S = W_.srow.shape
-        nbytes = (W_.vals.numel() * (size + 4) + nb * S * 4
+        # the compact kernel's bytes: values and 2-byte indices of the
+        # plan's slots, the block offsets, the window rows, x and y
+        nbytes = (plan.slots * (size + plan.idx.element_size())
+                  + plan.boff.numel() * 8 + nb * S * 4
                   + (W_.shape[0] + W_.shape[1]) * size)
+        pack_bytes = (W_.vals.numel() * (size + 4) + nb * S * 4
+                      + (W_.shape[0] + W_.shape[1]) * size)
         t_bytes = nbytes / 3.35e12 * 1e3
         t_ops = 2 * W_.nnz / (67e12 if size == 4 else 34e12) * 1e3
         note(key, max_abs_err=err, ms=t_k[0], plain_ms=t_p[0],
@@ -1239,11 +1339,12 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
              bound_by="bytes" if t_bytes >= t_ops else "operations")
         print(f"  {key}: kernel {fmt(t_k)}; bound {max(t_bytes, t_ops):.4f}"
               f" ms ({nbytes / 1e6:.1f} MB, {max(t_bytes, t_ops) / t_k[0]:.2f}"
-              f" of it); plain {fmt(t_p)}; cuSPARSE CSR matvec {fmt(t_l)} "
-              f"(rel err {e_lib:.1e}); kernel / cuSPARSE "
-              f"{t_k[0] / t_l[0]:.2f}; {W_.nnz / (t_k[0] * 1e-3) / 1e9:.2f} "
-              f"Gnnz/s", flush=True)
-        del lib
+              f" of it; the plane pack's bytes {pack_bytes / 1e6:.1f} MB, "
+              f"bound {pack_bytes / 3.35e9:.4f} ms); plain {fmt(t_p)}; "
+              f"cuSPARSE CSR matvec {fmt(t_l)} (rel err {e_lib:.1e}); "
+              f"kernel / cuSPARSE {t_k[0] / t_l[0]:.2f}; "
+              f"{W_.nnz / (t_k[0] * 1e-3) / 1e9:.2f} Gnnz/s", flush=True)
+        del lib, plan, cvals
 
     def its(fn):
         return lambda: fn()[1].iterations

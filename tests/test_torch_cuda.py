@@ -17,9 +17,11 @@ block of 12 after the loop's first crossing (the rule of the JAX
 fused_bicgstab_ext). Solves on the card against the CPU: iterations
 (GMRES: cycles) within 2, x rtol 1e-3 (f32) / 1e-6 (f64); gradients
 through solve() rtol 5e-3 (f32: fused loops on the card, plain loops on
-the CPU, both at tol 1e-5) / 1e-6 (f64). K4 / K5 (CWELL SpMV): 1e-5 /
-1e-13 of max|y| against the plain version, exactly 0 where y is 0, and
-bit-identical reruns; the card's pack byte-equal to the CPU's; solves on
+the CPU, both at tol 1e-5) / 1e-6 (f64). K4 / K5 (CWELL SpMV on the
+row-compact plan): 1e-5 / 1e-13 of max|y| against the plain version,
+exactly 0 where y is 0, and bit-identical reruns; one plan per pack
+structure and one value gather per values tensor, exactly; the card's
+pack byte-equal to the CPU's; solves on
 CWELL as on DIA, but paths with float32 arithmetic within 5 iterations
 or a fifth of the count (see the test). K6/K7 (CWELL SpMM) and K8 (BELL
 SpMM): 1e-5 (f32) / 1e-12 (f64) of max|Y| against the plain version,
@@ -300,6 +302,72 @@ def test_cwell_spmv_kernel_matches_plain(dev, n, m, per_row, group, dtype,
         before["cwell_spmv_" + sfx] + 2
     assert float((y1 - y0).abs().max()) <= bound * float(y0.abs().max())
     assert torch.equal(y1, y2)  # reruns give the same bits
+
+
+@pytest.mark.parametrize("dtype,bound", [(np.float32, 1e-5),
+                                         (np.float64, 1e-13)])
+def test_cwell_spmv_kernel_wide_plan(dev, dtype, bound):
+    """A pack of more than 256 planes runs the int32-column instance."""
+    from tpu_sparse_torch.sparse import cwell_compact
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A = _random_csr(300, 600, 4, dtype, 3).todense()
+    A[5] = torch.arange(1, 601, dtype=A.dtype)  # one row over 3 windows
+    W = csr_to_cwell(dense_to_csr(A.to(dev)))
+    assert W.planes > 256
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(600).astype(
+        dtype)).to(dev)
+    y0, y1 = ref.cwell_spmv(W, x), cuda_cwell.cwell_spmv_cuda(W, x)
+    assert cwell_compact.compact(W)[0].wide
+    assert float((y1 - y0).abs().max()) <= bound * float(y0.abs().max())
+    assert torch.equal(y1, cuda_cwell.cwell_spmv_cuda(W, x))
+
+
+@pytest.mark.parametrize("dtype,bound", [(np.float32, 1e-5),
+                                         (np.float64, 1e-13)])
+def test_cwell_spmv_kernel_alternating_packs(dev, dtype, bound):
+    """Launches that alternate between packs of different plane counts
+    (so different shared-memory sizes for the float ring) all run and
+    agree with the plain version."""
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    packs = [csr_to_cwell(_random_csr(n, m, k, dtype, n + m).to(dev))
+             for n, m, k in ((2000, 9000, 12), (700, 300, 3), (1500, 2600, 7))]
+    assert len({W.planes for W in packs}) == 3
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.standard_normal(W.shape[1]).astype(dtype)).to(
+        dev) for W in packs]
+    for i in (0, 1, 0, 2, 1, 2, 0):
+        W, x = packs[i], xs[i]
+        y0, y1 = ref.cwell_spmv(W, x), cuda_cwell.cwell_spmv_cuda(W, x)
+        assert float((y1 - y0).abs().max()) <= bound * float(y0.abs().max())
+
+
+def test_cwell_spmv_plan_counts_and_nan(dev):
+    """One plan per pack structure, one value gather per values tensor;
+    a NaN in a column no nonzero names stays out of y."""
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A = _random_csr(1000, 900, 6, np.float32, 4).todense()
+    A[:, 0] = 0.0  # column 0 is empty
+    W = csr_to_cwell(dense_to_csr(A.to(dev)))
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(900).astype(
+        np.float32)).to(dev)
+    cuda_cwell.reset_launch_counts()
+    y1 = cuda_cwell.cwell_spmv_cuda(W, x)
+    y2 = cuda_cwell.cwell_spmv_cuda(W, x)
+    y3 = cuda_cwell.cwell_spmv_cuda(W.with_data(W.vals * 2.0), x)
+    y4 = cuda_cwell.cwell_spmv_cuda(W.with_data(W.vals.double()), x.double())
+    assert cuda_cwell.PLAN_COUNTS == {"plan_builds": 1, "value_gathers": 3}
+    assert cuda_cwell.LAUNCHES["cwell_spmv_f32"] == 3
+    assert cuda_cwell.LAUNCHES["cwell_spmv_f64"] == 1
+    assert torch.equal(y1, y2) and torch.equal(y3, 2.0 * y1)
+    assert float((y4 - ref.cwell_spmv(W, x).double()).abs().max()) <= \
+        1e-5 * float(y4.abs().max())
+    x[0] = float("nan")
+    assert torch.equal(cuda_cwell.cwell_spmv_cuda(W, x), y1)
 
 
 @pytest.mark.parametrize("group", [1, 4])

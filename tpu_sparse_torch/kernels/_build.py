@@ -135,9 +135,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # stream
         "ts_dia_bicgstab_update": [L, L, P, P, P, P, P, P, P, P, P, P, I, I,
                                    P],
-        # vals, idx2, srow, x, y, n_blocks, planes, n_rows, n_cols, stream
-        "ts_cwell_spmv_f32": [P, P, P, P, P, L, L, L, L, P],
-        "ts_cwell_spmv_f64": [P, P, P, P, P, L, L, L, L, P],
+        # cvals, idx, srow, boff, x, y, n_blocks, planes, n_rows, wide,
+        # stream
+        "ts_cwell_spmv_f32": [P, P, P, P, P, P, L, L, L, I, P],
+        "ts_cwell_spmv_f64": [P, P, P, P, P, P, L, L, L, I, P],
         # vals, idx2, srow, B, Y, n_blocks, planes, n_rows, n_cols, k,
         # stream
         "ts_cwell_spmm_f32": [P, P, P, P, P, L, L, L, L, L, P],

@@ -10,10 +10,12 @@ products), in float32 and float64. They take every pack, grouped ones
 included, and return no None: the TPU's fallbacks for packs, operands or
 unrolls its VMEM could not hold are gone.
 
-``cwell_spmv`` / ``cwell_spmm`` launch the kernel for a CUDA operand and
-run the plain PyTorch version (``reference.cwell_spmv`` / ``cwell_spmm``)
-for a CPU one; nothing else selects between them. Launch counts are kept
-in ``LAUNCHES``.
+K4 / K5 stream the pack's row-compact plan (``sparse.cwell_compact``),
+not its planes; K6 / K7 read the planes. ``cwell_spmv`` / ``cwell_spmm``
+launch the kernel for a CUDA operand and run the plain PyTorch version
+(``reference.cwell_spmv`` / ``cwell_spmm``) for a CPU one; nothing else
+selects between them. Launch counts are kept in ``LAUNCHES``, plan builds
+and value gathers in ``PLAN_COUNTS``.
 """
 
 from __future__ import annotations
@@ -21,12 +23,15 @@ from __future__ import annotations
 import torch
 
 from tpu_sparse_torch.kernels import reference as ref
+from tpu_sparse_torch.sparse import cwell_compact
 from tpu_sparse_torch.sparse.cwell import CWELL, LW
 
 # Launches of K4 (float32), K5 (float64) and K6/K7 (SpMM, both dtypes);
 # counted where the kernel launches.
 LAUNCHES = {"cwell_spmv_f32": 0, "cwell_spmv_f64": 0,
             "cwell_spmm_f32": 0, "cwell_spmm_f64": 0}
+# Compact-plan builds and value gathers behind K4 / K5.
+PLAN_COUNTS = cwell_compact.COUNTS
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -34,6 +39,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    cwell_compact.reset_counts()
 
 
 def _check_operands(W: CWELL, x: torch.Tensor, what: str = "cwell_spmv_cuda",
@@ -73,19 +79,24 @@ def _check_operands(W: CWELL, x: torch.Tensor, what: str = "cwell_spmv_cuda",
 
 
 def cwell_spmv_cuda(W: CWELL, x: torch.Tensor) -> torch.Tensor:
-    """y = W @ x by K4 (float32) or K5 (float64) for CUDA operands."""
+    """y = W @ x by K4 (float32) or K5 (float64) for CUDA operands, on
+    W's row-compact plan (``sparse.cwell_compact``: built once per pack
+    structure, its values gathered once per values tensor). Slots of value
+    0 are skipped, so a NaN or Inf in x reaches only the rows whose
+    nonzeros gather it."""
     from tpu_sparse_torch.kernels import _build
 
     sfx = _check_operands(W, x)
-    n, m = W.shape
+    plan, cvals = cwell_compact.compact(W)
+    n = W.shape[0]
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     lib = _build.library()
     fn = lib.ts_cwell_spmv_f32 if sfx == "f32" else lib.ts_cwell_spmv_f64
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(W.vals.data_ptr(), W.idx2.data_ptr(), W.srow.data_ptr(),
-                x.data_ptr(), y.data_ptr(), W.vals.shape[0], W.vals.shape[1],
-                n, m, stream)
+        rc = fn(cvals.data_ptr(), plan.idx.data_ptr(), plan.srow.data_ptr(),
+                plan.boff.data_ptr(), x.data_ptr(), y.data_ptr(),
+                plan.n_blocks, plan.planes, n, int(plan.wide), stream)
     _build.check(rc, "cwell_spmv_cuda")
     LAUNCHES["cwell_spmv_" + sfx] += 1
     return y

@@ -3,9 +3,10 @@
 Counterpart of ``tpu_sparse/kernels/reference.py``. ``dia_spmv`` accumulates
 the diagonals in ``offsets`` order exactly like the JAX loop; the CSR/COO
 versions scatter-add products onto rows; ``cwell_spmv`` gathers x per
-slot and sums the planes; the BSR / BELL versions contract dense blocks
-with gathered chunks of x. Each ``*_spmm`` is the same function for a
-dense ``(m, k)`` operand B, column by column.
+slot and sums the planes, ``cwell_compact_spmv`` does the same on a pack's
+row-compact plan (K4 / K5's layout); the BSR / BELL versions contract
+dense blocks with gathered chunks of x. Each ``*_spmm`` is the same
+function for a dense ``(m, k)`` operand B, column by column.
 """
 
 from __future__ import annotations
@@ -54,6 +55,32 @@ def cwell_spmv(A, x: torch.Tensor) -> torch.Tensor:
     x_fill = torch.cat([x, x.new_zeros(1)])  # x_fill[m] = 0
     xg = x_fill[torch.where((gc >= 0) & (gc < m), gc, m)]
     y = torch.sum(A.vals * xg.to(A.vals.dtype), dim=1)
+    return y.reshape(-1)[:n]
+
+
+def cwell_compact_spmv(plan, cvals: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """y = W @ x from W's row-compact plan (``sparse.cwell_compact``) and
+    compact values: each row's slots summed one slot row at a time, in
+    slot order (K4 / K5's order). Slots of value 0 add nothing, whatever x
+    holds at their column. Computed in the values' dtype."""
+    n, m = plan.shape
+    nb = plan.n_blocks
+    lens = torch.diff(plan.boff) // 128
+    depth = int(lens.max()) if nb else 0
+    b = torch.repeat_interleave(torch.arange(nb, device=cvals.device),
+                                lens * 128, output_size=plan.slots)
+    t = torch.arange(plan.slots, device=cvals.device)
+    at = (b, (t - plan.boff[b]) // 128, t % 128)
+    keep = cvals != 0
+    v = cvals.new_zeros((nb, depth, 128)).index_put_(at, cvals)
+    c = torch.full((nb, depth, 128), m, dtype=torch.int64,
+                   device=cvals.device).index_put_(
+        at, torch.where(keep, plan.columns(), m))
+    x_fill = torch.cat([x, x.new_zeros(1)]).to(cvals.dtype)  # x_fill[m] = 0
+    y = cvals.new_zeros((nb, 128))
+    for j in range(depth):
+        y += v[:, j] * x_fill[c[:, j]]
     return y.reshape(-1)[:n]
 
 

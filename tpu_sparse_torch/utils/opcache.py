@@ -68,3 +68,38 @@ class OperandCache:
         except TypeError:
             pass  # an operand that takes no weak reference: rebuilt next time
         return value
+
+
+class TensorCache:
+    """One derived object per live tensor, with no size limit: an entry
+    goes when its tensor is freed, and a lookup misses when the tensor's
+    in-place version or the caller's ``extra`` key differs from the one
+    the entry was stored with (the next ``put`` replaces it). For objects
+    that must live exactly as long as the tensor they derive from."""
+
+    def __init__(self):
+        self._store: dict = {}  # id(t) -> (weak ref to t, key, value)
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+    def get(self, t: torch.Tensor, extra: Hashable = ()) -> Any:
+        """The object stored for ``t`` at its current version, else None."""
+        entry = self._store.get(id(t))
+        if (entry is not None and entry[0]() is t
+                and entry[1] == (t._version, extra)):
+            return entry[2]
+        return None
+
+    def put(self, t: torch.Tensor, value: Any, extra: Hashable = ()) -> None:
+        key, store = id(t), self._store
+
+        def drop(ref):
+            entry = store.get(key)
+            if entry is not None and entry[0] is ref:
+                del store[key]
+
+        store[key] = (weakref.ref(t, drop), (t._version, extra), value)
+
+    def clear(self) -> None:
+        self._store.clear()
