@@ -32,10 +32,14 @@ counters set to 0 just before it and read just after:
   columns: K6/K7 in float and double) and on a block-structured BELL,
   kron(poisson3d_27pt(40), C8) with 110.6M stored entries (K8; its
   single-RHS solve runs K4 on the cached CWELL repack), each column held
-  against the single-RHS solve of that column. Phases (15)-(16) check K6/K7
-  and K8 on edge cases; phase (18) times them beside their bounds, a
-  cuSPARSE SpMM and k K4 launches, and the multi-RHS solves beside k
-  single-RHS solves.
+  against the single-RHS solve of that column, the batched CG iterations
+  against the recorded ones. K6/K7 streams the row-compact plan K4/K5
+  use. Phases (15)-(16) check K6/K7 (against its plain version on the
+  plan, every column against K4/K5 bit for bit: grouped, wide and
+  segmented packs, empty rows and columns) and K8 (bs 1 to 64, padding
+  blocks) on edge cases; phase (18) times them beside their bounds (K6/K7:
+  the plan's bytes, the plane pack's printed beside), a cuSPARSE SpMM and
+  k K4 launches, and the multi-RHS solves beside k single-RHS solves.
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
@@ -71,6 +75,11 @@ MAIN_PATH_KERNELS = ("dia_spmv_ext_f32", "dia_spmv_f64", "dia_spmv_ext_f64",
 # Iterations (GMRES: restart cycles) of phase (13)'s solves at MAIN_NX with
 # the plane-walking K4 / K5, which summed each row's nonzeros in the order
 # the compact kernel sums them (NVIDIA H100 80GB HBM3, 700 W).
+# Iterations of phase (17)'s batched CG solves with the first designs of
+# K6/K7 and K8, which summed each row in the order the current kernels sum
+# it (NVIDIA H100 80GB HBM3, 700 W).
+MULTI_RHS_ITERS = {"cg batched f32": 246, "cg batched f32 on BELL": 112}
+
 PLANE_KERNEL_ITERS = {
     "cg f32 on CWELL": 106,
     "bicgstab f32 on CWELL (convection-diffusion)": 58,
@@ -894,18 +903,21 @@ def check_spmm_refusals(W, bell, dev) -> None:
 
 
 def spmm_kernel_phases(dev) -> dict:
-    """Phases (15)-(16): K6/K7 and K8 against their plain versions on edge
-    cases, float32 within 1e-5 and float64 within 1e-12 of max|Y|, reruns
-    bit-identical, and the wrappers' refusals. Returns the largest abs
-    error per kernel name."""
+    """Phases (15)-(16): K6/K7 against ``reference.cwell_compact_spmm`` on
+    the compact plan, and each of its columns against K4/K5 bit for bit;
+    K8 against ``reference.bell_spmm``; on edge cases, float32 within 1e-5
+    and float64 within 1e-12 of max|Y|, reruns bit-identical, and the
+    wrappers' refusals. Returns the largest abs error per kernel name."""
     import scipy.sparse as sp
     import torch
 
-    from tpu_sparse_torch.kernels import cuda_bell, cuda_cwell
+    from tpu_sparse_torch.kernels import _cwellseg_apply, cuda_bell, \
+        cuda_cwell, spmm
     from tpu_sparse_torch.kernels import reference as ref
-    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr, cwell_compact
     from tpu_sparse_torch.sparse import convert as conv
-    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+    from tpu_sparse_torch.sparse.cwell import (csr_to_cwell,
+                                               csr_to_cwell_segments)
 
     rng = np.random.default_rng(SEED + 15)
     bound = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -933,18 +945,49 @@ def spmm_kernel_phases(dev) -> dict:
               f"{name} disagrees with the plain version on {label}: "
               f"{err} > {bound[B.dtype]} * {scale}")
         check(torch.equal(Y1, Y2), f"{name} rerun differs on {label}")
-        return err, scale
+        return Y1, err
+
+    def compact_spmm(W_, B_):
+        return ref.cwell_compact_spmm(*cwell_compact.compact(W_), B_)
+
+    def columns_equal_k4(W_, B_, Y_):
+        return all(torch.equal(Y_[:, j], cuda_cwell.cwell_spmv_cuda(
+            W_, B_[:, j].contiguous())) for j in range(B_.shape[1]))
 
     # ---- (15) K6/K7 ----------------------------------------------------
-    phase("(15) K6/K7 (cwell_spmm) against the plain version on edge cases")
-    ks = (1, 3, 8, 33, 128, 130)
-    for label, n_, m_, per_row, groups in (
-            ("random 3000x2500", 3000, 2500, 8, (1, 2, 4)),
-            ("n, m not x128: 1001x777", 1001, 777, 7, (1,)),
-            ("m < 256: 300x200", 300, 200, 5, (1, 2)),
-            ("empty 300x300", 300, 300, 0, (1,))):
+    phase("(15) K6/K7 (cwell_spmm) against reference.cwell_compact_spmm on "
+          "edge cases; every column against K4/K5 bit for bit")
+    ks = (1, 7, 8, 33, 129)
+
+    def empty_rows_and_columns(n_, m_, per_row, dt):
+        Ad = random_csr(n_, m_, per_row, dt).todense()
+        Ad[100:300] = 0
+        Ad[:, 50:400] = 0
+        return conv.dense_to_csr(Ad)
+
+    def long_rows(n_, m_, per_row, dt):
+        Ad = random_csr(n_, m_, per_row, dt).todense()
+        Ad[5] = torch.arange(1, m_ + 1, dtype=Ad.dtype, device=dev)
+        return conv.dense_to_csr(Ad)
+
+    def long_row_narrow(n_, m_, per_row, dt):
+        Ad = random_csr(n_, m_, per_row, dt).todense()
+        Ad[5, torch.from_numpy(rng.choice(m_, 150, replace=False))] = 1.5
+        return conv.dense_to_csr(Ad)
+
+    for label, make, n_, m_, per_row, groups in (
+            ("random 3000x2500", random_csr, 3000, 2500, 8, (1, 2, 4)),
+            ("n, m not x128: 1001x777", random_csr, 1001, 777, 7, (1,)),
+            ("m < 256: 300x200", random_csr, 300, 200, 5, (1, 2)),
+            ("empty 300x300", random_csr, 300, 300, 0, (1,)),
+            ("empty rows, columns 1500x1400", empty_rows_and_columns, 1500,
+             1400, 6, (1, 2)),
+            ("a row of 150 in 300x2500", long_row_narrow, 300, 2500, 4,
+             (1,)),
+            ("long rows 300x600 (wide plan)", long_rows, 300, 600, 4,
+             (1,))):
         for dt in (np.float32, np.float64):
-            A_ = random_csr(n_, m_, per_row, dt)
+            A_ = make(n_, m_, per_row, dt)
             for Q in groups:
                 W = csr_to_cwell(A_, group=Q)
                 if label.startswith("m < 256"):
@@ -955,23 +998,48 @@ def spmm_kernel_phases(dev) -> dict:
                         W.idx2)[pad]
                     check(int((W.gcols() >= m_).sum()) > 0,
                           "no padding column past m")
-                errs = []
+                plan = cwell_compact.compact(W)[0]
+                check(plan.wide == label.startswith("long rows"),
+                      f"{label}: the plan's index width")
+                errs, cols = [], True
                 for k in ks:
                     B = torch.from_numpy(rng.standard_normal((m_, k)).astype(
                         dt)).to(dev)
-                    errs.append(check_spmm(f"{label} Q={Q} k={k}",
-                                           cuda_cwell.cwell_spmm_cuda,
-                                           ref.cwell_spmm, W, B,
-                                           "cwell_spmm")[0])
-                print(f"  {label:26s} {str(np.dtype(dt)):7s} Q={Q} "
-                      f"n_blocks*128={W.n_blocks * 128}: k={ks} max abs "
-                      f"err {max(errs):.2e}")
+                    Y, err = check_spmm(f"{label} Q={Q} k={k}",
+                                        cuda_cwell.cwell_spmm_cuda,
+                                        compact_spmm, W, B, "cwell_spmm")
+                    errs.append(err)
+                    cols &= columns_equal_k4(W, B, Y)
+                check(cols, f"K6/K7 columns differ from K4/K5 on {label}")
+                print(f"  {label:30s} {str(np.dtype(dt)):7s} Q={Q} S="
+                      f"{W.planes:<4d} depth {plan.depth:3d}"
+                      f"{' int32 cols' if plan.wide else ''}: k={ks} max abs "
+                      f"err {max(errs):.2e}; columns == K4/K5: {cols}")
+    # a CWELLSeg: one launch per segment through the dispatch
+    for dt in (np.float32, np.float64):
+        Seg = csr_to_cwell_segments(random_csr(600, 1500, 9, dt),
+                                    seg_cols=256)
+        errs = []
+        for k in (1, 8, 33):
+            B = torch.from_numpy(rng.standard_normal((1500, k)).astype(
+                dt)).to(dev)
+            sfx = "cwell_spmm_f" + str(B.dtype)[-2:]
+            before = cuda_cwell.LAUNCHES[sfx]
+            errs.append(check_spmm(
+                f"CWELLSeg k={k}", spmm,
+                lambda A_, X: _cwellseg_apply(A_, X, compact_spmm), Seg, B,
+                "cwell_spmm")[1])
+            check(cuda_cwell.LAUNCHES[sfx] - before == 2 * len(Seg.segments),
+                  "a CWELLSeg SpMM did not launch K6/K7 once per segment")
+        print(f"  CWELLSeg 600x1500, {len(Seg.segments)} segments, "
+              f"{str(np.dtype(dt)):7s}: k=(1, 8, 33) max abs err "
+              f"{max(errs):.2e}")
 
     # ---- (16) K8 -------------------------------------------------------
     phase("(16) K8 (bell_spmm) against the plain version on edge cases")
     for nb, bs, density, pad in ((40, 8, 0.2, 0), (40, 8, 0.2, 5),
-                                 (30, 3, 0.3, 2), (12, 16, 0.5, 0),
-                                 (6, 64, 0.5, 1)):
+                                 (50, 1, 0.1, 3), (30, 3, 0.3, 2),
+                                 (12, 16, 0.5, 1), (6, 64, 0.5, 1)):
         mask = rng.random((nb, nb)) < density
         np.fill_diagonal(mask, True)
         Ad = np.zeros((nb * bs, nb * bs))
@@ -984,15 +1052,15 @@ def spmm_kernel_phases(dev) -> dict:
             L = int(torch.diff(S.indptr.long()).max()) + pad
             bell = bsr_to_bell(S, ell_width=L)
             errs = []
-            for k in (1, 5, 130, 300):
+            for k in (1, 7, 8, 33):
                 B = torch.from_numpy(rng.standard_normal((nb * bs, k))).to(
                     dev, dt)
                 errs.append(check_spmm(f"bs={bs} L={L} k={k}",
                                        cuda_bell.bell_spmm_cuda,
                                        ref.bell_spmm, bell, B,
-                                       "bell_spmm")[0])
+                                       "bell_spmm")[1])
             print(f"  {nb} block rows, bs={bs}, L={L} ({pad} padding "
-                  f"blocks), {str(dt)[6:]}: k=(1, 5, 130, 300) max abs err "
+                  f"blocks), {str(dt)[6:]}: k=(1, 7, 8, 33) max abs err "
                   f"{max(errs):.2e}")
     W = csr_to_cwell(random_csr(300, 200, 5, np.float32))
     S = csr_to_bsr(conv.dense_to_csr(torch.eye(64, device=dev)), 8)
@@ -1376,36 +1444,6 @@ def general_structure_phases(dev, nx, *, note, counts, reset_counts,
                 A64_dia=A64_dia)
 
 
-def kron_bell(dev, nx, rng, bs=8):
-    """kron(poisson3d_27pt(nx), C) as a BELL through
-    ``bsr_to_bell(csr_to_bsr(CSR, bs))``, built on the card: the shape of a
-    PDE with bs coupled unknowns per grid node. C = Q diag(1 + u) Q^T is
-    SPD with eigenvalues in [1, 2) from the seed. Returns (BELL, CSR, the
-    smallest eigenvalue of C)."""
-    import torch
-
-    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
-    from tpu_sparse_torch.sparse import convert as conv
-    from tpu_sparse_torch.sparse import generators as gen
-    from tpu_sparse_torch.sparse.cwell import coo_arrays_to_csr
-
-    Qm, _ = np.linalg.qr(rng.standard_normal((bs, bs)))
-    C = (Qm * (1.0 + rng.random(bs))) @ Qm.T
-    C = (C + C.T) / 2
-    lmin = float(np.linalg.eigvalsh(C).min())
-    P = conv.to_csr(gen.poisson3d_27pt(nx, device=dev))
-    rows, cols = P.row_ids().long(), P.indices.long()
-    ii = torch.arange(bs, device=dev)
-    R = (rows[:, None, None] * bs + ii[None, :, None]).expand(-1, bs, bs)
-    Cc = (cols[:, None, None] * bs + ii[None, None, :]).expand(-1, bs, bs)
-    V = P.data[:, None, None] * torch.from_numpy(C.astype(np.float32)).to(
-        dev)[None]
-    K = coo_arrays_to_csr(R.reshape(-1), Cc.reshape(-1), V.reshape(-1),
-                          (P.shape[0] * bs, P.shape[1] * bs))
-    del R, Cc, V, rows, cols
-    return bsr_to_bell(csr_to_bsr(K, bs)), K, lmin
-
-
 def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
                     times, results, edge_errs, bell_nx=40):
     """Phases (17)-(18): the multi-RHS main path (K6/K7 on the 160^3 CWELL
@@ -1419,7 +1457,10 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
     import tpu_sparse_torch
     from tpu_sparse_torch.kernels import cuda_bell, cuda_cwell
     from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.kernels.spmm_probe import (bell_bytes, cwell_bytes,
+                                                     kron_bell)
     from tpu_sparse_torch.solvers.batched import cols_norm
+    from tpu_sparse_torch.sparse import cwell_compact
 
     solve = tpu_sparse_torch.solve
     W, WC, W64 = g["W"], g["WC"], g["W64"]
@@ -1517,6 +1558,10 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
         if gap is not None:
             check(abs(res.iterations - max(its)) <= gap,
                   f"{label}: iterations {res.iterations} against {its}")
+        if label in MULTI_RHS_ITERS:
+            check(res.iterations == MULTI_RHS_ITERS[label],
+                  f"{label}: {res.iterations} iterations, recorded "
+                  f"{MULTI_RHS_ITERS[label]}")
     # the single-RHS BELL solve runs K4 on the cached CWELL repack
     before = counts()
     x, res = solve(bell, Bb[:, 0].contiguous(), tol=1e-6, maxiter=500)
@@ -1542,7 +1587,11 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
     def fmt(t):
         return f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
 
-    def spmm_row(key, kernel, plain, A_, csr, k, nbytes, flops, ktag):
+    def spmm_row(key, kernel, plain, A_, csr, k, nbytes, flops, ktag,
+                 columns=None):
+        """One timed row: ``nbytes(size, k)`` gives the bytes of the bound
+        and, or None, those of the plane pack for reference; ``columns(A_,
+        Bk, Y)`` checks the kernel's columns against K4/K5."""
         dt = A_.vals.dtype if hasattr(A_, "vals") else A_.blocks.dtype
         Bk = torch.from_numpy(np.random.default_rng(SEED + 18)
                               .standard_normal((A_.shape[1], k))).to(dev, dt)
@@ -1551,25 +1600,35 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
         scale = float(Y0.abs().max())
         check(err <= (1e-5 if dt == torch.float32 else 1e-12) * scale,
               f"{key} disagrees with the plain version at k={k}")
+        cols = ""
+        if columns is not None:
+            check(columns(A_, Bk, Y1),
+                  f"{key}: a column differs from K4/K5 at k={k}")
+            cols = "; every column == K4/K5 bit for bit"
+        del Y0, Y1
         lib = torch.sparse_csr_tensor(csr.indptr, csr.indices,
                                       csr.data.to(dt), size=csr.shape)
-        e_lib = rel_err(torch.sparse.mm(lib, Bk), Y0)
+        e_lib = rel_err(torch.sparse.mm(lib, Bk), plain(A_, Bk))
         check(e_lib <= (1e-5 if dt == torch.float32 else 1e-12),
               "the cuSPARSE yardstick computes another function")
         t_k = times(lambda: kernel(A_, Bk), 5)
         t_p = times(lambda: plain(A_, Bk), 1)
         t_l = times(lambda: torch.sparse.mm(lib, Bk), 5)
         size = torch.finfo(dt).bits // 8
-        t_bytes = nbytes(size, k) / 3.35e12 * 1e3
+        n_bytes, pack_bytes = nbytes(size, k)
+        t_bytes = n_bytes / 3.35e12 * 1e3
         t_ops = flops * k / (67e12 if size == 4 else 34e12) * 1e3
         bound_ms = max(t_bytes, t_ops)
         k4 = results.get(f"cwell_spmv_f{size * 8}", {}).get("ms")
         k4s = "" if k4 is None else f"; {k} x K4 {k * k4:.4f} ms"
+        packs = ("" if pack_bytes is None else
+                 f"; the plane pack's bound {pack_bytes / 3.35e9:.4f} ms "
+                 f"({pack_bytes / 1e6:.1f} MB)")
         print(f"  {key} k={k:3d}: kernel {fmt(t_k)}; bound {bound_ms:.4f} "
-              f"ms ({nbytes(size, k) / 1e6:.1f} MB, {bound_ms / t_k[0]:.2f} "
-              f"of it); plain {fmt(t_p)}; cuSPARSE SpMM {fmt(t_l)} (kernel /"
-              f" cuSPARSE {t_k[0] / t_l[0]:.2f}){k4s}; max abs err "
-              f"{err:.2e} (max|Y| {scale:.2e})", flush=True)
+              f"ms ({n_bytes / 1e6:.1f} MB, {bound_ms / t_k[0]:.2f} of it)"
+              f"{packs}; plain {fmt(t_p)}; cuSPARSE SpMM {fmt(t_l)} (kernel "
+              f"/ cuSPARSE {t_k[0] / t_l[0]:.2f}){k4s}; max abs err "
+              f"{err:.2e} (max|Y| {scale:.2e}){cols}", flush=True)
         if ktag:
             note(key, max_abs_err=max(err, edge_errs.get(key, 0.0)),
                  ms=t_k[0], plain_ms=t_p[0], library_ms=t_l[0],
@@ -1577,31 +1636,35 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
                  bound_by="bytes" if t_bytes >= t_ops else "operations")
         del lib
 
-    def cwell_bytes(W_):
-        nb, S = W_.srow.shape
-        return lambda size, k: (W_.vals.numel() * (size + 4) + nb * S * 4
-                                + (W_.shape[0] + W_.shape[1]) * k * size)
+    def compact_bytes(W_):
+        plan = cwell_compact.compact(W_)[0]
+        return lambda size, k: cwell_bytes(plan, W_, size, k)
 
-    def bell_bytes(A_):
-        return lambda size, k: (A_.blocks.numel() * size
-                                + A_.indices.numel() * 4
-                                + (A_.shape[0] + A_.shape[1]) * k * size)
+    def compact_spmm(W_, B_):
+        return ref.cwell_compact_spmm(*cwell_compact.compact(W_), B_)
+
+    def columns_k4(W_, B_, Y_):
+        return all(torch.equal(Y_[:, j], cuda_cwell.cwell_spmv_cuda(
+            W_, B_[:, j].contiguous())) for j in range(B_.shape[1]))
 
     for k in (8, 32, 128):
-        spmm_row("cwell_spmm_f32", cuda_cwell.cwell_spmm_cuda, ref.cwell_spmm,
-                 W, g["A"], k, cwell_bytes(W), 2 * W.nnz, k == 8)
+        spmm_row("cwell_spmm_f32", cuda_cwell.cwell_spmm_cuda, compact_spmm,
+                 W, g["A"], k, compact_bytes(W), 2 * W.nnz, k == 8,
+                 columns_k4 if k == 8 else None)
     from tpu_sparse_torch.sparse import convert as conv
 
     A64 = conv.to_csr(g["A64_dia"])
-    spmm_row("cwell_spmm_f64", cuda_cwell.cwell_spmm_cuda, ref.cwell_spmm,
-             W64, A64, 4, cwell_bytes(W64), 2 * W64.nnz, True)
+    spmm_row("cwell_spmm_f64", cuda_cwell.cwell_spmm_cuda, compact_spmm,
+             W64, A64, 4, compact_bytes(W64), 2 * W64.nnz, True, columns_k4)
     del A64
     for k in (8, 32):
         spmm_row("bell_spmm_f32", cuda_bell.bell_spmm_cuda, ref.bell_spmm,
-                 bell, bell_csr, k, bell_bytes(bell), 2 * bell.blocks.numel(),
-                 k == 8)
+                 bell, bell_csr, k,
+                 lambda size, k: (bell_bytes(bell, size, k), None),
+                 2 * bell.blocks.numel(), k == 8)
     spmm_row("bell_spmm_f64", cuda_bell.bell_spmm_cuda, ref.bell_spmm,
-             bell64, bell_csr, 4, bell_bytes(bell64),
+             bell64, bell_csr, 4,
+             lambda size, k: (bell_bytes(bell64, size, k), None),
              2 * bell64.blocks.numel(), True)
 
     def multi_and_singles(op, Bm, kw):

@@ -537,6 +537,186 @@ def test_bell_spmm_kernel_matches_plain(dev, nb, bs, pad, k, dtype):
     torch.testing.assert_close(Y1.cpu(), Ad @ B.cpu(), rtol=1e-4, atol=1e-4)
 
 
+def _spmm_edge_csr(case, dtype):
+    """(CSR on the CPU, m) of one edge case of K6/K7."""
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+
+    if case == "grouped 3000x2500":
+        return _random_csr(3000, 2500, 8, dtype, 61), 2500
+    if case == "n, m not x128":
+        return _random_csr(1001, 777, 7, dtype, 62), 777
+    Ad = _random_csr(300, 600 if case == "wide" else 2500, 4, dtype,
+                     63).todense()
+    if case == "wide":  # a row over 600 columns: more than 256 planes
+        Ad[5] = torch.arange(1, 601, dtype=Ad.dtype)
+    elif case == "a row of 150":  # narrow, streamed in pieces
+        Ad[5, torch.from_numpy(np.random.default_rng(3).choice(
+            2500, 150, replace=False))] = 1.5
+    else:  # empty rows and columns
+        Ad[100:200] = 0
+        Ad[:, 50:400] = 0
+    return dense_to_csr(Ad), Ad.shape[1]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [1, 7, 8, 33, 129])
+@pytest.mark.parametrize("case", ["grouped 3000x2500", "n, m not x128",
+                                  "wide", "a row of 150",
+                                  "empty rows and columns"])
+def test_cwell_spmm_kernel_on_the_plan_edge_cases(dev, case, k, dtype):
+    """K6/K7 against its plain version on the compact plan (1e-5 / 1e-12
+    of max|Y|), and every column against K4/K5 bit for bit."""
+    from tpu_sparse_torch.sparse import cwell_compact
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A, m = _spmm_edge_csr(case, dtype)
+    W = csr_to_cwell(A.to(dev), group=2 if case.startswith("grouped")
+                     else 1)
+    plan, cv = cwell_compact.compact(W)
+    assert plan.wide == (case == "wide")
+    B = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (m, k)).astype(dtype)).to(dev)
+    Y0 = ref.cwell_compact_spmm(plan, cv, B)
+    Y1 = cuda_cwell.cwell_spmm_cuda(W, B)
+    assert float((Y1 - Y0).abs().max()) <= \
+        _SPMM_BOUND[dtype] * float(Y0.abs().max())
+    for j in range(k):
+        assert torch.equal(Y1[:, j], cuda_cwell.cwell_spmv_cuda(
+            W, B[:, j].contiguous()))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cwell_spmm_kernel_on_segments(dev, dtype):
+    from tpu_sparse_torch.kernels import _cwellseg_apply
+    from tpu_sparse_torch.sparse import cwell_compact
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell_segments
+
+    Seg = csr_to_cwell_segments(_random_csr(600, 1500, 9, dtype, 64).to(dev),
+                                seg_cols=256)
+    B = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1500, 8)).astype(dtype)).to(dev)
+    sfx = "f32" if dtype == np.float32 else "f64"
+    before = cuda_cwell.LAUNCHES["cwell_spmm_" + sfx]
+    Y = tpu_sparse_torch.kernels.spmm(Seg, B)
+    assert cuda_cwell.LAUNCHES["cwell_spmm_" + sfx] == \
+        before + len(Seg.segments)
+    Y0 = _cwellseg_apply(Seg, B, lambda W, X: ref.cwell_compact_spmm(
+        *cwell_compact.compact(W), X))
+    assert float((Y - Y0).abs().max()) <= \
+        _SPMM_BOUND[dtype] * float(Y0.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [7, 8, 33])
+@pytest.mark.parametrize("nb,bs,pad", [(50, 1, 3), (30, 3, 2), (40, 8, 5),
+                                       (12, 16, 1), (6, 64, 1)])
+def test_bell_spmm_kernel_block_sizes(dev, nb, bs, pad, k, dtype):
+    """K8 at bs 1, 3, 8, 16, 64 with padding blocks, against its plain
+    version."""
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+
+    Ad = torch.from_numpy(_block_dense(nb, bs, 0.3, nb + bs + 1).astype(
+        dtype))
+    S = csr_to_bsr(dense_to_csr(Ad.to(dev)), bs)
+    A = bsr_to_bell(S, ell_width=int(torch.diff(S.indptr.long()).max())
+                    + pad)
+    B = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (nb * bs, k)).astype(dtype)).to(dev)
+    Y0 = ref.bell_spmm(A, B)
+    Y1 = cuda_bell.bell_spmm_cuda(A, B)
+    assert float((Y1 - Y0).abs().max()) <= \
+        _SPMM_BOUND[dtype] * float(Y0.abs().max())
+    assert torch.equal(Y1, cuda_bell.bell_spmm_cuda(A, B))
+
+
+@pytest.mark.parametrize("operand", ["cwell", "bell"])
+def test_nan_read_only_by_zero_values_on_card(dev, operand):
+    """A NaN in x at a column that only padding or zero values read:
+    ``W @ x`` (K4) and ``(W @ x[:, None])[:, 0]`` (K6/K7 or K8) are finite
+    and agree (bit for bit on CWELL, where both sum in slot order)."""
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    if operand == "cwell":
+        Ad = _random_csr(400, 300, 4, np.float64, 65).todense()
+        Ad[:, 0] = 0  # column 0 empty: only padding slots read it
+        W = csr_to_cwell(dense_to_csr(Ad).to(dev))
+        assert bool(((W.gcols() == 0) & (W.vals == 0)).any())
+    else:
+        Ad = torch.from_numpy(_block_dense(10, 4, 0.3, 66))
+        Ad[:, :4] = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (40, 4)))
+        Ad[:, 0] = 0  # stored in every block row's block column 0, as 0
+        S = csr_to_bsr(dense_to_csr(Ad.to(dev)), 4)
+        W = bsr_to_bell(S, ell_width=int(torch.diff(S.indptr.long()).max())
+                        + 2)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        Ad.shape[1])).to(dev)
+    x[0] = float("nan")
+    y1 = W @ x
+    y2 = (W @ x[:, None].contiguous())[:, 0]
+    assert bool(torch.isfinite(y1).all()) and bool(torch.isfinite(y2).all())
+    if operand == "cwell":
+        assert torch.equal(y1, y2)
+    else:
+        assert _rel(y2, y1) <= 1e-13
+    x[0] = 0.0
+    assert torch.equal(y1, W @ x)
+
+
+def test_spmm_probe_designs_agree(dev):
+    """Every design the SpMM probe instantiates agrees with the shipped
+    kernels: K6/K7's bit for bit on a pack at k = 8 and 33, K8's within
+    1e-5 of max|Y| at bs = 8."""
+    import tempfile
+    from pathlib import Path
+
+    from tpu_sparse_torch.kernels import spmm_probe
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr, cwell_compact
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    stream = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, _ = spmm_probe.build_designs(Path(tmp))
+        W = csr_to_cwell(_random_csr(3000, 2500, 8, np.float32, 67).to(dev))
+        plan, cv = cwell_compact.compact(W)
+        for k in (8, 33):
+            B = torch.from_numpy(np.random.default_rng(k).standard_normal(
+                (2500, k)).astype(np.float32)).to(dev)
+            Y = cuda_cwell.cwell_spmm_cuda(W, B)
+            for d in spmm_probe.CWELL_DESIGNS.values():
+                Yd = torch.empty_like(Y)
+                fn = getattr(lib, spmm_probe._cwell_symbol(d, "f32"))
+                if d is None:
+                    rc = fn(W.vals.data_ptr(), W.idx2.data_ptr(),
+                            W.srow.data_ptr(), B.data_ptr(), Yd.data_ptr(),
+                            W.n_blocks, W.planes, 3000, 2500, k, stream)
+                else:
+                    rc = fn(cv.data_ptr(), plan.idx.data_ptr(),
+                            plan.srow.data_ptr(), plan.boff.data_ptr(),
+                            B.data_ptr(), Yd.data_ptr(), plan.n_blocks,
+                            plan.planes, 3000, k, plan.depth, 0, stream)
+                assert rc == 0
+                assert torch.equal(Yd, Y) if d is not None else \
+                    _rel(Yd, Y) <= 1e-5
+        Ad = torch.from_numpy(_block_dense(40, 8, 0.3, 68).astype(
+            np.float32))
+        A = bsr_to_bell(csr_to_bsr(dense_to_csr(Ad.to(dev)), 8))
+        B = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (320, 8)).astype(np.float32)).to(dev)
+        Y = cuda_bell.bell_spmm_cuda(A, B)
+        for d in spmm_probe.BELL_DESIGNS.values():
+            Yd = torch.empty_like(Y)
+            fn = getattr(lib, spmm_probe._bell_symbol(d, "f32"))
+            assert fn(A.blocks.data_ptr(), A.indices.data_ptr(),
+                      B.data_ptr(), Yd.data_ptr(), A.n_block_rows,
+                      A.ell_width, 8, 320, 8, stream) == 0
+            assert _rel(Yd, Y) <= 1e-5
+
+
 def test_spmm_kernel_refusals(dev):
     from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
     from tpu_sparse_torch.sparse.convert import dense_to_csr

@@ -249,7 +249,9 @@ def test_nan_in_x_reaches_only_rows_that_gather_it():
     W = csr_to_cwell(_both_csr(S)[1])
     x = torch.from_numpy(np.random.default_rng(9).standard_normal(300))
     x[0] = float("nan")
-    assert bool(torch.isnan(tref.cwell_spmv(W, x)).any())  # via padding
+    # the plane reference skips padding slots too (JAX's fill rule would
+    # add 0 * NaN there)
+    assert bool(torch.isfinite(tref.cwell_spmv(W, x)).all())
     y = _compact_spmv(W, x)
     assert bool(torch.isfinite(y).all())
     x[0] = 0.0
@@ -300,3 +302,178 @@ def test_plan_built_in_steps_equals_one_step(case, monkeypatch):
         assert part.wide == whole.wide
         for k in ("boff", "idx", "src"):
             assert torch.equal(getattr(part, k), getattr(whole, k)), k
+
+
+# ---- the compact SpMM (K6 / K7's plain version) ----------------------------
+
+
+def _spmm_pack(case, dtype):
+    """(pack, m) of one edge case: narrow, a group-2 pack, n and m not
+    multiples of 128, and a wide plan (a row over 600 columns)."""
+    if case == "wide":
+        S = _scipy_csr(300, 600, 4, dtype, 21).tolil()
+        S[5, :] = np.arange(1, 601, dtype=dtype)
+        At = _both_csr(S.tocsr())[1]
+        return csr_to_cwell(At), 600
+    n, m, group = {"narrow": (700, 650, 1), "grouped": (700, 650, 2),
+                   "n, m not x128": (1001, 777, 1)}[case]
+    return csr_to_cwell(_both_csr(_scipy_csr(n, m, 6, dtype, 22))[1],
+                        group=group), m
+
+
+@pytest.mark.parametrize("k", [1, 8, 33])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["narrow", "grouped", "n, m not x128",
+                                  "wide"])
+def test_compact_spmm_columns_equal_compact_spmv(case, dtype, k):
+    """Column j of ``cwell_compact_spmm`` is ``cwell_compact_spmv`` of
+    B[:, j] bit for bit (the order K6 / K7 and K4 / K5 share), and the
+    product agrees with the plane reference (BOUND of max|Y|)."""
+    W, m = _spmm_pack(case, dtype)
+    plan, cv = cc.compact(W)
+    assert plan.wide == (case == "wide")
+    B = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (m, k)).astype(dtype))
+    Y = tref.cwell_compact_spmm(plan, cv, B)
+    assert Y.shape == (W.shape[0], k) and Y.dtype == B.dtype
+    for j in range(k):
+        assert torch.equal(Y[:, j], tref.cwell_compact_spmv(plan, cv,
+                                                            B[:, j]))
+    Yp = tref.cwell_spmm(W, B)
+    assert float((Y - Yp).abs().max()) <= BOUND[dtype] * float(
+        Yp.abs().max())
+
+
+def test_compact_spmm_matches_pallas_k6_k7_interpret():
+    """JAX K6 (the gather kernel) and K7 (the one-hot kernel) in interpret
+    mode on a grouped pack with m not a multiple of 128: within 1e-5 of
+    max|Y| (float32 sums in another order)."""
+    from tpu_sparse.kernels import pallas_cwell
+
+    S = _scipy_csr(300, 333, 16, np.float32, 23)
+    Aj, At = _both_csr(S)
+    Wj, Wt = jcsr_to_cwell(Aj, group=2), csr_to_cwell(At, group=2)
+    B = np.random.default_rng(9).standard_normal((333, 8)).astype(np.float32)
+    pallas_cwell._INTERPRET = True
+    try:
+        y6 = np.asarray(pallas_cwell.cwell_spmm_pallas_gather(
+            Wj, jnp.asarray(B)))
+        y7 = np.asarray(pallas_cwell._cwell_spmm_impl(
+            Wj.vals, Wj.idx2, Wj.srow, jnp.asarray(B), shape=Wj.shape, rb=4,
+            kt=8, group=Wj.group))
+    finally:
+        pallas_cwell._INTERPRET = False
+    yt = tref.cwell_compact_spmm(*cc.compact(Wt), torch.from_numpy(B))
+    for y in (y6, y7):
+        assert np.abs(yt.numpy() - y).max() <= 1e-5 * np.abs(y).max()
+
+
+# ---- one rule for zero slots: NaN read only by zero values ------------------
+
+
+def _bell_with_zero_column():
+    """A BELL whose scalar column 0 is zero in every stored block, with
+    padding blocks (index 0) as well: only zero values read B's row 0."""
+    rng = np.random.default_rng(24)
+    nb, bs = 10, 4
+    Ad = np.zeros((nb * bs, nb * bs))
+    mask = rng.random((nb, nb)) < 0.3
+    np.fill_diagonal(mask, True)
+    mask[:, 0] = True  # block column 0 stored in every block row
+    for i, j in zip(*np.nonzero(mask)):
+        Ad[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] = rng.standard_normal(
+            (bs, bs))
+    Ad[:, 0] = 0.0
+    C = tconvert.dense_to_csr(torch.from_numpy(Ad))
+    S = csr_to_bsr(C, bs)
+    bell = bsr_to_bell(S, ell_width=int(mask.sum(1).max()) + 2)
+    return bell, Ad
+
+
+@pytest.mark.parametrize("what", ["cwell_spmm", "bell_spmv", "bell_spmm"])
+def test_nan_read_only_by_zero_values_stays_out(what):
+    """A NaN in x or B at a column that only padding or zero values read
+    leaves every output finite, and the output equals the one with 0 there
+    (the port skips products whose matrix value is 0 on every path)."""
+    if what == "cwell_spmm":
+        S = _scipy_csr(400, 300, 4, np.float64, 11)
+        S[:, 0] = 0.0
+        S.eliminate_zeros()  # column 0 is empty; padding slots read it
+        A = csr_to_cwell(_both_csr(S)[1])
+        gc = A.gcols()
+        assert bool(((gc == 0) & (A.vals == 0)).any())
+        fn, dense = tref.cwell_spmm, S.toarray()
+    else:
+        A, dense = _bell_with_zero_column()
+        assert bool((A.blocks[A.indices == 0][..., 0] == 0).all())
+        fn = tref.bell_spmv if what == "bell_spmv" else tref.bell_spmm
+    B = np.random.default_rng(25).standard_normal((dense.shape[1], 3))
+    if what == "bell_spmv":
+        B = B[:, 0]
+    Bn = torch.from_numpy(B.copy())
+    Bn[0] = float("nan")
+    Y = fn(A, Bn)
+    assert bool(torch.isfinite(Y).all())
+    Bz = Bn.clone()
+    Bz[0] = 0.0
+    assert torch.equal(Y, fn(A, Bz))
+    np.testing.assert_allclose(Y.numpy(), dense @ B, rtol=1e-12, atol=1e-12)
+
+
+# ---- caches with one entry per live structure ------------------------------
+
+
+def test_transpose_and_repack_caches_hold_every_live_structure(monkeypatch):
+    """Six differentiated CWELL structures and eighteen BELL matvecs on the
+    repack path, each visited twice in turn: one transpose, one repack and
+    one plan build per structure (the caches used to empty completely at
+    4 and 16 entries)."""
+    import tpu_sparse_torch
+    from tpu_sparse_torch.autodiff import implicit
+    from tpu_sparse_torch.sparse import cwell as tcwell
+
+    counts = {"transposes": 0, "repacks": {"cwell": 0, "bell": 0}}
+    mode = ["cwell"]  # which loop repacks: the transposes' or the BELLs'
+    real_t, real_p = implicit._transpose_plan, tcwell.csr_to_cwell
+
+    def transpose_plan(A):
+        counts["transposes"] += 1
+        return real_t(A)
+
+    def repack(*a, **kw):
+        counts["repacks"][mode[0]] += 1
+        return real_p(*a, **kw)
+
+    monkeypatch.setattr(implicit, "_transpose_plan", transpose_plan)
+    packs = [csr_to_cwell(_both_csr(_scipy_csr(
+        60, 60, 3, np.float64, 30 + i) + 4.0 * sp.eye(60, format="csr"))[1])
+        for i in range(6)]
+    monkeypatch.setattr(tcwell, "csr_to_cwell", repack)
+    bells = []
+    for i in range(18):
+        rng = np.random.default_rng(40 + i)
+        Ad = np.kron(np.eye(6) + (rng.random((6, 6)) < 0.3),
+                     rng.standard_normal((2, 2)))
+        bells.append(bsr_to_bell(csr_to_bsr(
+            tconvert.dense_to_csr(torch.from_numpy(Ad)), 2)))
+    b = torch.ones(60, dtype=torch.float64)
+    cc.reset_counts()
+    for _ in range(2):
+        mode[0] = "cwell"
+        for W in packs:
+            vals = W.vals.clone().requires_grad_()
+            x, r = tpu_sparse_torch.solve(W.with_data(vals), b,
+                                          method="bicgstab", tol=1e-10,
+                                          precision="full")
+            assert r.converged
+            x.sum().backward()
+            assert bool(torch.isfinite(vals.grad).all())
+        mode[0] = "bell"
+        for A in bells:
+            x = torch.ones(A.shape[1], dtype=torch.float64)
+            y = tref.cwell_compact_spmv(*cc.compact(block_cwell(A)), x)
+            assert torch.allclose(y, tref.bell_spmv(A, x), rtol=1e-12,
+                                  atol=1e-12)
+    # a transpose plan repacks the transposed CSR once
+    assert counts == {"transposes": 6, "repacks": {"cwell": 6, "bell": 18}}
+    assert cc.COUNTS["plan_builds"] == 18

@@ -49,7 +49,7 @@ from tpu_sparse_torch.solvers.krylov import bicgstab_full, cg_full, gmres_full
 from tpu_sparse_torch.sparse.containers import (CSR, DIA, is_sparse, values,
                                                 with_values)
 from tpu_sparse_torch.sparse.cwell import CWELL, CWELLSeg
-from tpu_sparse_torch.utils.opcache import OperandCache
+from tpu_sparse_torch.utils.opcache import TensorCache
 
 _SOLVERS = {"cg": cg_full, "bicgstab": bicgstab_full, "gmres": gmres_full}
 
@@ -113,9 +113,15 @@ def _matrix_run(method: str, kw: dict, A, b, x0, M):
 
 
 # Transpose plans of CWELL / CWELLSeg packs, keyed on the pack's structure
-# (its idx2 tensors, shared by every ``with_data`` copy): the values of each
-# forward solve are new tensors, the structure is not.
-_TRANSPOSES = OperandCache(max_entries=4)
+# (its first idx2 tensor, shared by every ``with_data`` copy, with the
+# versions of every idx2 and srow as the extra key): the values of each
+# forward solve are new tensors, the structure is not. One entry per live
+# structure, dropped with it.
+_TRANSPOSES = TensorCache()
+
+
+def _structure_key(segs) -> tuple:
+    return tuple((id(t), t._version) for W in segs for t in (W.idx2, W.srow))
 
 
 def _transpose_plan(A):
@@ -134,11 +140,12 @@ def _packed_transpose(A):
     a pack whose CSR has duplicate entries repacks on every call."""
     segs = A.segments if isinstance(A, CWELLSeg) else (A,)
     v = values(A)
-    mask, At_ids = _TRANSPOSES.get_or_build(
-        segs[0].idx2, lambda: _transpose_plan(A),
-        extra=tuple(id(W.idx2) for W in segs[1:]))
-    if not torch.equal(mask, v != 0):
-        mask, At_ids = _transpose_plan(A)
+    key = _structure_key(segs)
+    hit = _TRANSPOSES.get(segs[0].idx2, key)
+    if hit is None or not torch.equal(hit[0], v != 0):
+        hit = _transpose_plan(A)
+        _TRANSPOSES.put(segs[0].idx2, hit, key)
+    mask, At_ids = hit
     g = values(At_ids)
     if int(torch.count_nonzero(g)) != int(torch.count_nonzero(mask)):
         return A.T  # duplicates were summed: ids do not map one to one

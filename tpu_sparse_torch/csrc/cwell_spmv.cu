@@ -58,11 +58,9 @@
 #include <mutex>
 #include <utility>
 
-#include "ts_common.cuh"
+#include "ts_async.cuh"
 
-#define TS_CWELL_LANES 128
 #define TS_CWELL_MAX_GRID (1 << 20)
-#define TS_CWELL_NARROW_PLANES 256
 
 // The design each kernel ships: the ring's slot rows a stage and stages
 // (K4), or 0 x 0 for plain loads (K5).
@@ -74,28 +72,6 @@ template <>
 struct TsCwellDesign<double> {
   static constexpr int chunk = 0, stages = 0;
 };
-
-// A slot's column: a narrow index decodes through its block's window rows
-// in shared memory, a wide one is the column.
-__device__ __forceinline__ long long ts_slot_col(unsigned short ix,
-                                                 const int* s_srow) {
-  return (long long)s_srow[ix >> 8] * TS_CWELL_LANES + (ix & 0xFF);
-}
-
-__device__ __forceinline__ long long ts_slot_col(int ix, const int*) {
-  return ix;
-}
-
-// Block b's window rows into shared memory (narrow indices only).
-template <typename I>
-__device__ __forceinline__ void ts_load_window_rows(const int* srow,
-                                                    long long b, int planes,
-                                                    int* s_srow) {
-  if constexpr (sizeof(I) == 2) {
-    for (int s = threadIdx.x; s < planes; s += TS_CWELL_LANES)
-      s_srow[s] = __ldg(srow + b * planes + s);
-  }
-}
 
 // ---- plain loads (K5) -----------------------------------------------------
 
@@ -131,51 +107,6 @@ cwell_spmv_plain(const T* __restrict__ cvals, const I* __restrict__ idx,
 }
 
 // ---- the bulk-copy ring (K4) ----------------------------------------------
-
-__device__ __forceinline__ uint32_t ts_smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ts_mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               ::"r"(ts_smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void ts_mbar_expect_tx(uint64_t* bar,
-                                                  uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(ts_smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void ts_mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = ts_smem_addr(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from device memory into shared memory, completing on `bar`.
-__device__ __forceinline__ void ts_bulk_load(void* dst, const void* src,
-                                             uint32_t bytes, uint64_t* bar,
-                                             uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
-      ::"r"(ts_smem_addr(dst)), "l"(src), "r"(bytes),
-        "r"(ts_smem_addr(bar)), "l"(policy)
-      : "memory");
-}
 
 // The first row block in [0, n_blocks] whose first slot row is >= r.
 __device__ __forceinline__ long long ts_first_block(const long long* boff,
@@ -231,10 +162,9 @@ cwell_spmv_ring(const T* __restrict__ cvals, const I* __restrict__ idx,
 
   uint64_t policy = 0;
   if (lane == 0) {
-    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-                 : "=l"(policy));
+    policy = ts_evict_first_policy();
     for (int s = 0; s < STAGES; ++s) ts_mbar_init(&full[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    ts_fence_mbar_init();
   }
   // piece p: slot rows [r0 + p * CHUNK, + CHUNK) into stage p % STAGES
   auto fill_stage = [&](long long p) {
@@ -245,7 +175,7 @@ cwell_spmv_ring(const T* __restrict__ cvals, const I* __restrict__ idx,
     const uint32_t ib = (uint32_t)(nr * TS_CWELL_LANES * sizeof(I));
     // the threads' reads of this stage happened before the barrier that
     // led here; order them before the async proxy's writes
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    ts_fence_proxy_async();
     ts_mbar_expect_tx(&full[st], vb + ib);
     ts_bulk_load(s_val + st * PIECE, cvals + r * TS_CWELL_LANES, vb,
                  &full[st], policy);

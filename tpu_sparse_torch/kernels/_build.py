@@ -139,10 +139,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # stream
         "ts_cwell_spmv_f32": [P, P, P, P, P, P, L, L, L, I, P],
         "ts_cwell_spmv_f64": [P, P, P, P, P, P, L, L, L, I, P],
-        # vals, idx2, srow, B, Y, n_blocks, planes, n_rows, n_cols, k,
-        # stream
-        "ts_cwell_spmm_f32": [P, P, P, P, P, L, L, L, L, L, P],
-        "ts_cwell_spmm_f64": [P, P, P, P, P, L, L, L, L, L, P],
+        # cvals, idx, srow, boff, B, Y, n_blocks, planes, n_rows, k, depth,
+        # wide, stream
+        "ts_cwell_spmm_f32": [P, P, P, P, P, P, L, L, L, L, L, I, P],
+        "ts_cwell_spmm_f64": [P, P, P, P, P, P, L, L, L, L, L, I, P],
         # blocks, indices, B, Y, n_block_rows, L, bs, n_cols, k, stream
         "ts_bell_spmm_f32": [P, P, P, P, L, L, L, L, L, P],
         "ts_bell_spmm_f64": [P, P, P, P, L, L, L, L, L, P],

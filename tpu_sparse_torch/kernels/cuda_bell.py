@@ -5,7 +5,14 @@ replaces ``bell_spmm_pallas`` (K8), in float32 (float FMAs, no TF32: the
 TPU kernel multiplied at HIGHEST precision) and float64. The TPU's limits
 are gone: no padding of k to 128, no VMEM cap on B, no ``bs % 8`` rule;
 the kernel takes any block size up to 64 and refuses larger ones, whose
-staged blocks would not fit its shared memory.
+staged blocks would not fit its shared memory. The kernel stages each
+block row's blocks and the B stripes they name in shared memory by
+asynchronous copies, double-buffered.
+
+Products whose block value is 0 are skipped, on the card and in the plain
+versions alike, so a NaN or Inf in B reaches only the rows whose nonzeros
+gather it; JAX's reference multiplies every padding block, which differs
+only where B is not finite.
 
 ``bell_spmm`` launches the kernel for a CUDA ``B`` and runs the plain
 PyTorch version (``reference.bell_spmm``) for a CPU ``B``; nothing else
@@ -21,7 +28,7 @@ import torch
 from tpu_sparse_torch.kernels import reference as ref
 from tpu_sparse_torch.sparse.bell import BELL
 
-MAX_BLOCKSIZE = 64  # TS_BELL_STAGE / 64 ** 2 = one block staged at a time
+MAX_BLOCKSIZE = 64  # a double-buffered fp64 block and stripe: ~74 KB
 
 # Launches of K8, by dtype; counted where the kernel launches.
 LAUNCHES = {"bell_spmm_f32": 0, "bell_spmm_f64": 0}

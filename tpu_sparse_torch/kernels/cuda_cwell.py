@@ -10,12 +10,16 @@ products), in float32 and float64. They take every pack, grouped ones
 included, and return no None: the TPU's fallbacks for packs, operands or
 unrolls its VMEM could not hold are gone.
 
-K4 / K5 stream the pack's row-compact plan (``sparse.cwell_compact``),
-not its planes; K6 / K7 read the planes. ``cwell_spmv`` / ``cwell_spmm``
-launch the kernel for a CUDA operand and run the plain PyTorch version
-(``reference.cwell_spmv`` / ``cwell_spmm``) for a CPU one; nothing else
-selects between them. Launch counts are kept in ``LAUNCHES``, plan builds
-and value gathers in ``PLAN_COUNTS``.
+All four stream the pack's row-compact plan (``sparse.cwell_compact``),
+not its planes, and share it: one plan per pack structure, one value
+gather per values tensor. Every path skips products whose matrix value
+is 0, so a NaN or Inf in x or B reaches only the rows whose nonzeros
+gather it; JAX's ``mode="fill"`` references multiply every padding slot,
+which differs only where the operand is not finite. ``cwell_spmv`` /
+``cwell_spmm`` launch the kernel for a CUDA operand and run the plain
+PyTorch version (``reference.cwell_spmv`` / ``cwell_spmm``) for a CPU
+one; nothing else selects between them. Launch counts are kept in
+``LAUNCHES``, plan builds and value gathers in ``PLAN_COUNTS``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from tpu_sparse_torch.sparse.cwell import CWELL, LW
 # counted where the kernel launches.
 LAUNCHES = {"cwell_spmv_f32": 0, "cwell_spmv_f64": 0,
             "cwell_spmm_f32": 0, "cwell_spmm_f64": 0}
-# Compact-plan builds and value gathers behind K4 / K5.
+# Compact-plan builds and value gathers behind K4 - K7.
 PLAN_COUNTS = cwell_compact.COUNTS
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -112,20 +116,24 @@ def cwell_spmv(W: CWELL, x: torch.Tensor) -> torch.Tensor:
 
 def cwell_spmm_cuda(W: CWELL, B: torch.Tensor) -> torch.Tensor:
     """Y = W @ B by K6/K7 (one CUDA kernel, float32 or float64) for CUDA
-    operands; B is a contiguous (m, k) block."""
+    operands, on the row-compact plan K4 / K5 use; B is a contiguous
+    (m, k) block. Column j of Y equals ``cwell_spmv_cuda(W, B[:, j])`` bit
+    for bit."""
     from tpu_sparse_torch.kernels import _build
 
     sfx = _check_operands(W, B, "cwell_spmm_cuda", ndim=2)
-    n, m = W.shape
+    plan, cvals = cwell_compact.compact(W)
+    n = W.shape[0]
     k = B.shape[1]
     Y = torch.empty((n, k), dtype=B.dtype, device=B.device)
     lib = _build.library()
     fn = lib.ts_cwell_spmm_f32 if sfx == "f32" else lib.ts_cwell_spmm_f64
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(W.vals.data_ptr(), W.idx2.data_ptr(), W.srow.data_ptr(),
-                B.data_ptr(), Y.data_ptr(), W.vals.shape[0], W.vals.shape[1],
-                n, m, k, stream)
+        rc = fn(cvals.data_ptr(), plan.idx.data_ptr(), plan.srow.data_ptr(),
+                plan.boff.data_ptr(), B.data_ptr(), Y.data_ptr(),
+                plan.n_blocks, plan.planes, n, k, plan.depth, int(plan.wide),
+                stream)
     _build.check(rc, "cwell_spmm_cuda")
     LAUNCHES["cwell_spmm_" + sfx] += 1
     return Y

@@ -3,10 +3,17 @@
 Counterpart of ``tpu_sparse/kernels/reference.py``. ``dia_spmv`` accumulates
 the diagonals in ``offsets`` order exactly like the JAX loop; the CSR/COO
 versions scatter-add products onto rows; ``cwell_spmv`` gathers x per
-slot and sums the planes, ``cwell_compact_spmv`` does the same on a pack's
-row-compact plan (K4 / K5's layout); the BSR / BELL versions contract
-dense blocks with gathered chunks of x. Each ``*_spmm`` is the same
-function for a dense ``(m, k)`` operand B, column by column.
+slot and sums the planes, ``cwell_compact_spmv`` / ``cwell_compact_spmm``
+do the same on a pack's row-compact plan (K4 - K7's layout); the BSR /
+BELL versions contract dense blocks with gathered chunks of x. Each
+``*_spmm`` is the same function for a dense ``(m, k)`` operand B, column
+by column.
+
+The CWELL and BELL versions skip every product whose matrix value is 0,
+as the card's kernels do, so a NaN or Inf in x or B reaches only the rows
+whose nonzeros gather it. JAX's references (``mode="fill"``) multiply
+every padding slot and block; the two agree wherever the operand is
+finite.
 """
 
 from __future__ import annotations
@@ -14,6 +21,28 @@ from __future__ import annotations
 import torch
 
 from tpu_sparse_torch.sparse.containers import BSR, COO, CSR, DIA
+
+
+class _NonzeroProduct(torch.autograd.Function):
+    """a * b where a != 0, else 0, with the gradient of a * b: the two are
+    one function wherever b is finite, so the adjoint's values gradient
+    (the vjp of the plain SpMV) is JAX's, padding slots included."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.where(a != 0, a * b, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = (g * b).sum_to_size(a.shape) if ctx.needs_input_grad[0] else None
+        gb = (g * a).sum_to_size(b.shape) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _nonzero_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _NonzeroProduct.apply(a, b)
 
 
 def coo_spmv(A: COO, x: torch.Tensor) -> torch.Tensor:
@@ -48,13 +77,13 @@ def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
 
 def cwell_spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y[row] = sum over planes of vals * x[srow * 128 + idx2], where a
-    column at or past m gathers 0 (JAX ``mode="fill"``), so a padding slot
-    adds exactly 0 * x[col] or 0. Computed in the values' dtype."""
+    column at or past m gathers 0 (JAX ``mode="fill"``) and a slot of
+    value 0 adds 0 whatever x holds. Computed in the values' dtype."""
     n, m = A.shape
     gc = A.srow[:, :, None].long() * 128 + A.idx2
     x_fill = torch.cat([x, x.new_zeros(1)])  # x_fill[m] = 0
     xg = x_fill[torch.where((gc >= 0) & (gc < m), gc, m)]
-    y = torch.sum(A.vals * xg.to(A.vals.dtype), dim=1)
+    y = torch.sum(_nonzero_product(A.vals, xg.to(A.vals.dtype)), dim=1)
     return y.reshape(-1)[:n]
 
 
@@ -84,19 +113,47 @@ def cwell_compact_spmv(plan, cvals: torch.Tensor,
     return y.reshape(-1)[:n]
 
 
+def cwell_compact_spmm(plan, cvals: torch.Tensor,
+                       B: torch.Tensor) -> torch.Tensor:
+    """Y = W @ B for a dense (m, k) B from W's row-compact plan and compact
+    values (K6 / K7's layout): each row's slots summed one slot row at a
+    time, in slot order, as ``cwell_compact_spmv`` sums each column. Slots
+    of value 0 add nothing. Computed in the values' dtype; the gathered
+    operand holds one slot row: (n_blocks * 128, k)."""
+    n, m = plan.shape
+    nb, k = plan.n_blocks, B.shape[1]
+    lens = torch.diff(plan.boff) // 128
+    depth = int(lens.max()) if nb else 0
+    b = torch.repeat_interleave(torch.arange(nb, device=cvals.device),
+                                lens * 128, output_size=plan.slots)
+    t = torch.arange(plan.slots, device=cvals.device)
+    at = (b, (t - plan.boff[b]) // 128, t % 128)
+    keep = cvals != 0
+    v = cvals.new_zeros((nb, depth, 128)).index_put_(at, cvals)
+    c = torch.full((nb, depth, 128), m, dtype=torch.int64,
+                   device=cvals.device).index_put_(
+        at, torch.where(keep, plan.columns(), m))
+    B_fill = torch.cat([B, B.new_zeros((1, k))]).to(cvals.dtype)  # row m: 0
+    y = cvals.new_zeros((nb, 128, k))
+    for j in range(depth):
+        y += v[:, j, :, None] * B_fill[c[:, j]]
+    return y.reshape(-1, k)[:n]
+
+
 def cwell_spmm(A, B: torch.Tensor) -> torch.Tensor:
-    """Y = A @ B for a CWELL pack and a dense (m, k) B, with the fill rule
-    of ``cwell_spmv``: a column at or past m gathers a row of zeros. The
-    planes are summed one at a time, in order, so the gathered operand
-    never holds more than one plane: (n_blocks * 128, k)."""
+    """Y = A @ B for a CWELL pack and a dense (m, k) B, with the rules of
+    ``cwell_spmv``: a column at or past m gathers a row of zeros, a slot of
+    value 0 adds 0. The planes are summed one at a time, in order, so the
+    gathered operand never holds more than one plane: (n_blocks * 128,
+    k)."""
     n, m = A.shape
     k = B.shape[1]
     B_fill = torch.cat([B, B.new_zeros((1, k))]).to(A.vals.dtype)
     y = A.vals.new_zeros((A.vals.shape[0], A.vals.shape[2], k))
     for s in range(A.vals.shape[1]):
         gc = A.srow[:, s, None].long() * 128 + A.idx2[:, s]  # (nb, 128)
-        y += A.vals[:, s, :, None] * B_fill[
-            torch.where((gc >= 0) & (gc < m), gc, m)]
+        y += _nonzero_product(A.vals[:, s, :, None], B_fill[
+            torch.where((gc >= 0) & (gc < m), gc, m)])
     return y.reshape(-1, k)[:n]
 
 
@@ -144,15 +201,21 @@ def bsr_spmm(A: BSR, B: torch.Tensor) -> torch.Tensor:
 
 def bell_spmv(A, x: torch.Tensor) -> torch.Tensor:
     """Block-ELL SpMV: per block row, L dense (bs, bs) blocks times the
-    gathered chunks of x (padding blocks are zero)."""
-    bs = A.blocksize
-    gathered = x.reshape(-1, bs)[A.indices.long()]  # (nbr, L, bs)
-    return torch.einsum("rlij,rlj->ri", A.blocks, gathered).reshape(-1)
+    gathered chunks of x (padding blocks are zero); a product whose block
+    value is 0 adds 0 whatever x holds."""
+    return bell_spmm(A, x[:, None]).reshape(-1)
 
 
 def bell_spmm(A, B: torch.Tensor) -> torch.Tensor:
-    """Y[r bs + i] = sum_l blocks[r, l, i, :] @ B[idx[r, l] bs : + bs]."""
+    """Y[r bs + i] = sum_l blocks[r, l, i, :] @ B[idx[r, l] bs : + bs],
+    skipping products whose block value is 0. One block column c at a
+    time, so the gathered operand stays one (nbr, L, bs, k) slab."""
     bs, k = A.blocksize, B.shape[1]
     gathered = B.reshape(-1, bs, k)[A.indices.long()]  # (nbr, L, bs, k)
-    prods = torch.einsum("rlij,rljk->rik", A.blocks, gathered)
-    return prods.reshape(A.shape[0], k)
+    y = gathered.new_zeros((A.n_block_rows, bs, k),
+                           dtype=torch.promote_types(A.blocks.dtype,
+                                                     B.dtype))
+    for c in range(bs):
+        y += _nonzero_product(A.blocks[:, :, :, c, None],  # (nbr, L, bs, 1)
+                              gathered[:, :, None, c, :]).sum(1)
+    return y.reshape(A.shape[0], k)

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from tpu_sparse_torch.sparse.containers import BSR, COO, SPARSE_TYPES, _matvec
-from tpu_sparse_torch.utils.opcache import OperandCache
+from tpu_sparse_torch.utils.opcache import TensorCache
 
 
 class BELL:
@@ -117,7 +117,10 @@ def bsr_to_bell(A: BSR, ell_width: "int | None" = None) -> BELL:
     return BELL(blocks, idx, A.shape)
 
 
-_block_cwell_cache = OperandCache(max_entries=16)
+# Repacks keyed on the matrix's value tensor (``blocks`` / ``data``), with
+# the index tensors and every version as the extra key: one entry per live
+# matrix, dropped with its values.
+_block_cwell_cache = TensorCache()
 
 
 def block_cwell(A):
@@ -126,11 +129,15 @@ def block_cwell(A):
     matrix's device and cached per matrix content."""
     from tpu_sparse_torch.sparse.cwell import coo_arrays_to_csr, csr_to_cwell
 
-    def build():
+    vals = A.blocks if isinstance(A, BELL) else A.data
+    index = (A.indices,) if isinstance(A, BELL) else (A.indices, A.indptr)
+    key = (A.shape,) + tuple((id(t), t._version) for t in index)
+    W = _block_cwell_cache.get(vals, key)
+    if W is None:
         C = A.tocoo()
-        return csr_to_cwell(coo_arrays_to_csr(C.row, C.col, C.data, A.shape))
-
-    return _block_cwell_cache.get_or_build(A, build)
+        W = csr_to_cwell(coo_arrays_to_csr(C.row, C.col, C.data, A.shape))
+        _block_cwell_cache.put(vals, W, key)
+    return W
 
 
 SPARSE_TYPES.append(BELL)

@@ -1,5 +1,5 @@
-"""The row-compact SpMV plan of a CWELL pack: the layout that the card's
-K4 / K5 (``csrc/cwell_spmv.cu``) stream.
+"""The row-compact plan of a CWELL pack: the layout that the card's K4 / K5
+(``csrc/cwell_spmv.cu``) and K6 / K7 (``csrc/cwell_spmm.cu``) stream.
 
 A CWELL plane gives all 128 rows of a block one 256-column window, so
 rows whose entries fall in other windows pad (a third of the slots of the
@@ -71,13 +71,14 @@ def clear_caches() -> None:
 class CompactPlan:
     """The structure of a row-compact pack (see the module docstring)."""
 
-    def __init__(self, boff, idx, src, srow, idx2, shape, wide):
+    def __init__(self, boff, idx, src, srow, idx2, shape, wide, depth):
         self.boff = boff
         self.idx = idx
         self.src = src
         self.srow = srow
         self.shape = shape
         self.wide = wide
+        self.depth = depth  # the most slot rows of a row block
         self._idx2 = weakref.ref(idx2)
 
     @property
@@ -144,6 +145,7 @@ def build_plan(W: CWELL) -> CompactPlan:
     boff = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
     boff[1:] = torch.cumsum(L * LW, 0)
     T = int(boff[-1])
+    depth = int(L.max()) if nb else 0
     wide = S > NARROW_PLANES or bool(past_byte)
     idx = torch.zeros(T, dtype=torch.int32 if wide else torch.int16,
                       device=dev)
@@ -181,7 +183,7 @@ def build_plan(W: CWELL) -> CompactPlan:
             f"cwell_compact: a nonzero slot of the pack names a column "
             f"outside [0, {m})")
     COUNTS["plan_builds"] += 1
-    return CompactPlan(boff, idx, src, W.srow, W.idx2, W.shape, wide)
+    return CompactPlan(boff, idx, src, W.srow, W.idx2, W.shape, wide, depth)
 
 
 def gather_values(plan: CompactPlan, vals: torch.Tensor) -> torch.Tensor:
