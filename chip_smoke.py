@@ -4,7 +4,7 @@
 
 Builds the CUDA kernels of tpu_sparse_torch/csrc (nvcc, sm_90a, one nvcc per
 source), checks each kernel against its plain PyTorch version, and drives
-``tpu_sparse_torch.solve`` along two main paths, each with the launch
+``tpu_sparse_torch.solve`` along its main paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * phases (4)-(5): CG on the 27-point 3-D Poisson system at n = 160^3
@@ -40,6 +40,19 @@ counters set to 0 just before it and read just after:
   blocks) on edge cases; phase (18) times them beside their bounds (K6/K7:
   the plan's bytes, the plane pack's printed beside), a cuSPARSE SpMM and
   k K4 launches, and the multi-RHS solves beside k single-RHS solves.
+* phase (20): the AMG and preconditioner path at n = 160^3: ``solve(A, b,
+  backend="amg")`` (AMG-preconditioned CG; the V-cycle runs kernel 1 on
+  the DIA levels and K4 on the CWELL restriction and prolongator), the
+  stationary V-cycle iteration, ``M="amg" | "chebyshev" | "neumann"``, the
+  AMG solve on the CWELL pack and with B of 8 columns (every level one
+  K6/K7 SpMM), and at 64^3 ``M="fsai"`` and float64 ``M="amg"`` with
+  ``precision="auto"`` (the cast hierarchy in the f32 sweeps, the fp64
+  kernel in the outer residuals). Phase (19) builds the 160^3 hierarchy
+  (native host set-up), prints its levels, holds its V-cycle against the
+  same cycle on the plain versions and the block V-cycle against the
+  single ones, and times the cycle by level; phase (21) runs the
+  lid-driven cavity (``tpu_sparse_torch.apps.ldc``, float64: K3) on the
+  card against the CPU at nx = 64 and at nx = 256 for 500 steps.
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
@@ -68,7 +81,8 @@ F64_NX = 64
 
 # Kernels that solve() launches in phases (4)-(5), by launch-counter name.
 # The float32 plain mode of kernel 1 ("dia_spmv_f32") serves ``A @ x``,
-# which solve() does not call; phases (2), (4) and (6) check it apart.
+# which these solves do not call (phases (2), (4) and (6) check it apart);
+# the preconditioned and AMG solves of phase (20) launch it.
 MAIN_PATH_KERNELS = ("dia_spmv_ext_f32", "dia_spmv_f64", "dia_spmv_ext_f64",
                      "dia_cg_spmv_dot", "dia_cg_update")
 
@@ -717,6 +731,7 @@ def main() -> int:
 
     nd = len(A.offsets)
     n64 = A64_cg.shape[0]
+    bound("dia_spmv_f32", n, nd, 2, 0, 4)
     bound("dia_spmv_ext_f32", n, nd, 2, 0, 4)
     bound("dia_spmv_f64", n64, nd, 2, 0, 8)
     bound("dia_spmv_ext_f64", n64, nd, 2, 0, 8)
@@ -730,9 +745,9 @@ def main() -> int:
         note(k, library_ms=None)   # no one PyTorch call computes these
     per_it = sum(results[k]["ms"] for k in
                  ("dia_bicgstab_q", "dia_bicgstab_t", "dia_bicgstab_update"))
-    for k in ("dia_spmv_ext_f32", "dia_spmv_f64", "dia_spmv_ext_f64",
-              "dia_cg_spmv_dot", "dia_cg_update", "dia_bicgstab_q",
-              "dia_bicgstab_t", "dia_bicgstab_update"):
+    for k in ("dia_spmv_f32", "dia_spmv_ext_f32", "dia_spmv_f64",
+              "dia_spmv_ext_f64", "dia_cg_spmv_dot", "dia_cg_update",
+              "dia_bicgstab_q", "dia_bicgstab_t", "dia_bicgstab_update"):
         v = results[k]
         lib = ("none" if v["library_ms"] is None
                else f"{v['library_ms']:.4f} ms")
@@ -793,6 +808,13 @@ def main() -> int:
     multirhs_phases(dev, systems, note=note, counts=counts,
                     reset_counts=reset_counts, main_runs=main_runs,
                     times=times, results=results, edge_errs=errs)
+    for k in ("A", "WC", "W64", "A_cd", "A64_dia"):
+        del systems[k]
+    torch.cuda.empty_cache()
+
+    # ---- (19)-(21) AMG, the preconditioners and the lid-driven cavity ----
+    amg_phases(dev, systems, counts=counts, reset_counts=reset_counts,
+               main_runs=main_runs, times=times, cg_iters=solves[None])
 
     # ---- results -----------------------------------------------------------
     src_spmv = "tpu_sparse_torch/csrc/dia_spmv.cu"
@@ -800,6 +822,7 @@ def main() -> int:
     src_bicg = "tpu_sparse_torch/csrc/dia_bicgstab.cu"
     k10 = "tpu_sparse/kernels/pallas_bicgstab.py:52"
     origin = {
+        "dia_spmv_f32": (src_spmv, "tpu_sparse/kernels/pallas_spmv.py:51"),
         "dia_spmv_ext_f32": (src_spmv,
                              "tpu_sparse/kernels/pallas_spmv.py:279"),
         "dia_spmv_f64": (src_spmv, "tpu_sparse/kernels/pallas_spmv.py:662"),
@@ -1682,6 +1705,323 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
         print(f"  solve {label:38s} {fmt(t_m)} ({multi()} it);   "
               f"{Bm.shape[1]} single-RHS solves {fmt(t_s)} ({singles()} it);"
               f" ratio {t_s[0] / t_m[0]:.2f}", flush=True)
+
+
+def amg_phases(dev, g, *, counts, reset_counts, main_runs, times, cg_iters,
+               nx=MAIN_NX, small_nx=F64_NX, ldc_cmp=(64, 200),
+               ldc_run=(256, 500)):
+    """Phases (19)-(21): the AMG hierarchy of the nx^3 Poisson system and
+    its V-cycle against the plain versions, the AMG and preconditioner
+    solves through ``solve()`` (the main path of this slice) and the
+    lid-driven cavity on the card. ``g``: the systems of phases (13)-(14)
+    (``A_dia`` the f32 DIA, ``W`` its CWELL pack); ``cg_iters``: the plain
+    CG iterations of phase (4)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpu_sparse_torch
+    from tpu_sparse_torch.apps import ldc as tldc
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.kernels import spmv
+    from tpu_sparse_torch.precond import amg as tamg
+    from tpu_sparse_torch.precond import fsai_setup
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.containers import CSR
+    from tpu_sparse_torch.sparse.cwell import CWELL
+
+    A, W = g["A_dia"], g["W"]
+    n = A.shape[0]
+    rng = np.random.default_rng(SEED)
+    norm = torch.linalg.vector_norm
+
+    def fmt(t):
+        return f"{t[0]:.2f} ms ({t[1]:.2f}-{t[2]:.2f})"
+
+    def op_bytes(op):
+        ts = [op] if isinstance(op, torch.Tensor) else [
+            v for v in vars(op).values() if isinstance(v, torch.Tensor)]
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def op_kind(op):
+        return "dense" if isinstance(op, torch.Tensor) else type(op).__name__
+
+    # ---- (19) set-up and V-cycle ---------------------------------------
+    phase(f"(19) AMG set-up and V-cycle on poisson3d_27pt({nx}) f32 "
+          f"({A.nnz} nonzeros): the card's kernels against the plain "
+          "versions")
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    hier = tamg.amg_setup(A)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    sizes = [lv.A.shape[0] for lv in hier.levels] + [
+        hier.coarse_inv.shape[0]]
+    print(f"  set-up (native C++ graph phase, packing on the card) "
+          f"{t_setup:.2f} s (wall); {hier.num_levels} levels, sizes {sizes}")
+    for k, lv in enumerate(hier.levels):
+        parts = []
+        for name in ("A", "R", "P"):
+            op = getattr(lv, name)
+            parts.append(f"{name} {op_kind(op)} {op_bytes(op) / 1e6:.1f} MB")
+            if isinstance(op, CSR):
+                print(f"  level {k} {name} stays CSR (its CWELL fill is "
+                      "below 0.04, as JAX's device branch would keep it): "
+                      "plain products")
+        print(f"  level {k} (n={lv.A.shape[0]}): " + ", ".join(parts)
+              + (" (the caller's)" if k == 0 else ""))
+    print(f"  coarse pinv {hier.coarse_inv.shape[0]}^2 "
+          f"{op_bytes(hier.coarse_inv) / 1e3:.1f} KB")
+    M = tamg.AMGPreconditioner(hier)  # V(1,1), omega 0.9: solve()'s M
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    before = counts()
+    y = M(b)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    m1 = torch.cuda.memory_allocated()
+    print(f"  hierarchy device memory {(m1 - m0) / 1e6:.1f} MB beyond the "
+          "fine matrix (compact plans included); one V-cycle launched "
+          f"{grew}")
+    check(grew.get("dia_spmv_f32", 0) > 0 and grew.get("cwell_spmv_f32", 0)
+          > 0, "the V-cycle did not run kernel 1 and K4")
+    y0 = tamg.v_cycle(hier, b, pre_sweeps=1, post_sweeps=1, omega=0.9,
+                      plain=True)
+    err = float((y - y0).abs().max())
+    scale = float(y0.abs().max())
+    print(f"  V-cycle on the card against the same hierarchy applied with "
+          f"the plain versions: max abs err {err:.2e}, max|y| {scale:.2e} "
+          f"({err / scale:.1e} of it)")
+    check(err <= 1e-5 * scale, "the V-cycle disagrees with its plain version")
+    t_v = times(lambda: M(b), 5)
+    t_p = times(lambda: tamg.v_cycle(hier, b, pre_sweeps=1, post_sweeps=1,
+                                     omega=0.9, plain=True), 1)
+    print(f"  V(1,1)-cycle {fmt(t_v)}; plain {fmt(t_p)}")
+    # per level: the level's own work in the cycle (pre-smoothing, the
+    # residual, R, P of a coarse correction, post-smoothing), timed alone
+    def level_work(lv, rhs, xc):
+        x = tamg._smooth(lv.A, lv.dinv_l1, torch.zeros_like(rhs), rhs, 1,
+                         0.9)
+        tamg._product(lv.R, rhs - tamg._product(lv.A, x))
+        x = x + tamg._product(lv.P, xc)
+        return tamg._smooth(lv.A, lv.dinv_l1, x, rhs, 1, 0.9)
+
+    per_level = []
+    for k, lv in enumerate(hier.levels):
+        rk = torch.from_numpy(rng.standard_normal(sizes[k]).astype(
+            np.float32)).to(dev)
+        xk = torch.zeros(sizes[k + 1], dtype=torch.float32, device=dev)
+        per_level.append(times(lambda: level_work(lv, rk, xk), 5)[0])
+    ci = hier.coarse_inv
+    rc = torch.ones(ci.shape[0], dtype=ci.dtype, device=dev)
+    per_level.append(times(lambda: ci @ rc, 5)[0])
+    print(f"  V-cycle ms by level (each level's work timed alone; the last "
+          f"the coarse pinv product), sum {sum(per_level):.3f}: " + "; ".join(
+              f"{k}: {t:.3f}" for k, t in enumerate(per_level)))
+    P0 = hier.levels[0].P
+    if isinstance(P0, CWELL):
+        Pc = P0.tocsr()
+        tp = tamg.TentativeP(Pc.data, Pc.indices.long(), P0.shape)
+        xc = torch.from_numpy(rng.standard_normal(P0.shape[1]).astype(
+            np.float32)).to(dev)
+        e_g = float((tp.apply(xc) - spmv(P0, xc)).abs().max())
+        check(e_g == 0.0, "K4 on the tentative P differs from the gather")
+        t_g, t_4 = times(lambda: tp.apply(xc), 5), times(
+            lambda: spmv(P0, xc), 5)
+        print(f"  tentative P ({P0.shape[0]} x {P0.shape[1]}, CWELL S="
+              f"{P0.planes}): the TentativeP gather {fmt(t_g)}, K4 "
+              f"{fmt(t_4)}; equal results")
+    del y, y0, M
+    # the block V-cycle on the CWELL pack's hierarchy: every level operator
+    # one SpMM (K6/K7 on CWELL levels) against the single V-cycles
+    t0 = time.perf_counter()
+    hier_w = tamg.amg_setup(W)
+    torch.cuda.synchronize()
+    print(f"  set-up on the {nx}^3 CWELL pack {time.perf_counter() - t0:.2f}"
+          f" s (wall), sizes "
+          f"{[lv.A.shape[0] for lv in hier_w.levels]}; operators "
+          + ", ".join(f"{k}: " + "/".join(op_kind(o) for o in lv[:3])
+                      for k, lv in enumerate(hier_w.levels)))
+    Mw = tamg.AMGPreconditioner(hier_w)
+    K = 8
+    B = torch.from_numpy(rng.standard_normal((n, K)).astype(np.float32)).to(
+        dev)
+    before = counts()
+    Y = Mw.matmat(B)
+    torch.cuda.synchronize()
+    grew = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    singles = [Mw(B[:, j].contiguous()) for j in range(K)]
+    bitwise = sum(torch.equal(Y[:, j], s) for j, s in enumerate(singles))
+    e_b = max(float((Y[:, j] - s).abs().max() / s.abs().max())
+              for j, s in enumerate(singles))
+    dense = sum(isinstance(lv.A, torch.Tensor) for lv in hier_w.levels) + 1
+    print(f"  block V-cycle (k={K}) launched {grew}; columns equal to the "
+          f"single V-cycles bit for bit: {bitwise} of {K}; max rel diff "
+          f"{e_b:.1e} (the {dense} dense levels multiply by cuBLAS gemm for "
+          "a block and gemv for a vector)")
+    check(grew.get("cwell_spmm_f32", 0) > 0, "the block V-cycle missed K6/K7")
+    check(e_b <= 1e-5, "block V-cycle columns differ from the single ones")
+    t_b = times(lambda: Mw.matmat(B), 5)
+    t_s = times(lambda: [Mw(B[:, j].contiguous()) for j in range(K)], 1)
+    print(f"  block V-cycle {fmt(t_b)}; {K} single V-cycles {fmt(t_s)}")
+    del hier, hier_w, Mw, Y, singles, B
+    torch.cuda.empty_cache()
+
+    # ---- (20) main path ------------------------------------------------
+    phase("(20) main path: AMG and preconditioned solves through solve() "
+          f"at {nx}^3 f32 (tol 1e-6) and {small_nx}^3, and the block AMG "
+          "solve")
+    x_true = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        dev)
+    b = ref.dia_spmv(A, x_true)
+    As = gen.poisson3d_27pt(small_nx, device=dev)
+    bs = ref.dia_spmv(As, torch.from_numpy(rng.standard_normal(
+        As.shape[0]).astype(np.float32)).to(dev))
+    A64 = gen.poisson3d_27pt(small_nx, dtype=np.float64, device=dev)
+    b64 = ref.dia_spmv(A64, torch.from_numpy(rng.standard_normal(
+        A64.shape[0])).to(dev))
+    B = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (n, 8)).astype(np.float32)).to(dev)
+
+    def truth(op):
+        if op is W:
+            return lambda X: (ref.dia_spmm(A, X) if X.dim() == 2
+                              else ref.dia_spmv(A, X))
+        return lambda x: ref.dia_spmv(op, x)
+
+    rows = [
+        # label, operand, rhs, solve() arguments, carriers, residual bound
+        ("cg backend=amg", A, b, dict(backend="amg", tol=1e-6),
+         ("dia_spmv_f32", "cwell_spmv_f32"), 1e-5),
+        ("cg M=amg", A, b, dict(method="cg", M="amg", tol=1e-6,
+                                maxiter=500),
+         ("dia_spmv_f32", "cwell_spmv_f32"), 1e-5),
+        ("stationary backend=amg accelerant=None", A, b,
+         dict(backend="amg", accelerant=None, tol=1e-6, maxiter=500),
+         ("dia_spmv_f32", "cwell_spmv_f32"), 1e-5),
+        ("cg M=chebyshev", A, b, dict(M="chebyshev", tol=1e-6, maxiter=500),
+         ("dia_spmv_f32",), 1e-5),
+        ("cg M=neumann", A, b, dict(M="neumann", tol=1e-6, maxiter=500),
+         ("dia_spmv_f32",), 1e-5),
+        ("cg backend=amg on the CWELL pack", W, b,
+         dict(backend="amg", tol=1e-6), ("cwell_spmv_f32",), 1e-5),
+        (f"cg M=fsai {small_nx}^3", As, bs,
+         dict(M="fsai", tol=1e-6, maxiter=500), ("dia_spmv_f32",), 1e-5),
+        (f"cg M=amg f64 auto {small_nx}^3", A64, b64,
+         dict(M="amg", tol=1e-8, precision="auto"),
+         ("dia_spmv_ext_f64", "dia_spmv_f32"), 1e-7),
+        ("block cg backend=amg on the CWELL pack, k=8", W, B,
+         dict(backend="amg", tol=1e-6), ("cwell_spmm_f32",), 1e-5),
+    ]
+    solver = tpu_sparse_torch.SparseSolver()
+    reset_counts()  # the main-path run of this slice starts here
+    firsts = {}
+    for label, op, rhs, kw, carriers, limit in rows:
+        before = counts()
+        t0 = time.perf_counter()
+        x, res = solver.solve(op, rhs, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        r = rhs - truth(op)(x)
+        true_rel = float((norm(r, dim=0) / norm(rhs, dim=0)).max())
+        firsts[label] = wall
+        print(f"  {label}: {res}; true rel res {true_rel:.2e}; first call "
+              f"(set-up included) {wall:.2f} s wall; launches {grew}",
+              flush=True)
+        check(res.converged, f"{label} did not converge")
+        check(true_rel <= limit, f"{label}: true residual {true_rel}")
+        check(all(grew.get(k, 0) > 0 for k in carriers),
+              f"{label}: {carriers} did not carry the solve")
+    main_runs["phase (20)"] = counts()
+    print(f"  plain CG (no preconditioner) on the {nx}^3 system took "
+          f"{cg_iters} iterations in phase (4)")
+    print(f"  launches in the main-path run (phase 20): "
+          f"{main_runs['phase (20)']}")
+    t0 = time.perf_counter()
+    fsai_setup(As)
+    t_fsai = time.perf_counter() - t0
+    print(f"  fsai_setup at {small_nx}^3 (host numpy) {t_fsai:.2f} s wall; "
+          f"the same work at {nx}^3 scales by (n ratio) "
+          f"{(nx / small_nx) ** 3:.1f}x, about {t_fsai * (nx / small_nx) ** 3:.0f}"
+          " s (arithmetic, not measured)")
+    for label, op, rhs, kw, _, _ in rows:
+        t = times(lambda: solver.solve(op, rhs, **kw), 1)
+        print(f"  solve {label:44s} {fmt(t)} (set-up cached)", flush=True)
+    # the device's busy share of one AMG-PCG solve
+    run = lambda: solver.solve(A, b, backend="amg", tol=1e-6)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run()
+        e1.record()
+        torch.cuda.synchronize()
+    wall = e0.elapsed_time(e1)
+    dev_us = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            dev_us[e.key] = us
+    busy = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    share = (f"device busy {busy:.2f} ms ({busy / wall:.2f} of it)"
+             if busy > 0 else "device busy not measured (the profiler "
+             "recorded no device time)")
+    print(f"  AMG-PCG at {nx}^3 under torch.profiler: {wall:.2f} ms (CUDA "
+          f"events), {share}; by kernel (ms): " + "; ".join(
+              f"{k[:40]} {v / 1e3:.2f}" for k, v in top), flush=True)
+    del solver, As, bs, A64, b64, B, x, r, prof
+    torch.cuda.empty_cache()
+
+    # ---- (21) the lid-driven cavity ------------------------------------
+    nxc, steps_c = ldc_cmp
+    phase(f"(21) lid-driven cavity: nx={nxc}, Re=400, {steps_c} steps on "
+          f"the card against the CPU; nx={ldc_run[0]}, {ldc_run[1]} steps")
+    reset_counts()
+    for precond in ("jacobi", "amg"):
+        cfg = dict(nx=nxc, Re=400.0, solver="cg", precond=precond)
+        card = tldc.LDCSolver(tldc.LDCConfig(device="cuda", **cfg))
+        st_c = card.run(steps_c)
+        cpu = tldc.LDCSolver(tldc.LDCConfig(device="cpu", **cfg))
+        st_h = cpu.run(steps_c)
+        diff = {k: float((getattr(card, k).cpu() - getattr(cpu, k)).abs()
+                         .max()) for k in ("u", "v", "p")}
+        print(f"  cg+{precond}: card {st_c['steps_per_s']:.1f} steps/s, "
+              f"{st_c['pressure_iters_total']} pressure iterations; CPU "
+              f"{st_h['steps_per_s']:.1f} steps/s, "
+              f"{st_h['pressure_iters_total']}; max |card - CPU| {diff}; "
+              f"mass residual {st_c['mass_residual']:.2e}", flush=True)
+        check(max(diff.values()) <= 1e-8,
+              f"LDC cg+{precond}: the card's fields differ from the CPU's")
+        del card, cpu
+    nxr, steps_r = ldc_run
+    s = tldc.LDCSolver(tldc.LDCConfig(nx=nxr, Re=400.0, solver="cg",
+                                      precond="amg", device="cuda"))
+    sizes = [lv.A.shape[0] for lv in s.M.hier.levels]
+    st = s.run(steps_r)
+    print(f"  nx={nxr} cg+amg (levels {sizes} + coarse "
+          f"{s.M.hier.coarse_inv.shape[0]}; "
+          + ", ".join(f"{k}: " + "/".join(op_kind(o) for o in lv[:3])
+                      for k, lv in enumerate(s.M.hier.levels))
+          + f"): {steps_r} steps in {st['elapsed_s']:.2f} s wall, "
+          f"{st['steps_per_s']:.2f} steps/s, "
+          f"{st['pressure_iters_total'] / steps_r:.1f} pressure iterations "
+          f"a step, final mass residual {st['mass_residual']:.2e}",
+          flush=True)
+    check(st["mass_residual"] < 1e-7, "LDC mass residual above 1e-7")
+    main_runs["phase (21)"] = counts()
+    print(f"  launches in the main-path run (phase 21): "
+          f"{main_runs['phase (21)']}")
+    check(main_runs["phase (21)"]["dia_spmv_f64"] > 0,
+          "K3 did not carry the LDC pressure solves")
+    del s
+    torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     sys.exit(main())

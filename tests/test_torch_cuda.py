@@ -26,7 +26,12 @@ CWELL as on DIA, but paths with float32 arithmetic within 5 iterations
 or a fifth of the count (see the test). K6/K7 (CWELL SpMM) and K8 (BELL
 SpMM): 1e-5 (f32) / 1e-12 (f64) of max|Y| against the plain version,
 bit-identical reruns; multi-RHS solves on the card against the CPU with
-the CWELL solves' iteration slack and x tolerances.
+the CWELL solves' iteration slack and x tolerances. AMG: the card's
+V-cycle against the same cycle on the plain versions and the block cycle
+against the single ones within 1e-5 (f32) / 1e-12 (f64) of max|y|;
+preconditioned solves on the card against the CPU with the slack and x
+tolerances above (f64 rtol 1e-8); the lid-driven cavity's fields on the
+card within 1e-8 of the CPU's after 20 steps.
 """
 
 import numpy as np
@@ -808,3 +813,92 @@ def test_multirhs_solve_on_card_matches_cpu(dev, operand, method, multi_rhs,
     rtol = 1e-3 if dtype == np.float32 else 1e-6
     np.testing.assert_allclose(Xg.cpu().numpy(), Xc.numpy(), rtol=rtol,
                                atol=rtol * float(Xc.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_amg_hierarchy_on_card_runs_kernels_and_matches_plain(dev, dtype):
+    """The card's hierarchy (DIA fine level: kernel 1 / K3; CWELL R and
+    tentative P: K4 / K5; dense small levels) against the same cycle with
+    the plain versions, within 1e-5 (f32) / 1e-12 (f64) of max|y|; the
+    block cycle's columns against the single cycles (gemm against gemv on
+    the dense levels: same bounds)."""
+    from tpu_sparse_torch.precond import amg as tamg
+    from tpu_sparse_torch.sparse.cwell import CWELL
+
+    A = gen.poisson3d_27pt(40, dtype=dtype, device=dev)
+    M = tamg.amg_preconditioner(A)
+    lv0 = M.hier.levels[0]
+    assert isinstance(lv0.R, CWELL) and isinstance(lv0.P, CWELL)
+    assert any(isinstance(lv.A, torch.Tensor) for lv in M.hier.levels)
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        A.shape[0]).astype(dtype)).to(dev)
+    sfx = "f32" if dtype == np.float32 else "f64"
+    before = {**cuda_spmv.LAUNCHES, **cuda_cwell.LAUNCHES}
+    y = M(b)
+    assert cuda_spmv.LAUNCHES["dia_spmv_" + sfx] > before["dia_spmv_" + sfx]
+    assert cuda_cwell.LAUNCHES["cwell_spmv_" + sfx] > \
+        before["cwell_spmv_" + sfx]
+    y0 = tamg.v_cycle(M.hier, b, pre_sweeps=1, post_sweeps=1, omega=0.9,
+                      plain=True)
+    bound = 1e-5 if dtype == np.float32 else 1e-12
+    assert _rel(y, y0) <= bound
+    B = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (A.shape[0], 4)).astype(dtype)).to(dev)
+    Y = M.matmat(B)
+    for j in range(4):
+        assert _rel(Y[:, j], M(B[:, j].contiguous())) <= bound
+
+
+@pytest.mark.parametrize("kw", [dict(backend="amg"),
+                                dict(backend="amg", accelerant=None),
+                                dict(M="amg"), dict(M="chebyshev"),
+                                dict(M="neumann"), dict(M="fsai"),
+                                dict(M="fsai2")],
+                         ids=["amg", "stationary", "M-amg", "chebyshev",
+                              "neumann", "fsai", "fsai2"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_preconditioned_solve_on_card_matches_cpu(dev, kw, dtype):
+    A = gen.poisson3d_27pt(16, dtype=dtype, device="cpu")
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        A.shape[0]).astype(dtype))
+    tol = 1e-6 if dtype == np.float32 else 1e-10
+    kw = dict(kw, tol=tol, precision="full", maxiter=500)
+    xc, rc = tpu_sparse_torch.solve(A, b, **kw)
+    xg, rg = tpu_sparse_torch.solve(A.to(dev), b.to(dev), **kw)
+    assert rc.converged and rg.converged
+    slack = 2 if dtype == np.float64 else max(5, rc.iterations // 5)
+    assert abs(rc.iterations - rg.iterations) <= slack
+    rtol = 1e-3 if dtype == np.float32 else 1e-8
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=rtol,
+                               atol=rtol * float(xc.abs().max()))
+
+
+def test_block_amg_solve_on_card_runs_spmm(dev):
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    W = csr_to_cwell(to_csr(gen.poisson3d_27pt(24, device=dev)))
+    B = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (W.shape[0], 4)).astype(np.float32)).to(dev)
+    before = cuda_cwell.LAUNCHES["cwell_spmm_f32"]
+    X, res = tpu_sparse_torch.solve(W, B, backend="amg", tol=1e-6)
+    assert res.converged and res.backend == "amg"
+    assert cuda_cwell.LAUNCHES["cwell_spmm_f32"] > before
+    r = B - ref.cwell_spmm(W, X)
+    assert float((r.norm(dim=0) / B.norm(dim=0)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "amg", "fsai"])
+def test_ldc_on_card_matches_cpu(dev, precond):
+    from tpu_sparse_torch.apps import ldc
+
+    kw = dict(nx=24, Re=400.0, precond=precond)
+    card = ldc.LDCSolver(ldc.LDCConfig(device="cuda", **kw))
+    cpu = ldc.LDCSolver(ldc.LDCConfig(device="cpu", **kw))
+    before = cuda_spmv.LAUNCHES["dia_spmv_f64"]
+    card.run(20)
+    cpu.run(20)
+    assert cuda_spmv.LAUNCHES["dia_spmv_f64"] > before
+    for name in ("u", "v", "p"):
+        assert float((getattr(card, name).cpu()
+                      - getattr(cpu, name)).abs().max()) <= 1e-8

@@ -1,8 +1,8 @@
 """Capability detection and reporting.
 
-Counterpart of ``tpu_sparse/api/availability.py``. This slice offers the
-``krylov`` backend only; AMG and direct solvers are later queue items.
-No probe result is cached, so a transient failure is never pinned for the
+Counterpart of ``tpu_sparse/api/availability.py``. The ``krylov`` and
+``amg`` backends are ported; direct solvers are a later queue item
+(ROADMAP queue 1, item 16). No probe result is cached, so a transient failure is never pinned for the
 life of the process (the fault R1 that the JAX probes' ``lru_cache`` had).
 """
 
@@ -22,18 +22,37 @@ def check_krylov_available() -> bool:
     return True
 
 
+def check_amg_available() -> bool:
+    """AMG: a live probe, as in the JAX package: the hierarchy of a
+    16-unknown Poisson matrix on the CPU and one V-cycle. It builds the
+    host C++ set-up on first use, so a missing compiler shows here."""
+    try:
+        from tpu_sparse_torch.precond.amg import amg_preconditioner
+        from tpu_sparse_torch.sparse.generators import poisson2d
+
+        A = poisson2d(4, device="cpu")
+        M = amg_preconditioner(A, coarse_size=4)
+        return bool(torch.all(torch.isfinite(M(torch.ones(16,
+                                                          dtype=A.dtype)))))
+    except Exception:
+        return False
+
+
 def check_cuda_available() -> bool:
     return torch.cuda.is_available()
 
 
 def get_available_backends() -> List[str]:
-    return ["krylov"] if check_krylov_available() else []
+    out = ["krylov"] if check_krylov_available() else []
+    if check_amg_available():
+        out.append("amg")
+    return out
 
 
 def availability_dict() -> Dict[str, bool]:
     return {
         "krylov": check_krylov_available(),
-        "amg": False,
+        "amg": check_amg_available(),
         "direct": False,
         "cuda": check_cuda_available(),
         "distributed": False,
@@ -49,7 +68,7 @@ def print_availability_report(verbose: bool = True) -> Dict[str, bool]:
         "=" * 40,
         f"  device             : {device}",
         f"  krylov solvers     : {'yes' if avail['krylov'] else 'NO'}",
-        "  AMG preconditioner : not in this slice",
+        f"  AMG preconditioner : {'yes' if avail['amg'] else 'NO'}",
         "  direct solvers     : not in this slice",
         f"  CUDA kernels       : {'yes' if avail['cuda'] else 'no (plain CPU path)'}",
     ]

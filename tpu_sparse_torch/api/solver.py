@@ -2,9 +2,12 @@
 
 Counterpart of ``tpu_sparse/api/solver.py`` for the slice this package
 ports: the ``krylov`` backend with methods ``cg``, ``bicgstab`` and
-``gmres``, no preconditioner or Jacobi, on any operand (a CWELL pack runs
-every matvec on K4 / K5), ``reorder="rcm"``, with the extended-layout CUDA
-fast paths for square DIA systems:
+``gmres`` on any operand (a CWELL pack runs every matvec on K4 / K5), the
+``amg`` backend (AMG-preconditioned CG, or with ``accelerant=None`` the
+stationary V-cycle iteration), the preconditioners ``M="jacobi" | "amg" |
+"chebyshev" | "neumann" | "fsai" | "fsai2"`` (built once per matrix
+content and cached), ``reorder="rcm"``, with the extended-layout CUDA
+fast paths for square DIA systems (M None or Jacobi):
 
 * float32 ``b`` on CUDA: ``autodiff.implicit.ext_run`` (fused CG kernels,
   K10 for bicgstab without x0 and M, else the method's loop over kernel 1);
@@ -45,9 +48,9 @@ import torch
 from tpu_sparse_torch.api import availability
 from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.kernels.cuda_spmv import extendable
-from tpu_sparse_torch.precond.jacobi import (DiagonalPreconditioner,
-                                             jacobi_preconditioner)
+from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
 from tpu_sparse_torch.sparse.containers import DIA, is_sparse, values
+from tpu_sparse_torch.utils.opcache import OperandCache
 from tpu_sparse_torch.utils.tree import tree_norm, tree_sub
 
 _BACKEND_ALIASES = {
@@ -67,11 +70,9 @@ _DEFERRED_METHODS = {
     "fcg": _Q1 + "14 (other solvers)",
     "minres": _Q1 + "14 (other solvers)",
     "fgmres": _Q1 + "14 (other solvers)",
-    "amg": _Q1 + "15 (preconditioners and AMG)",
     "direct": _Q1 + "16 (direct solvers)",
 }
 _DEFERRED_BACKENDS = {
-    "amg": _Q1 + "15 (preconditioners and AMG)",
     "direct": _Q1 + "16 (direct solvers)",
 }
 _PRECOND_NAMES = ("jacobi", "fsai", "fsai2", "chebyshev", "neumann", "ilu0",
@@ -161,6 +162,9 @@ class SparseSolver:
         self.default_backend = default_backend
         self.default_method = default_method
         self._available: Optional[List[str]] = None
+        # built preconditioners, per matrix content (JAX sizes)
+        self._m_cache = OperandCache(max_entries=16)
+        self._amg_cache = OperandCache(max_entries=8)
 
     @property
     def available_backends(self) -> List[str]:
@@ -185,8 +189,12 @@ class SparseSolver:
                     f"Backend '{backend}' is not available. "
                     f"Available backends: {available}")
             return backend, method
-        if method in ("direct", "amg"):
+        if method == "direct":
             raise _not_ported(f"method '{method}'", _DEFERRED_METHODS[method])
+        if method == "amg":
+            if "amg" not in available:
+                raise ValueError("AMG backend is not available.")
+            return "amg", "amg"
         return "krylov", method
 
     def solve(self, A: Union[Any, Callable], b: torch.Tensor,
@@ -205,7 +213,16 @@ class SparseSolver:
         a matrix operand, 'full' otherwise. 'full' is differentiable in b
         and a matrix operand's values (one adjoint solve); 'mixed' is not.
 
-        M: None, a preconditioner callable, or 'jacobi'.
+        M: None, a preconditioner callable, or one of the names 'jacobi' |
+        'amg' | 'chebyshev' | 'neumann' | 'fsai' | 'fsai2' (built once per
+        matrix content and cached; 'ilu0' is not ported yet). A non-diagonal
+        M leaves the extended DIA fast paths for the method's loop.
+
+        backend='amg' (or method='amg') solves with AMG-preconditioned CG;
+        ``accelerant=None`` runs the stationary V-cycle iteration instead
+        (AMGX's 0 pre / 3 post sweeps unless given). Other keyword
+        arguments are the AMG set-up's and sweeps' (``theta``,
+        ``pre_sweeps``, ...); maxiter defaults to 100 and M is ignored.
 
         reorder: 'rcm' symmetrically permutes the system with a
         reverse-Cuthill-McKee ordering (on the host, cached per matrix
@@ -238,18 +255,20 @@ class SparseSolver:
         method = method or self.default_method
         backend = backend or self.default_backend
         sel_backend, sel_method = self._select_backend(backend, method)
-        if sel_method in _DEFERRED_METHODS:
-            raise _not_ported(f"method '{sel_method}'",
-                              _DEFERRED_METHODS[sel_method])
-        if sel_method not in _KRYLOV_METHODS:
-            raise ValueError(f"unknown krylov method: {sel_method}")
+        multi_rhs = kwargs.pop("multi_rhs", "auto")
+        if sel_backend == "krylov":
+            if sel_method in _DEFERRED_METHODS:
+                raise _not_ported(f"method '{sel_method}'",
+                                  _DEFERRED_METHODS[sel_method])
+            if sel_method not in _KRYLOV_METHODS:
+                raise ValueError(f"unknown krylov method: {sel_method}")
         _check_in_slice(A, b, x0, M)
         multi = isinstance(b, torch.Tensor) and b.dim() == 2
         if precision == "auto":
             # an explicit multi_rhs='block' keeps full precision: the mixed
             # multi-RHS path is the batched refinement (JAX router :240-246)
             precision = ("mixed" if _auto_mixed_ok(A, b, tol, sel_backend)
-                         and kwargs.get("multi_rhs") != "block" else "full")
+                         and multi_rhs != "block" else "full")
         if multi and _requires_grad(A, b, x0, M):
             raise ValueError(
                 "a multi-RHS solve is not differentiable: the JAX package "
@@ -264,13 +283,25 @@ class SparseSolver:
         if self.verbose:
             print(f"[SparseSolver] backend={sel_backend} "
                   f"method={sel_method} precision={precision}")
-        if isinstance(M, str):
+        if M is not None and sel_backend == "amg":
+            # AMG builds its own preconditioner: say that M is dropped
+            warnings.warn(
+                f"M is ignored for backend='amg' (method='{sel_method}'); "
+                "use a krylov method to apply a preconditioner.",
+                stacklevel=2)
+            M = None
+        elif isinstance(M, str):
             M = self._precond_M(A, M)
         if multi:
             return self._solve_multirhs(
                 A, b, x0, sel_backend, sel_method, tol, atol, maxiter, M,
-                restart, solve_method, precision,
-                kwargs.get("multi_rhs", "auto"))
+                restart, solve_method, precision, multi_rhs, kwargs)
+        if sel_backend == "amg":
+            x, info, iters, res, rel = self._solve_amg(
+                A, b, x0, tol, atol, maxiter, **kwargs)
+            return x, SolverResult(x=x, converged=(info == 0),
+                                   iterations=iters, residual=rel,
+                                   backend=sel_backend, method=sel_method)
 
         kw = dict(tol=tol, atol=atol, maxiter=maxiter)
         if sel_method == "gmres":
@@ -287,27 +318,84 @@ class SparseSolver:
         return x, result
 
     def _precond_M(self, A, spec: str):
-        """Resolve a string preconditioner name."""
+        """Resolve a string preconditioner name to a preconditioner built
+        once per matrix content (JAX ``_precond_M``)."""
         name = spec.lower()
         if name not in _PRECOND_NAMES:
             raise ValueError(
                 f"unknown preconditioner '{spec}'; available: "
                 f"{', '.join(_PRECOND_NAMES)}")
-        if name != "jacobi":
-            raise _not_ported(f"M='{spec}'",
-                              _Q1 + "15 (preconditioners and AMG)")
-        if callable(A) and not is_sparse(A) \
-                and not isinstance(A, torch.Tensor):
+        if _matrix_free(A):
             raise ValueError(
                 f"M='{spec}' needs a matrix operand to build from; "
                 "matrix-free callables must pass M as a callable")
-        return jacobi_preconditioner(A)
+        if name == "amg":
+            return self._amg_M(A)
+
+        def build():
+            from tpu_sparse_torch import precond as P
+
+            if name == "jacobi":
+                return P.jacobi_preconditioner(A)
+            if name == "fsai":
+                return P.fsai_preconditioner(A)
+            if name == "fsai2":
+                return P.fsai_preconditioner(A, pattern_power=2)
+            if name == "chebyshev":
+                return P.chebyshev_preconditioner(A)
+            if name == "neumann":
+                return P.neumann_preconditioner(A)
+            return P.ilu0_preconditioner(A)  # raises: ROADMAP item 16
+
+        return self._m_cache.get_or_build(A, build, extra=(name,))
+
+    def _amg_M(self, A, **kwargs):
+        """The AMG preconditioner of A for the set-up and sweep options
+        ``kwargs``. The hierarchy (a host graph phase) is built once per
+        matrix content and set-up options; the sweep options only wrap it,
+        so the stationary and the CG routes share one set-up."""
+        from tpu_sparse_torch.precond.amg import (SWEEP_OPTIONS,
+                                                  AMGPreconditioner,
+                                                  amg_setup)
+
+        if _matrix_free(A):
+            raise ValueError("AMG needs a matrix operand to build its "
+                             "hierarchy from, not a matrix-free callable")
+        sweeps = {k: kwargs.pop(k) for k in SWEEP_OPTIONS if k in kwargs}
+        hier = self._amg_cache.get_or_build(
+            A, lambda: amg_setup(A, **kwargs),
+            extra=tuple(sorted(kwargs.items())))
+        return AMGPreconditioner(hier, **sweeps)
+
+    def _solve_amg(self, A, b, x0, tol, atol, maxiter, **kwargs):
+        """backend='amg' (JAX ``_solve_amg``): CG with the V-cycle as M
+        (``accelerant='cg'``, the default), or the stationary iteration
+        x <- x + V(b - A x) with AMGX's 0 / 3 / omega = 1 sweeps
+        (``accelerant=None``)."""
+        from tpu_sparse_torch.autodiff import cg_diff
+        from tpu_sparse_torch.precond.amg import amg_stationary_solve
+
+        accelerant = kwargs.pop("accelerant", "cg")
+        maxiter = maxiter if maxiter is not None else 100
+        if accelerant in (None, "none"):
+            if _requires_grad(A, b, x0, None):
+                raise ValueError(
+                    "the stationary AMG iteration (accelerant=None) is not "
+                    "differentiable; use the default accelerant='cg'")
+            kwargs.setdefault("pre_sweeps", 0)
+            kwargs.setdefault("post_sweeps", 3)
+            kwargs.setdefault("omega", 1.0)
+            x, info, iters, res = amg_stationary_solve(
+                A, b, x0, tol=tol, atol=atol, maxiter=maxiter,
+                precond=self._amg_M(A, **kwargs))
+            return x, info, iters, res, res / _safe_norm(b)
+        out = cg_diff(A, b, x0, tol=tol, atol=atol, maxiter=maxiter,
+                      M=self._amg_M(A, **kwargs))
+        return out + (_relative_residual(A, b, out[0]),)
 
     def _reorder_cached(self, A):
         """(A_rcm as CSR, perm, inverse perm) for a matrix operand, cached
         per matrix content. The permuted matrix lives on A's device."""
-        from tpu_sparse_torch.utils.opcache import OperandCache
-
         cached = getattr(self, "_reorder_cache", None)
         if cached is None:
             cached = self._reorder_cache = OperandCache(max_entries=8)
@@ -339,8 +427,7 @@ class SparseSolver:
         as CSR, as in the JAX package."""
         if reorder != "rcm":
             raise ValueError(f"unknown reorder '{reorder}'; use 'rcm'")
-        if callable(A) and not is_sparse(A) \
-                and not isinstance(A, torch.Tensor):
+        if _matrix_free(A):
             raise ValueError("reorder requires a matrix operand, not a "
                              "matrix-free callable")
         if M is not None and not isinstance(M, str):
@@ -384,10 +471,12 @@ class SparseSolver:
 
     def _solve_multirhs(self, A, B, X0, sel_backend, method, tol, atol,
                         maxiter, M, restart, solve_method, precision,
-                        multi_rhs):
+                        multi_rhs, amg_kwargs):
         """(n, k) right-hand sides (JAX ``_solve_multirhs``): block CG for
         CG with a preconditioner ('auto') or on request, the batched
-        solvers otherwise; precision='mixed' runs the batched refinement."""
+        solvers otherwise; precision='mixed' runs the batched refinement.
+        backend='amg' solves with CG and the V-cycle as M (its ``matmat``:
+        one SpMM per level operator), maxiter 100 by default."""
         from tpu_sparse_torch.solvers import (batch_bicgstab, batch_cg,
                                               batch_gmres, batch_refined,
                                               block_cg)
@@ -395,6 +484,11 @@ class SparseSolver:
         if multi_rhs not in ("auto", "block", "batch"):
             raise ValueError(f"unknown multi_rhs '{multi_rhs}'; use "
                              "'auto', 'block', or 'batch'")
+        report_method = method
+        if sel_backend == "amg":
+            M = self._amg_M(A, **amg_kwargs)
+            maxiter = maxiter if maxiter is not None else 100
+            method = "cg"
         kw = dict(tol=tol, atol=atol, maxiter=maxiter, M=M)
         if method == "gmres":
             kw.update(restart=restart, solve_method=solve_method)
@@ -422,7 +516,7 @@ class SparseSolver:
                                               torch.ones_like(bn)))
         result = SolverResult(x=X, converged=torch.all(infos == 0),
                               iterations=iters, residual=rel,
-                              backend=sel_backend, method=method)
+                              backend=sel_backend, method=report_method)
         return X, result
 
     def cg(self, A, b, **kw):
@@ -433,6 +527,12 @@ class SparseSolver:
 
     def gmres(self, A, b, **kw):
         return self.solve(A, b, method="gmres", **kw)
+
+
+def _matrix_free(A) -> bool:
+    """A matrix-free callable operator (not a container or a tensor)."""
+    return callable(A) and not is_sparse(A) \
+        and not isinstance(A, torch.Tensor)
 
 
 def _tensors(A, b, x0, M) -> list:
@@ -477,7 +577,7 @@ def _auto_mixed_ok(A, b, tol: float, sel_backend: str) -> bool:
     and a reachable tolerance run defect correction."""
     if sel_backend != "krylov" or tol < 1e-12:
         return False
-    if callable(A) and not is_sparse(A) and not isinstance(A, torch.Tensor):
+    if _matrix_free(A):
         return False  # matrix-free callables cannot be precision-cast
     return getattr(b, "dtype", None) == torch.float64
 

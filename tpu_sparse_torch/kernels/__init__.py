@@ -16,8 +16,9 @@ are plain PyTorch on every device, as the JAX package left them to XLA
 / of an (n, k) block. The JAX package batches its multi-RHS solvers with
 ``vmap`` and routes a batched matvec to its SpMM (``batch_safe_matvec``);
 the port has no ``vmap``, so its batched solvers call ``as_matmat``, whose
-product is one ``spmm``, directly. A callable operator is applied column
-by column, which is what the JAX ``vmap`` of it means.
+product is one ``spmm``, directly. A preconditioner with a ``matmat``
+method applies it to the whole block; any other callable operator is
+applied column by column, which is what the JAX ``vmap`` of it means.
 """
 
 from __future__ import annotations
@@ -141,8 +142,10 @@ def as_matmat(A) -> Callable:
     """Normalize an operator into a function of an (n, k) block (JAX
     ``block._as_matmat``): None is the identity, a container or a dense
     matrix one ``spmm``, a Jacobi preconditioner one row scaling (what the
-    JAX ``vmap`` of its diagonal product computes), and any other callable
-    its product column by column."""
+    JAX ``vmap`` of its diagonal product computes), an operator with a
+    ``matmat`` method (the AMG, Chebyshev, Neumann and FSAI
+    preconditioners: one SpMM per product) that method, and any other
+    callable its product column by column."""
     from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
 
     if A is None:
@@ -151,6 +154,8 @@ def as_matmat(A) -> Callable:
         return lambda V: spmm(A, V)
     if isinstance(A, DiagonalPreconditioner):
         return lambda V: A.dinv[:, None] * V
+    if callable(getattr(A, "matmat", None)):
+        return A.matmat
     if callable(A):
         return lambda V: torch.stack([A(V[:, j]) for j in range(V.shape[1])],
                                      dim=1)

@@ -1,11 +1,13 @@
-"""Diagonal (Jacobi) preconditioner and diagonal extraction.
+"""Diagonal (Jacobi) preconditioner, diagonal and row-L1 extraction.
 
 Counterpart of ``tpu_sparse/precond/jacobi.py``. ``jacobi_preconditioner``
 returns a ``DiagonalPreconditioner``, which the router and the extended
 fast path recognise as a diagonal (as the JAX router recognises
 ``Partial(_apply_diag, dinv)``). ``diagonal`` also reads CWELL and
 CWELLSeg packs, which the JAX ``diagonal`` refuses with a TypeError
-(ROADMAP queue 3, R6).
+(ROADMAP queue 3, R6). ``l1_jacobi_diag`` (the L1-Jacobi smoother's
+diagonal) is computed on the operand's device from its values, off the
+pack for CWELL and CWELLSeg.
 """
 
 from __future__ import annotations
@@ -39,6 +41,33 @@ def diagonal(A) -> torch.Tensor:
         out = A.data.new_zeros(A.shape[0])
         return out.index_add_(0, A.row.long(), A.data * mask)
     return torch.diagonal(A)
+
+
+def l1_jacobi_diag(A) -> torch.Tensor:
+    """The L1-Jacobi smoother diagonal d_i = sum_j |a_ij| (row L1 norm),
+    as the AMGX JACOBI_L1 smoother of the reference (torch_amgx.py:50-73).
+    DIA sums every stored entry, as the JAX function does."""
+    if isinstance(A, DIA):
+        return torch.sum(torch.abs(A.data), dim=0)
+    if isinstance(A, CWELL):
+        return _cwell_l1(A)[:A.shape[0]]
+    if isinstance(A, CWELLSeg):
+        out = A.segments[0].vals.new_zeros(A.shape[0])
+        for W, r0 in zip(A.segments, A.rstarts):
+            out[r0:r0 + W.shape[0]] += _cwell_l1(W)[:W.shape[0]]
+        return out
+    if isinstance(A, CSR):
+        A = A.tocoo()
+    if isinstance(A, COO):
+        out = A.data.new_zeros(A.shape[0])
+        return out.index_add_(0, A.row.long(), torch.abs(A.data))
+    return torch.sum(torch.abs(A), dim=1)
+
+
+def _cwell_l1(W: CWELL) -> torch.Tensor:
+    """Per packed row, the sum of |value| over its slots (padding slots
+    hold 0); one value per row of the n_blocks * 128 padded rows."""
+    return torch.sum(torch.abs(W.vals), dim=1).reshape(-1)
 
 
 def _cwell_diagonal(W: CWELL, r0: int, j0: int) -> torch.Tensor:

@@ -76,12 +76,15 @@ def _cast_operator(A, dtype, outer_dtype=torch.float64):
 
 
 def _cast_precond(M, dtype):
+    """M for the inner sweeps: a matrix cast like the operator, and any
+    preconditioner object with ``.to`` (Jacobi, AMG, Chebyshev, Neumann,
+    FSAI) cast by it, as JAX casts the float leaves of a ``Partial``."""
     if M is None:
         return None
-    if isinstance(M, DiagonalPreconditioner):
-        return M.to(dtype)
     if is_sparse(M) or isinstance(M, torch.Tensor):
         return _cast_operator(M, dtype)
+    if callable(getattr(M, "to", None)):
+        return M.to(dtype)
     return M  # a plain callable carries no tensors to cast
 
 

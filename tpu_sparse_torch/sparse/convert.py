@@ -2,7 +2,8 @@
 
 Counterpart of ``tpu_sparse/sparse/convert.py``. Conversions are set-up
 work with data-dependent shapes; those that run at the size of the matrix
-on the main path (``dense_to_csr`` of a tensor, ``csr_to_dia``) are torch
+on the main path (``dense_to_csr`` of a tensor, ``csr_to_dia``,
+``dia_to_csr_arrays``, which the AMG set-up reads) are torch
 ops on the input's device, the rest run in numpy or scipy on the host.
 ``dia_from_numpy``, ``cwell_from_numpy``, ``bsr_from_arrays`` and
 ``bell_from_numpy`` carry a DIA, CWELL, BSR or BELL matrix across from any
@@ -25,6 +26,11 @@ def _np(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype (float32 -> float32, ...)."""
+    return np.dtype(str(dtype).replace("torch.", ""))
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -149,31 +155,30 @@ def coo_to_csr(A: COO) -> CSR:
 
 
 def dia_to_csr_arrays(A: DIA):
-    """Vectorized host DIA -> CSR (numpy): (data, indices, indptr).
+    """DIA -> CSR arrays (data, indices, indptr) as tensors on the DIA's
+    device, built by torch ops with no loop over rows.
 
     Keeps explicit in-band zeros (pattern semantics, like ``DIA.tocoo``)
     and emits sorted column indices per row: with offsets sorted, the
     diagonals valid at row i are the contiguous range [lo(i), hi(i)).
+    indptr is int32 when nnz fits, else int64.
     """
-    data = _np(A.data)
     n, m = A.shape
-    offs = np.asarray(A.offsets, dtype=np.int64)
-    order = np.argsort(offs, kind="stable")
-    offs_s = offs[order]
-    i = np.arange(n, dtype=np.int64)
-    lo = np.searchsorted(offs_s, -i)
-    hi = np.searchsorted(offs_s, m - i)
-    indptr = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(hi - lo, out=indptr[1:])
-    dataT = data.T[:, order] if order.size else data.T
-    k = np.arange(offs_s.size)
+    dev = A.data.device
+    offs = torch.tensor(A.offsets, dtype=torch.int64, device=dev)
+    offs_s, order = torch.sort(offs, stable=True)
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    lo = torch.searchsorted(offs_s, -i)
+    hi = torch.searchsorted(offs_s, m - i)
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(hi - lo, 0)
+    k = torch.arange(offs_s.numel(), device=dev)
     mask = (k >= lo[:, None]) & (k < hi[:, None])
-    out = dataT[mask]
-    cols = np.arange(n, dtype=np.int32)[:, None] + offs_s.astype(np.int32)
-    indices = cols[mask]
-    if indptr[-1] <= np.iinfo(np.int32).max:
-        indptr = indptr.astype(np.int32)
-    return out, indices, indptr
+    data = A.data.T[:, order][mask]
+    cols = (i.to(torch.int32)[:, None] + offs_s.to(torch.int32))[mask]
+    if n == 0 or int(indptr[-1]) <= np.iinfo(np.int32).max:
+        indptr = indptr.to(torch.int32)
+    return data, cols, indptr
 
 
 def to_scipy_csr(A):
@@ -182,7 +187,8 @@ def to_scipy_csr(A):
     import scipy.sparse as sp
 
     if isinstance(A, DIA):
-        data, indices, indptr = dia_to_csr_arrays(A)
+        # built on the DIA's device, copied to the host once per array
+        data, indices, indptr = (_np(t) for t in dia_to_csr_arrays(A))
         S = sp.csr_matrix((data, indices, indptr), shape=A.shape)
         S.has_sorted_indices = True
         return S
@@ -208,11 +214,7 @@ def to_csr(A) -> CSR:
     if isinstance(A, COO):
         return coo_to_csr(A)
     if isinstance(A, DIA):
-        data, indices, indptr = dia_to_csr_arrays(A)
-        dev = A.data.device
-        return CSR(torch.from_numpy(np.ascontiguousarray(data)).to(dev),
-                   torch.from_numpy(indices).to(dev),
-                   torch.from_numpy(indptr).to(dev), A.shape)
+        return CSR(*dia_to_csr_arrays(A), A.shape)
     if isinstance(A, BSR):
         return coo_to_csr(A.tocoo())
     if hasattr(A, "tocsr"):  # CWELL, CWELLSeg, BELL (zero slots dropped)
