@@ -52,7 +52,19 @@ counters set to 0 just before it and read just after:
   same cycle on the plain versions and the block V-cycle against the
   single ones, and times the cycle by level; phase (21) runs the
   lid-driven cavity (``tpu_sparse_torch.apps.ldc``, float64: K3) on the
-  card against the CPU at nx = 64 and at nx = 256 for 500 steps.
+  card against the CPU at nx = 64 (200 steps) and at nx = 256 for 500
+  steps;
+* phases (22)-(23): single-reduction CG, FCG (M None and the AMG V(0,3)
+  cycle), MINRES on the shifted, indefinite Poisson system and FGMRES(20)
+  (M None and V(0,3)) through ``solve()`` on the 160^3 DIA systems
+  (kernel 1) and CWELL packs (K4), f64 ``"auto"`` at 64^3, each beside
+  its yardstick (the fused CG, AMG-PCG, GMRES(20)); their batched forms
+  with B of 8 columns on the CWELL packs (every matvec one K6/K7 launch,
+  every column against its single-RHS solve); the adjoint of the four
+  methods at 32^3 on the card against the CPU; gradients through
+  matrix-free callables (K4 with ``A_transpose``, a torch-op stencil
+  closing over a coefficient, and the error a callable without a
+  transpose raises).
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
@@ -108,8 +120,12 @@ def check(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
+_START = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"\n== {title}", flush=True)
+    print(f"\n== {title}   [{time.perf_counter() - _START:.0f} s]",
+          flush=True)
 
 
 def rel_err(y, y0) -> float:
@@ -791,15 +807,17 @@ def main() -> int:
               flush=True)
 
     # ---- (12)-(14) the general-structure path (CWELL, K4 / K5) ------------
-    def times(fn, inner):
-        ts = cuda_times_ms(fn, warmup=1 if inner == 1 else 2, reps=5,
-                           inner=inner)
+    def times(fn, inner, reps=5, warmup=None):
+        if warmup is None:
+            warmup = 1 if inner == 1 else 2
+        ts = cuda_times_ms(fn, warmup=warmup, reps=reps, inner=inner)
         return float(np.median(ts)), min(ts), max(ts)
 
     systems = general_structure_phases(
         dev, MAIN_NX, note=note, counts=counts, reset_counts=reset_counts,
         main_runs=main_runs, times=times, cg_dia_iters=solves[None],
         A_cg=A_cg, b_cg=b_cg, A_cd=A, b_cd=b)
+    systems.update(b=b_cg, b_cd=b)  # for phases (22)-(23)
     del A, b, A_cg, b_cg, A64, b64, A64_cg, op, bx
     torch.cuda.empty_cache()
 
@@ -808,13 +826,20 @@ def main() -> int:
     multirhs_phases(dev, systems, note=note, counts=counts,
                     reset_counts=reset_counts, main_runs=main_runs,
                     times=times, results=results, edge_errs=errs)
-    for k in ("A", "WC", "W64", "A_cd", "A64_dia"):
+    for k in ("A", "W64", "A64_dia"):
         del systems[k]
     torch.cuda.empty_cache()
 
     # ---- (19)-(21) AMG, the preconditioners and the lid-driven cavity ----
     amg_phases(dev, systems, counts=counts, reset_counts=reset_counts,
                main_runs=main_runs, times=times, cg_iters=solves[None])
+
+    # ---- (22)-(23) single-reduction CG, FCG, MINRES, FGMRES; callables ---
+    more_solver_phases(dev, systems, counts=counts,
+                       reset_counts=reset_counts, main_runs=main_runs,
+                       times=times, cg_iters=solves[None])
+    systems.clear()
+    torch.cuda.empty_cache()
 
     # ---- results -----------------------------------------------------------
     src_spmv = "tpu_sparse_torch/csrc/dia_spmv.cu"
@@ -1717,7 +1742,6 @@ def amg_phases(dev, g, *, counts, reset_counts, main_runs, times, cg_iters,
     (``A_dia`` the f32 DIA, ``W`` its CWELL pack); ``cg_iters``: the plain
     CG iterations of phase (4)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import tpu_sparse_torch
     from tpu_sparse_torch.apps import ldc as tldc
@@ -1949,34 +1973,9 @@ def amg_phases(dev, g, *, counts, reset_counts, main_runs, times, cg_iters,
         t = times(lambda: solver.solve(op, rhs, **kw), 1)
         print(f"  solve {label:44s} {fmt(t)} (set-up cached)", flush=True)
     # the device's busy share of one AMG-PCG solve
-    run = lambda: solver.solve(A, b, backend="amg", tol=1e-6)  # noqa: E731
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        run()
-        e1.record()
-        torch.cuda.synchronize()
-    wall = e0.elapsed_time(e1)
-    dev_us = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            dev_us[e.key] = us
-    busy = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
-    share = (f"device busy {busy:.2f} ms ({busy / wall:.2f} of it)"
-             if busy > 0 else "device busy not measured (the profiler "
-             "recorded no device time)")
-    print(f"  AMG-PCG at {nx}^3 under torch.profiler: {wall:.2f} ms (CUDA "
-          f"events), {share}; by kernel (ms): " + "; ".join(
-              f"{k[:40]} {v / 1e3:.2f}" for k, v in top), flush=True)
-    del solver, As, bs, A64, b64, B, x, r, prof
+    print_busy(f"AMG-PCG at {nx}^3", device_busy(
+        lambda: solver.solve(A, b, backend="amg", tol=1e-6)))
+    del solver, As, bs, A64, b64, B, x, r
     torch.cuda.empty_cache()
 
     # ---- (21) the lid-driven cavity ------------------------------------
@@ -2022,6 +2021,438 @@ def amg_phases(dev, g, *, counts, reset_counts, main_runs, times, cg_iters,
           "K3 did not carry the LDC pressure solves")
     del s
     torch.cuda.empty_cache()
+
+def midpoint_shift(nx: int) -> float:
+    """sigma halfway between the two smallest eigenvalues of
+    poisson3d_27pt(nx) = 27 I - J (x) J (x) J, J = tridiag(1, 1, 1), whose
+    eigenvalues are 27 - prod_i (1 + 2 cos(pi k_i / (nx + 1)))."""
+    c1, c2 = (1 + 2 * np.cos(np.pi * k / (nx + 1)) for k in (1, 2))
+    return float(27 - c1 * c1 * (c1 + c2) / 2)
+
+
+def shifted(A, sigma: float):
+    """A - sigma I for a DIA matrix."""
+    data = A.data.clone()
+    data[A.offsets.index(0)] -= sigma
+    return A.with_data(data)
+
+
+def device_busy(run):
+    """One call of ``run`` under torch.profiler: (CUDA-event ms, device
+    busy ms or None when the profiler saw no device time, the six kernels
+    with the most device time as (name, ms))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        run()
+        e1.record()
+        torch.cuda.synchronize()
+    dev_us = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            dev_us[e.key] = us
+    busy = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    return (e0.elapsed_time(e1), busy if busy > 0 else None,
+            [(k, v / 1e3) for k, v in top])
+
+
+def print_busy(label, measured) -> None:
+    wall, busy, top = measured
+    share = (f"device busy {busy:.2f} ms ({busy / wall:.2f} of it)"
+             if busy is not None else "device busy not measured (the "
+             "profiler recorded no device time)")
+    print(f"  {label} under torch.profiler: {wall:.2f} ms (CUDA events), "
+          f"{share}; by kernel (ms): " + "; ".join(
+              f"{k[:40]} {v:.2f}" for k, v in top), flush=True)
+
+
+def more_solver_phases(dev, g, *, counts, reset_counts, main_runs, times,
+                       cg_iters, nx=MAIN_NX, small_nx=F64_NX, adj_nx=32,
+                       K=8):
+    """Phases (22)-(23): single-reduction CG, FCG, MINRES and FGMRES through
+    ``solve()`` at nx^3 (DIA: kernel 1; the CWELL packs: K4; f64 'auto' at
+    small_nx^3: kernel 1 and K3), each beside its yardstick; then the
+    batched forms on the CWELL packs with B of K columns (K6/K7), the
+    adjoint of the four methods at adj_nx^3 on the card against the CPU,
+    and gradients through matrix-free callables. ``g``: the systems of
+    phases (13)-(14) with the right-hand sides of phases (4) (``b``) and
+    (8) (``b_cd``); ``cg_iters``: the fused CG's iterations on ``b`` in
+    phase (4)."""
+    import torch
+
+    import tpu_sparse_torch
+    from tpu_sparse_torch import autodiff, kernels
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.precond import AMGPreconditioner, amg_preconditioner
+    from tpu_sparse_torch.solvers import cg_full
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A, W, A_cd, WC = g["A_dia"], g["W"], g["A_cd"], g["WC"]
+    b, b_cd = g["b"], g["b_cd"]
+    n = A.shape[0]
+    norm = torch.linalg.vector_norm
+    solve = tpu_sparse_torch.solve
+
+    def fmt(t):
+        return f"{t[0]:.2f} ms ({t[1]:.2f}-{t[2]:.2f})"
+
+    def rhs(op, dtype):
+        """b = op @ x_true, x_true from default_rng(SEED), by the plain
+        SpMV."""
+        x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            op.shape[0]).astype(dtype)).to(dev)
+        return ref.dia_spmv(op, x)
+
+    # ---- (22) set-up -----------------------------------------------------
+    sigma, sigma_s = midpoint_shift(nx), midpoint_shift(small_nx)
+    phase(f"(22) main path: method='cg_sr' | 'fcg' | 'minres' | 'fgmres' "
+          f"through solve() at {nx}^3 f32 (DIA and CWELL) and f64 'auto' at "
+          f"{small_nx}^3")
+    A_sh = shifted(A, sigma)
+    t0 = time.perf_counter()
+    W_sh = csr_to_cwell(to_csr(A_sh))
+    torch.cuda.synchronize()
+    print(f"  minres system A - sigma I, sigma = {sigma:.6f} (halfway between "
+          f"the two smallest eigenvalues {27 - (1 + 2 * np.cos(np.pi / (nx + 1))) ** 3:.6f} "
+          f"and {2 * sigma - 27 + (1 + 2 * np.cos(np.pi / (nx + 1))) ** 3:.6f}); "
+          f"its CWELL pack built in {time.perf_counter() - t0:.2f} s wall")
+    t0 = time.perf_counter()
+    M03 = amg_preconditioner(A, pre_sweeps=0, post_sweeps=3)
+    M03_cd = amg_preconditioner(A_cd, pre_sweeps=0, post_sweeps=3)
+    torch.cuda.synchronize()
+    print(f"  two AMG set-ups (V(0,3) cycles of both {nx}^3 systems) "
+          f"{time.perf_counter() - t0:.2f} s wall; levels "
+          f"{[lv.A.shape[0] for lv in M03.hier.levels]} and "
+          f"{[lv.A.shape[0] for lv in M03_cd.hier.levels]}")
+    M11 = AMGPreconditioner(M03.hier)  # backend='amg''s V(1,1): yardstick
+    A64 = gen.poisson3d_27pt(small_nx, dtype=np.float64, device=dev)
+    A64_sh = shifted(A64, sigma_s)
+    A64_cd = gen.convection_diffusion_3d_27pt(small_nx, dtype=np.float64,
+                                              device=dev)
+    b64, b64_cd = rhs(A64, np.float64), rhs(A64_cd, np.float64)
+    print(f"  f64 minres at {small_nx}^3: sigma = {sigma_s:.6f}")
+
+    f32, k1 = ("cwell_spmv_f32",), ("dia_spmv_f32",)
+    auto = ("dia_spmv_ext_f64", "dia_spmv_ext_f32")
+    dense = lambda op: (lambda v: ref.dia_spmv(op, v))  # noqa: E731
+    rows = [
+        # label, operand, rhs, solve() arguments, carriers, true residual
+        # bound (float32: the solvers' 10x relaxed contract), truth
+        ("cg_sr f32", A, b, dict(method="cg_sr", tol=1e-6, maxiter=500),
+         k1, 1e-5, dense(A)),
+        ("cg_sr f32 M=jacobi", A, b,
+         dict(method="cg_sr", M="jacobi", tol=1e-6, maxiter=500), k1, 1e-5,
+         dense(A)),
+        ("fcg f32", A, b, dict(method="fcg", tol=1e-6, maxiter=500), k1,
+         1e-5, dense(A)),
+        ("fcg f32 M=V(0,3)", A, b,
+         dict(method="fcg", M=M03, tol=1e-6, maxiter=500),
+         k1 + f32, 1e-5, dense(A)),
+        (f"minres f32 (A - {sigma:.4f} I)", A_sh, b,
+         dict(method="minres", tol=1e-5, maxiter=3000), k1, 1e-4,
+         dense(A_sh)),
+        ("fgmres(20) f32", A_cd, b_cd,
+         dict(method="fgmres", restart=20, tol=1e-6, maxiter=500), k1,
+         1e-5, dense(A_cd)),
+        ("fgmres(20) f32 M=V(0,3)", A_cd, b_cd,
+         dict(method="fgmres", restart=20, M=M03_cd, tol=1e-6,
+              maxiter=500), k1 + f32, 1e-5, dense(A_cd)),
+        (f"cg_sr f64 auto {small_nx}^3", A64, b64,
+         dict(method="cg_sr", tol=1e-8), auto, 1e-8, dense(A64)),
+        (f"fcg f64 auto {small_nx}^3", A64, b64,
+         dict(method="fcg", tol=1e-8), auto, 1e-8, dense(A64)),
+        (f"minres f64 auto {small_nx}^3", A64_sh, b64,
+         dict(method="minres", tol=1e-8), auto, 1e-8, dense(A64_sh)),
+        (f"fgmres(20) f64 auto {small_nx}^3", A64_cd, b64_cd,
+         dict(method="fgmres", restart=20, tol=1e-8), auto, 1e-8,
+         dense(A64_cd)),
+        ("cg_sr f32 on CWELL", W, b,
+         dict(method="cg_sr", tol=1e-6, maxiter=500), f32, 1e-5, dense(A)),
+        ("fcg f32 on CWELL", W, b, dict(method="fcg", tol=1e-6, maxiter=500),
+         f32, 1e-5, dense(A)),
+        ("minres f32 on CWELL", W_sh, b,
+         dict(method="minres", tol=1e-5, maxiter=3000), f32, 1e-4,
+         dense(A_sh)),
+        ("fgmres(20) f32 on CWELL", WC, b_cd,
+         dict(method="fgmres", restart=20, tol=1e-6, maxiter=500), f32,
+         1e-5, dense(A_cd)),
+    ]
+    solver = tpu_sparse_torch.SparseSolver()
+    reset_counts()  # the main-path run of this slice starts here
+    its = {}
+    for label, op, rhs_, kw, carriers, limit, truth in rows:
+        before = counts()
+        t0 = time.perf_counter()
+        x, res = solver.solve(op, rhs_, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        true_rel = float(norm(rhs_ - truth(x)) / norm(rhs_))
+        its[label] = res.iterations
+        print(f"  {label}: {res}; true rel res {true_rel:.2e}; first call "
+              f"{wall * 1e3:.1f} ms wall; launches {grew}", flush=True)
+        check(res.converged, f"{label} did not converge")
+        check(true_rel <= limit, f"{label}: true residual {true_rel}")
+        check(all(grew.get(k, 0) > 0 for k in carriers),
+              f"{label}: {carriers} did not carry the solve")
+        # a new pack builds its plan once; the AMG hierarchy's 14 CWELL
+        # operators build theirs in the first V(0,3) solve
+        on_pack = any(op is w for w in (W, W_sh, WC))
+        check(not on_pack or grew.get("plan_builds", 0) <= 1,
+              f"{label}: more than one compact plan built in the solve")
+    main_runs["phase (22)"] = counts()
+    print(f"  launches in the main-path run (phase 22): "
+          f"{main_runs['phase (22)']}")
+    # the yardsticks' iteration counts (not on the main path)
+    cg_plain = int(cg_full(A, b, tol=1e-6, maxiter=500)[2])
+    gm = solve(A_cd, b_cd, method="gmres", restart=20, tol=1e-6,
+               maxiter=500)[1].iterations
+    print(f"  iterations: cg_sr {its['cg_sr f32']} against the fused CG's "
+          f"{cg_iters}; fcg {its['fcg f32']} against cg_full's {cg_plain} "
+          f"on kernel 1; fgmres(20) {its['fgmres(20) f32']} cycles against "
+          f"gmres(20)'s {gm}")
+    check(abs(its["cg_sr f32"] - cg_iters) <= 2,
+          "cg_sr iterations differ from the fused CG's by more than 2")
+    check(abs(its["fcg f32"] - cg_plain) <= 2,
+          "fcg iterations differ from cg_full's by more than 2")
+    check(abs(its["fgmres(20) f32"] - gm) <= 1,
+          "fgmres cycles differ from gmres's by more than 1")
+
+    yard = {
+        "cg_sr f32": ("fused CG", lambda: solve(A, b, tol=1e-6,
+                                                maxiter=500)),
+        "fcg f32 M=V(0,3)": ("AMG-PCG (cg, V(1,1))", lambda: solve(
+            A, b, method="cg", M=M11, tol=1e-6, maxiter=100)),
+        "fgmres(20) f32": ("gmres(20)", lambda: solve(
+            A_cd, b_cd, method="gmres", restart=20, tol=1e-6,
+            maxiter=500)),
+    }
+    for label, op, rhs_, kw, _, _, _ in rows:
+        t = times(lambda: solver.solve(op, rhs_, **kw), 1)
+        line = f"  solve {label:34s} {fmt(t)}, {its[label]} it"
+        if label in yard:
+            name, fn = yard[label]
+            line += f";   {name} {fmt(times(fn, 1))}, {fn()[1].iterations} it"
+        print(line, flush=True)
+    print_busy(f"fcg + V(0,3) at {nx}^3", device_busy(
+        lambda: solver.solve(A, b, method="fcg", M=M03, tol=1e-6,
+                             maxiter=500)))
+    print_busy(f"minres at {nx}^3", device_busy(
+        lambda: solver.solve(A_sh, b, method="minres", tol=1e-5,
+                             maxiter=3000)))
+    del M03, M03_cd, M11, A64, A64_sh, A64_cd, b64, b64_cd, x, solver
+    torch.cuda.empty_cache()
+
+    # ---- (23) batched, adjoint, callables --------------------------------
+    phase(f"(23) batched solves with B of {K} columns on the {nx}^3 CWELL "
+          f"packs; the adjoint at {adj_nx}^3 on the card against the CPU; "
+          "gradients through matrix-free callables")
+    B = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (n, K)).astype(np.float32)).to(dev)
+    truth_mm = {id(W): lambda X: ref.dia_spmm(A, X),
+                id(WC): lambda X: ref.dia_spmm(A_cd, X)}
+    batched = [
+        ("fcg batched M=jacobi", W, dict(method="fcg", M="jacobi", tol=1e-6,
+                                         maxiter=500)),
+        ("minres batched", W, dict(method="minres", tol=1e-6,
+                                   maxiter=500)),
+        ("fgmres(20) batched", WC, dict(method="fgmres", restart=20,
+                                        tol=1e-6, maxiter=500)),
+    ]
+    reset_counts()  # the main-path run of this phase starts here
+    Xs = {}
+    for label, op, kw in batched:
+        before = counts()
+        X, res = solve(op, B, **kw)
+        torch.cuda.synchronize()
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        R = B - truth_mm[id(op)](X)
+        true_rel = float((norm(R, dim=0) / norm(B, dim=0)).max())
+        print(f"  {label}: {res}; worst column true rel res "
+              f"{true_rel:.2e}; launches {grew}", flush=True)
+        check(res.converged and true_rel <= 1e-5, f"{label} did not converge")
+        check(grew.get("cwell_spmm_f32", 0) > 0
+              and grew.get("cwell_spmv_f32", 0) == 0,
+              f"{label}: a matvec was not one K6/K7 launch")
+        Xs[label] = X
+    del R
+
+    # the adjoint of the four methods at adj_nx^3, card against CPU
+    rng = np.random.default_rng(SEED + 23)
+    adj = {"cg_sr": gen.poisson3d_27pt, "fcg": gen.poisson3d_27pt,
+           "minres": lambda m, **kw: shifted(gen.poisson3d_27pt(m, **kw),
+                                             midpoint_shift(m)),
+           "fgmres": gen.convection_diffusion_3d_27pt}
+    for method, make in adj.items():
+        Ac = make(adj_nx, device="cpu")
+        bc = torch.from_numpy(rng.standard_normal(Ac.shape[0]).astype(
+            np.float32))
+        # float32 MINRES and FGMRES stop short of 1e-6 on some adjoint
+        # systems (A^T v = 1): tol 1e-5, and FGMRES at most 100 cycles
+        tol = 1e-5 if method in ("minres", "fgmres") else 1e-6
+        maxiter = 100 if method == "fgmres" else 3000
+        for fmt_ in ("DIA", "CWELL"):
+            Ao = Ac if fmt_ == "DIA" else csr_to_cwell(to_csr(Ac))
+            grads = {}
+            for where in ("cpu", dev):
+                Aw = Ao.to(where)
+                vals = (Aw.data if fmt_ == "DIA" else Aw.vals).clone(
+                    ).requires_grad_()
+                bb = bc.to(where, copy=True).requires_grad_()
+                x, res = solve(Aw.with_data(vals), bb, method=method,
+                               tol=tol, maxiter=maxiter, precision="full")
+                before = counts()
+                x.sum().backward()
+                torch.cuda.synchronize()
+                grew = {k: v - before[k] for k, v in counts().items()
+                        if v != before[k]}
+                check(res.converged, f"{method} {fmt_} forward on {where}")
+                grads[where] = (vals.grad.cpu(), bb.grad.cpu(), grew)
+            gA, gb, grew = grads[dev]
+            eA = rel_err(gA, grads["cpu"][0])
+            eb = rel_err(gb, grads["cpu"][1])
+            print(f"  adjoint {method} on {fmt_}: backward launches on the "
+                  f"card {grew}; grad rel err card vs CPU: values {eA:.2e}, "
+                  f"b {eb:.2e}")
+            check(eA <= 5e-3 and eb <= 5e-3,
+                  f"{method} {fmt_} adjoint: card and CPU gradients differ")
+            carrier = "dia_spmv_f32" if fmt_ == "DIA" else "cwell_spmv_f32"
+            check(grew.get(carrier, 0) > 0,
+                  f"{method} {fmt_} backward did not launch {carrier}")
+
+    # (a) a callable that launches K4, with A_transpose from the transposed
+    # pack, against the matrix path on the same pack
+    C = to_csr(gen.convection_diffusion_3d_27pt(adj_nx, device=dev))
+    Wn, Wnt = csr_to_cwell(C), csr_to_cwell(to_csr(C.tocoo().T))
+    bn = torch.from_numpy(rng.standard_normal(Wn.shape[0]).astype(
+        np.float32)).to(dev)
+    A_fn = lambda v: kernels.spmv(Wn, v)  # noqa: E731
+    At_fn = lambda v: kernels.spmv(Wnt, v)  # noqa: E731
+    for method in ("bicgstab", "gmres"):
+        fn = getattr(autodiff, f"{method}_diff")
+        # float32 GMRES stagnates short of 1e-6 on the adjoint system
+        kw = dict(tol=1e-6, maxiter=500) if method == "bicgstab" \
+            else dict(tol=1e-5, maxiter=50)
+        out = []
+        for op, At in ((A_fn, At_fn), (Wn, None)):
+            bb = bn.clone().requires_grad_()
+            before = counts()
+            x, info, _, _ = fn(op, bb, A_transpose=At, **kw)
+            x.sum().backward()
+            torch.cuda.synchronize()
+            grew = counts()["cwell_spmv_f32"] - before["cwell_spmv_f32"]
+            check(int(info) == 0, f"callable {method} did not converge")
+            check(grew > 0, f"callable {method}: K4 did not carry it")
+            out.append((bb.grad, grew))
+        e = rel_err(out[0][0], out[1][0])
+        print(f"  (a) {method}_diff(lambda v: spmv(W, v), A_transpose=...): "
+              f"b.grad against the matrix path's {e:.2e}; K4 launches "
+              f"forward + backward {out[0][1]} (matrix path {out[1][1]})")
+        check(e <= 1e-3, f"callable {method}: b.grad differs from the "
+              "matrix path's")
+    # (c) the same callable without A_transpose: K4 has no backward
+    bb = bn.clone().requires_grad_()
+    x = autodiff.bicgstab_diff(A_fn, bb, tol=1e-6, maxiter=500)[0]
+    try:
+        x.sum().backward()
+        raised = None
+    except RuntimeError as err:
+        raised = str(err)
+    print(f"  (c) without A_transpose: backward raised "
+          f"{(raised or 'nothing')[:110]!r}")
+    check(raised is not None and "A_transpose=" in raised,
+          "a callable without a transpose did not raise naming A_transpose=")
+
+    # (b) a torch-op stencil callable closing over a coefficient tensor
+    def stencil(coef, v):
+        """(6 + coef) v - (the six neighbours of v) on an adj_nx^3 grid."""
+        m = adj_nx
+        u = v.reshape(m, m, m)
+        out = (6.0 + coef.reshape(m, m, m)) * u
+        for d in range(3):
+            lo = torch.narrow(u, d, 0, m - 1)
+            hi = torch.narrow(u, d, 1, m - 1)
+            pad = [0] * 6
+            pad[2 * (2 - d)] = 1
+            out = out - torch.nn.functional.pad(lo, pad)
+            pad = [0] * 6
+            pad[2 * (2 - d) + 1] = 1
+            out = out - torch.nn.functional.pad(hi, pad)
+        return out.reshape(-1)
+
+    coef0 = torch.from_numpy(rng.random(adj_nx ** 3).astype(np.float32))
+    bs = torch.from_numpy(rng.standard_normal(adj_nx ** 3).astype(
+        np.float32))
+    for method in ("cg", "minres"):
+        fn = getattr(autodiff, f"{method}_diff")
+        grads = {}
+        for where in ("cpu", dev):
+            coef = coef0.to(where, copy=True).requires_grad_()
+            bb = bs.to(where, copy=True).requires_grad_()
+            x, info, _, _ = fn(lambda v: stencil(coef, v), bb, tol=1e-6,
+                               maxiter=500)
+            check(int(info) == 0, f"stencil {method} on {where}")
+            x.sum().backward()
+            grads[where] = (coef.grad.cpu(), bb.grad.cpu())
+        ec = rel_err(grads[dev][0], grads["cpu"][0])
+        eb = rel_err(grads[dev][1], grads["cpu"][1])
+        print(f"  (b) {method}_diff on a torch-op stencil closing over a "
+              f"coefficient: grad rel err card vs CPU: coefficient "
+              f"{ec:.2e}, b {eb:.2e}")
+        check(ec <= 5e-3 and eb <= 5e-3,
+              f"stencil {method}: card and CPU gradients differ")
+    main_runs["phase (23)"] = counts()
+    print(f"  launches in the main-path run (phase 23): "
+          f"{main_runs['phase (23)']}")
+
+    # comparisons and times, after the main-path counts
+    for label, op, kw in batched:
+        def singles():
+            return [solve(op, B[:, j].contiguous(), **kw)[0]
+                    for j in range(K)]
+
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        xs = singles()
+        e1.record()
+        torch.cuda.synchronize()
+        worst = max(rel_err(Xs[label][:, j], xs[j]) for j in range(K))
+        print(f"  {label}: columns against their single-RHS solves: max rel "
+              f"difference {worst:.2e}")
+        # float32: K6/K7 and the column dot products sum in another order
+        # than K4 and torch.vdot, so a column crosses tol some iterations
+        # apart and its x differs at the level of the solve's error
+        check(worst <= 1e-3, f"{label}: columns differ from single solves")
+        ms = times(lambda: solve(op, B, **kw), 1, reps=3, warmup=0)
+        t1 = e0.elapsed_time(e1)
+        print(f"    batched {fmt(ms)};   {K} single-RHS solves {t1:.2f} ms "
+              f"(one run, the check's); ratio {t1 / ms[0]:.2f}", flush=True)
+    t = times(lambda: autodiff.bicgstab_diff(
+        A_fn, bn.clone().requires_grad_(), A_transpose=At_fn, tol=1e-6,
+        maxiter=500)[0].sum().backward(), 1)
+    t_m = times(lambda: autodiff.bicgstab_diff(
+        Wn, bn.clone().requires_grad_(), tol=1e-6,
+        maxiter=500)[0].sum().backward(), 1)
+    print(f"  bicgstab_diff forward + backward at {adj_nx}^3: callable with "
+          f"A_transpose {fmt(t)}; matrix path {fmt(t_m)}")
+    del W_sh, A_sh, Wn, Wnt, B, Xs
+    torch.cuda.empty_cache()
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -157,15 +157,23 @@ def test_mixed_path_refuses_gradients_like_jax():
 
 
 def test_callable_operands_are_forward_only():
+    """A matrix-free callable solves to the same x with and without
+    autograd, and (since the callable adjoint) its b.grad is the matrix
+    operand's."""
     At = tconvert.dia_from_numpy(np.asarray(jgen.tridiagonal(30).data),
                                  (-1, 0, 1), (30, 30), device="cpu")
     b = torch.ones(30, dtype=torch.float64)
     for method in ("cg", "bicgstab", "gmres"):
         fn = DIFF[method][1]
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(lambda v: At @ v, b.clone().requires_grad_())
+        bg = b.clone().requires_grad_()
+        x_g = fn(lambda v: At @ v, bg, tol=1e-10)[0]
+        x_g.sum().backward()
+        bm = b.clone().requires_grad_()
+        fn(At, bm, tol=1e-10)[0].sum().backward()
+        torch.testing.assert_close(bg.grad, bm.grad, rtol=1e-8, atol=1e-12)
         x, info, _, _ = fn(lambda v: At @ v, b, tol=1e-10)
         with torch.no_grad():
             x_ng, _, _, _ = fn(lambda v: At @ v, b.clone().requires_grad_(),
                                tol=1e-10)
         assert int(info) == 0 and torch.equal(x, x_ng)
+        assert torch.equal(x_g.detach(), x)

@@ -902,3 +902,177 @@ def test_ldc_on_card_matches_cpu(dev, precond):
     for name in ("u", "v", "p"):
         assert float((getattr(card, name).cpu()
                       - getattr(cpu, name)).abs().max()) <= 1e-8
+
+
+def _shift_27pt(A, nx):
+    """A - sigma I for A = poisson3d_27pt(nx) = 27 I - J (x) J (x) J, sigma
+    halfway between its two smallest eigenvalues 27 - prod(1 + 2 cos(pi
+    k_i / (nx + 1))): symmetric with one negative mode."""
+    c = [1 + 2 * np.cos(np.pi * k / (nx + 1)) for k in (1, 2)]
+    sigma = 27 - c[0] ** 2 * (c[0] + c[1]) / 2
+    data = A.data.clone()
+    data[A.offsets.index(0)] -= sigma
+    return A.with_data(data)
+
+
+def _more_system(method, nx, dtype, device="cpu"):
+    if method == "fgmres":
+        return gen.convection_diffusion_3d_27pt(nx, dtype=dtype,
+                                                device=device)
+    A = gen.poisson3d_27pt(nx, dtype=dtype, device=device)
+    return _shift_27pt(A, nx) if method == "minres" else A
+
+
+@pytest.mark.parametrize("operand", ["dia", "cwell"])
+@pytest.mark.parametrize("method,dtype,precision,M", [
+    (m, *case) for m in ("cg_sr", "fcg", "minres", "fgmres")
+    for case in ((np.float32, "auto", None), (np.float32, "auto", "jacobi"),
+                 (np.float64, "auto", None), (np.float64, "full", None))
+    # MINRES with M stops on the M-norm residual estimate, whose true
+    # residual a float32 solve does not hold to tol
+    if not (m == "minres" and case[2] == "jacobi")])
+def test_more_solvers_on_card_match_cpu(dev, method, operand, dtype,
+                                        precision, M):
+    """Single-reduction CG, FCG, MINRES (on the shifted, indefinite
+    system) and FGMRES: the general path on the card (kernel 1 or K4; the
+    fp64 kernel and the extended kernel 1 in the f64 'auto' sweeps)
+    against the CPU, with the CWELL solves' iteration slack."""
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A = _more_system(method, 12, dtype)
+    if operand == "cwell":
+        A = csr_to_cwell(to_csr(A))
+    b = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        A.shape[0]).astype(dtype))
+    tol = 1e-5 if dtype == np.float32 else 1e-9
+    kw = dict(method=method, tol=tol, precision=precision, M=M,
+              maxiter=3000)
+    xc, rc = tpu_sparse_torch.solve(A, b, **kw)
+    before = {**cuda_spmv.LAUNCHES, **cuda_cwell.LAUNCHES}
+    xg, rg = tpu_sparse_torch.solve(A.to(dev), b.to(dev), **kw)
+    after = {**cuda_spmv.LAUNCHES, **cuda_cwell.LAUNCHES}
+    grew = {k for k in after if after[k] > before[k]}
+    if operand == "cwell":
+        assert ("cwell_spmv_f32" if dtype == np.float32 or precision == "auto"
+                else "cwell_spmv_f64") in grew
+    elif dtype == np.float64 and precision == "auto":
+        assert {"dia_spmv_ext_f64", "dia_spmv_ext_f32"} <= grew
+    else:
+        assert ("dia_spmv_f32" if dtype == np.float32
+                else "dia_spmv_f64") in grew
+    assert rc.converged and rg.converged
+    full64 = dtype == np.float64 and precision == "full"
+    slack = 2 if full64 else max(5, rc.iterations // 5)
+    assert abs(rc.iterations - rg.iterations) <= slack
+    rtol = 1e-3 if dtype == np.float32 else 1e-6
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=rtol,
+                               atol=rtol * float(xc.abs().max()))
+
+
+@pytest.mark.parametrize("method,M", [("fcg", "jacobi"), ("minres", None),
+                                      ("fgmres", None)])
+def test_more_batched_on_card_match_singles(dev, method, M):
+    """batch_fcg / batch_minres / batch_fgmres on a CWELL: every matvec one
+    K6/K7 launch, every column within the CWELL slack of its single-RHS
+    solve on the card (K6/K7 column j equals K4 bit for bit)."""
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    W = csr_to_cwell(to_csr(_more_system(method, 12, np.float32, dev)))
+    B = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (W.shape[0], 3)).astype(np.float32)).to(dev)
+    kw = dict(method=method, tol=1e-5, maxiter=3000, M=M)
+    before = dict(cuda_cwell.LAUNCHES)
+    X, res = tpu_sparse_torch.solve(W, B, **kw)
+    assert res.converged
+    assert cuda_cwell.LAUNCHES["cwell_spmm_f32"] > before["cwell_spmm_f32"]
+    assert cuda_cwell.LAUNCHES["cwell_spmv_f32"] == \
+        before["cwell_spmv_f32"]
+    for j in range(3):
+        x, r = tpu_sparse_torch.solve(W, B[:, j].contiguous(), **kw)
+        assert r.converged
+        np.testing.assert_allclose(X[:, j].cpu().numpy(), x.cpu().numpy(),
+                                   rtol=1e-3,
+                                   atol=1e-3 * float(x.abs().max()))
+
+
+@pytest.mark.parametrize("operand", ["dia", "cwell"])
+@pytest.mark.parametrize("method", ["cg_sr", "fcg", "minres", "fgmres"])
+def test_more_adjoint_on_card_matches_cpu(dev, method, operand):
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A = _more_system(method, 10, np.float64)
+    if operand == "cwell":
+        A = csr_to_cwell(to_csr(A))
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        A.shape[0]))
+    grads = []
+    for where in ("cpu", dev):
+        vals = (A.vals if operand == "cwell" else A.data).to(
+            where, copy=True).requires_grad_()
+        bb = b.to(where, copy=True).requires_grad_()
+        x, r = tpu_sparse_torch.solve(A.to(where).with_data(vals), bb,
+                                      method=method, tol=1e-10,
+                                      maxiter=3000, precision="full")
+        assert r.converged
+        x.sum().backward()
+        grads.append((vals.grad.cpu(), bb.grad.cpu()))
+    for got, want in zip(grads[1], grads[0]):
+        assert _rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "gmres", "fgmres"])
+def test_callable_adjoint_on_card(dev, method):
+    """A callable that launches K4 has no backward: with A_transpose (K4
+    on the transposed pack) b.grad equals the matrix path's; without it
+    the backward raises naming A_transpose=."""
+    from tpu_sparse_torch import autodiff, kernels
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    C = to_csr(gen.convection_diffusion_3d_27pt(12, dtype=np.float32,
+                                                device=dev))
+    W = csr_to_cwell(C)
+    Wt = csr_to_cwell(to_csr(C.tocoo().T))
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        W.shape[0]).astype(np.float32)).to(dev)
+    fn = getattr(autodiff, f"{method}_diff")
+    kw = dict(tol=1e-6, maxiter=500)
+    grads = []
+    for A, At in ((lambda v: kernels.spmv(W, v),
+                   lambda v: kernels.spmv(Wt, v)), (W, None)):
+        bb = b.clone().requires_grad_()
+        before = cuda_cwell.LAUNCHES["cwell_spmv_f32"]
+        x, info, _, _ = fn(A, bb, A_transpose=At, **kw)
+        x.sum().backward()
+        assert int(info) == 0
+        assert cuda_cwell.LAUNCHES["cwell_spmv_f32"] > before
+        grads.append(bb.grad)
+    assert _rel(grads[0], grads[1]) <= 1e-3
+    bb = b.clone().requires_grad_()
+    x = fn(lambda v: kernels.spmv(W, v), bb, **kw)[0]
+    with pytest.raises(RuntimeError, match="A_transpose="):
+        x.sum().backward()
+
+
+@pytest.mark.parametrize("method", ["fcg", "fgmres"])
+def test_flexible_amg_v03_on_card_matches_cpu(dev, method):
+    from tpu_sparse_torch.precond import amg_preconditioner
+
+    A = _more_system(method, 16, np.float32)
+    b = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        A.shape[0]).astype(np.float32))
+    out = []
+    for where in ("cpu", dev):
+        Aw = A.to(where)
+        M = amg_preconditioner(Aw, pre_sweeps=0, post_sweeps=3)
+        x, r = tpu_sparse_torch.solve(Aw, b.to(where), method=method, M=M,
+                                      tol=1e-5, maxiter=500)
+        assert r.converged
+        out.append((x.cpu(), r.iterations))
+    assert abs(out[0][1] - out[1][1]) <= max(2, out[0][1] // 5)
+    np.testing.assert_allclose(out[1][0].numpy(), out[0][0].numpy(),
+                               rtol=1e-3,
+                               atol=1e-3 * float(out[0][0].abs().max()))

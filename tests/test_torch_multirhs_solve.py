@@ -137,9 +137,9 @@ def test_multirhs_refusals_and_warnings():
     with pytest.warns(UserWarning, match="unavailable with"):
         tpu_sparse_torch.solve(At, B, multi_rhs="block", precision="mixed",
                                tol=1e-8)
-    for fn in (batched.batch_fcg, batched.batch_fgmres,
+    for fn in (batched.batch_cg, batched.batch_fcg, batched.batch_fgmres,
                batched.batch_minres):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(At, B)
-    with pytest.raises(ValueError, match="shape"):
-        batched.batch_cg(At, B[:, 0])
+        with pytest.raises(ValueError, match="shape"):
+            fn(At, B[:, 0])
+    with pytest.raises(ValueError, match="unknown krylov method"):
+        mixed.batch_refined("nope", At, B)

@@ -214,10 +214,11 @@ def _a_b():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="minres"),
-    dict(method="direct"), dict(method="fcg"), dict(backend="direct"),
-    dict(backend="module_c"), dict(M="ilu0"), dict(method="cg_sr"),
-    dict(method="fgmres"),
+    dict(method="direct", precision="full"),
+    dict(method="direct"), dict(M="ilu0", method="fcg"),
+    dict(backend="direct"),
+    dict(backend="module_c"), dict(M="ilu0"), dict(M="ilu0", method="cg_sr"),
+    dict(backend="direct", method="fgmres"),
 ])
 def test_out_of_slice_raises_not_implemented(kw):
     A, b = _a_b()
@@ -242,9 +243,9 @@ def test_unknown_names_raise_value_error_like_jax(kw, msg):
 
 
 def test_inputs_requiring_grad_multi_rhs_and_complex_raise():
-    """Inputs that require grad: a matrix operand differentiates through
-    the full-precision solve (one adjoint solve); a matrix-free callable,
-    the mixed path and a multi-RHS solve refuse."""
+    """Inputs that require grad: a matrix operand and a matrix-free
+    callable differentiate through the full-precision solve (one adjoint
+    solve); the mixed path and a multi-RHS solve refuse."""
     A, b = _a_b()
     for method in ("cg", "bicgstab", "gmres"):
         bg = b.clone().requires_grad_()
@@ -261,9 +262,14 @@ def test_inputs_requiring_grad_multi_rhs_and_complex_raise():
         grad_dense = -torch.outer(v, x.detach()) * pattern
         torch.testing.assert_close(A.with_data(data.grad).todense(),
                                    grad_dense, rtol=1e-8, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tpu_sparse_torch.solve(lambda v: A @ v, b.clone().requires_grad_(),
-                               precision="full")
+    for method in ("cg", "gmres"):
+        bg = b.clone().requires_grad_()
+        x, r = tpu_sparse_torch.solve(lambda v: A @ v, bg, method=method,
+                                      tol=1e-12, precision="full")
+        x.sum().backward()
+        v = torch.linalg.solve(A.todense().T,
+                               torch.ones(16, dtype=torch.float64))
+        torch.testing.assert_close(bg.grad, v, rtol=1e-8, atol=1e-12)
     for precision in ("mixed", "auto"):
         with pytest.raises(ValueError, match="not differentiable"):
             tpu_sparse_torch.solve(A, b.clone().requires_grad_(),

@@ -2,9 +2,10 @@
 
 Ported so far: DIA/CSR/COO/BSR containers and generators; the CWELL pack
 of general matrices, the BELL (block-ELL) format and ``to_gpu_operator``;
-the Krylov core (CG, BiCGStab, GMRES) with mixed-precision refinement and
-the adjoint gradient; multi-RHS solves (batched CG / BiCGStab / GMRES,
-block CG, batched refinement); the preconditioners (Jacobi, aggregation
+the Krylov solvers (CG, single-reduction CG, flexible CG, MINRES,
+BiCGStab, GMRES, flexible GMRES) with mixed-precision refinement and the
+adjoint gradient, for matrices and matrix-free callables; multi-RHS
+solves (each method batched, block CG, batched refinement); the preconditioners (Jacobi, aggregation
 AMG, Chebyshev, Neumann, FSAI) and the ``amg`` backend; the
 ``SparseSolver`` / ``solve`` router with ``reorder="rcm"``; the
 lid-driven-cavity application (``python -m tpu_sparse_torch.apps.ldc``);
@@ -19,21 +20,27 @@ card (``device="cuda"``).
 
 from tpu_sparse_torch import autodiff, config, kernels, precond, sparse, utils
 from tpu_sparse_torch.api import SolverResult, SparseSolver, solve
-from tpu_sparse_torch.autodiff import bicgstab_diff, cg_diff, gmres_diff
-from tpu_sparse_torch.solvers import (batch_bicgstab, batch_cg, batch_gmres,
-                                      bicgstab, block_cg, cg, gmres)
+from tpu_sparse_torch.autodiff import (bicgstab_diff, cg_diff, cg_sr_diff,
+                                       fcg_diff, fgmres_diff, gmres_diff,
+                                       minres_diff)
+from tpu_sparse_torch.solvers import (batch_bicgstab, batch_cg, batch_fcg,
+                                      batch_fgmres, batch_gmres,
+                                      batch_minres, bicgstab, block_cg, cg,
+                                      cg_sr, fcg, fgmres, gmres, minres)
 from tpu_sparse_torch.sparse import (BELL, BSR, COO, CSR, CWELL, DIA,
                                      CWELLSeg, bsr_to_bell, csr_to_bsr,
                                      csr_to_cwell, to_gpu_operator)
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 __all__ = [
     "autodiff", "config", "kernels", "precond", "sparse", "utils",
     "BELL", "BSR", "COO", "CSR", "CWELL", "CWELLSeg", "DIA", "bsr_to_bell",
     "csr_to_bsr", "csr_to_cwell", "to_gpu_operator",
-    "batch_bicgstab", "batch_cg", "batch_gmres", "bicgstab", "block_cg",
-    "cg", "gmres",
-    "bicgstab_diff", "cg_diff", "gmres_diff",
+    "batch_bicgstab", "batch_cg", "batch_fcg", "batch_fgmres",
+    "batch_gmres", "batch_minres", "bicgstab", "block_cg", "cg", "cg_sr",
+    "fcg", "fgmres", "gmres", "minres",
+    "bicgstab_diff", "cg_diff", "cg_sr_diff", "fcg_diff", "fgmres_diff",
+    "gmres_diff", "minres_diff",
     "SparseSolver", "SolverResult", "solve",
 ]

@@ -1,30 +1,34 @@
 """Unified solver router: ``SparseSolver``, ``solve``, ``SolverResult``.
 
 Counterpart of ``tpu_sparse/api/solver.py`` for the slice this package
-ports: the ``krylov`` backend with methods ``cg``, ``bicgstab`` and
-``gmres`` on any operand (a CWELL pack runs every matvec on K4 / K5), the
+ports: the ``krylov`` backend with methods ``cg``, ``cg_sr``, ``fcg``,
+``minres``, ``bicgstab``, ``gmres`` and ``fgmres`` on any operand (a CWELL
+pack runs every matvec on K4 / K5), the
 ``amg`` backend (AMG-preconditioned CG, or with ``accelerant=None`` the
 stationary V-cycle iteration), the preconditioners ``M="jacobi" | "amg" |
 "chebyshev" | "neumann" | "fsai" | "fsai2"`` (built once per matrix
 content and cached), ``reorder="rcm"``, with the extended-layout CUDA
 fast paths for square DIA systems (M None or Jacobi):
 
-* float32 ``b`` on CUDA: ``autodiff.implicit.ext_run`` (fused CG kernels,
-  K10 for bicgstab without x0 and M, else the method's loop over kernel 1);
-* float64 ``b``, ``precision="auto"`` (tol >= 1e-12): defect correction
-  (``solvers.mixed.cg_refined`` / ``bicgstab_refined`` / ``gmres_refined``),
-  f32 inner sweeps over the extended operator and f64 outer residuals by
-  the fp64 kernel on CUDA;
-* float64 ``b``, ``precision="full"`` on CUDA (tol >= 1e-11): the method
-  with matvecs by the fp64 extended kernel (``ext_run_f64``);
-* everything else: the method's ``*_full`` on the operand (CUDA DIA SpMV
-  is kernel 1).
+* float32 ``b`` on CUDA, cg / bicgstab / gmres: ``autodiff.implicit.
+  ext_run`` (fused CG kernels, K10 for bicgstab without x0 and M, else the
+  method's loop over kernel 1);
+* float64 ``b``, ``precision="auto"`` (tol >= 1e-12), every method:
+  defect correction (``solvers.mixed.*_refined``), f32 inner sweeps over
+  the extended operator and f64 outer residuals by the fp64 kernel on
+  CUDA;
+* float64 ``b``, ``precision="full"`` on CUDA (tol >= 1e-11), cg /
+  bicgstab / gmres: the method with matvecs by the fp64 extended kernel
+  (``ext_run_f64``);
+* everything else: the method's ``*_diff`` on the operand (CUDA DIA SpMV
+  is kernel 1); ``cg_sr``, ``fcg``, ``minres`` and ``fgmres`` always take
+  this general path, as in the JAX router.
 
 Every full-precision solve runs through the adjoint wrappers of
 ``autodiff.implicit``, as in the JAX router, so ``solve()`` is
-differentiable in ``b`` and in a matrix operand's values. The
-mixed-precision path is not (nor is it in JAX), and refuses inputs that
-require grad.
+differentiable in ``b``, in a matrix operand's values and in the tensors
+a matrix-free operator depends on. The mixed-precision path is not (nor
+is it in JAX), and refuses inputs that require grad.
 
 A 2-D ``b`` of shape (n, k) is a multi-RHS solve (``_solve_multirhs``,
 JAX ``_solve_multirhs``): block CG (``solvers.block``) or the batched
@@ -41,6 +45,7 @@ ROADMAP queue-1 item; unknown names raise the JAX router's ``ValueError``.
 from __future__ import annotations
 
 import warnings
+from contextlib import contextmanager
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
@@ -64,12 +69,11 @@ _BACKEND_ALIASES = {
 }
 
 _Q1 = "ROADMAP queue 1, item "
-_KRYLOV_METHODS = ("cg", "bicgstab", "gmres")
+_KRYLOV_METHODS = ("cg", "cg_sr", "fcg", "minres", "bicgstab", "gmres",
+                   "fgmres")
+# the methods with extended-layout fast paths (JAX router :401-423)
+_EXT_METHODS = ("cg", "bicgstab", "gmres")
 _DEFERRED_METHODS = {
-    "cg_sr": _Q1 + "14 (other solvers)",
-    "fcg": _Q1 + "14 (other solvers)",
-    "minres": _Q1 + "14 (other solvers)",
-    "fgmres": _Q1 + "14 (other solvers)",
     "direct": _Q1 + "16 (direct solvers)",
 }
 _DEFERRED_BACKENDS = {
@@ -229,11 +233,13 @@ class SparseSolver:
         content), solves the permuted system as CSR and un-permutes the
         solution. It needs a matrix operand.
 
-        restart and solve_method: GMRES's restart length and
-        'batched' | 'incremental'; the other methods do not read them.
+        restart: the restart length of GMRES and FGMRES; solve_method:
+        GMRES's 'batched' | 'incremental'. The other methods do not read
+        them.
 
-        A 2-D b (n, k) solves every column: ``multi_rhs='auto'`` runs CG as
-        block CG when M is given and batched otherwise, BiCGStab and GMRES
+        A 2-D b (n, k) solves every column: ``multi_rhs='auto'`` runs CG
+        and single-reduction CG as block CG when M is given and batched CG
+        otherwise (reported as the method asked for), the other methods
         batched; 'block' and 'batch' force CG's choice. 'auto' precision
         stays 'full' under multi_rhs='block'. The result reports the
         largest iteration count and relative residual over the columns,
@@ -306,6 +312,8 @@ class SparseSolver:
         kw = dict(tol=tol, atol=atol, maxiter=maxiter)
         if sel_method == "gmres":
             kw.update(restart=restart, solve_method=solve_method)
+        elif sel_method == "fgmres":
+            kw.update(restart=restart)
         if precision == "mixed":
             x, info, iters, res, rel = self._solve_krylov_mixed(
                 A, b, x0, sel_method, kw, M)
@@ -445,7 +453,8 @@ class SparseSolver:
     def _solve_krylov(self, A, b, x0, method, kw, M):
         from tpu_sparse_torch.autodiff import implicit
 
-        fast = (isinstance(A, DIA) and _extendable_m(M)
+        fast = (method in _EXT_METHODS and isinstance(A, DIA)
+                and _extendable_m(M)
                 and isinstance(b, torch.Tensor) and b.is_cuda
                 and A.data.is_cuda and A.data.dtype == b.dtype
                 and extendable(A))
@@ -455,31 +464,25 @@ class SparseSolver:
         if fast and b.dtype == torch.float64 and kw["tol"] >= 1e-11:
             out = implicit.ext_krylov_diff_f64(method, kw, A, b, x0, M)
             return out + (out[3] / _safe_norm(b.detach()),)
-        diff = {"cg": implicit.cg_diff, "bicgstab": implicit.bicgstab_diff,
-                "gmres": implicit.gmres_diff}[method]
-        out = diff(A, b, x0, M=M, **kw)
+        out = getattr(implicit, f"{method}_diff")(A, b, x0, M=M, **kw)
         return out + (_relative_residual(A, b, out[0]),)
 
     def _solve_krylov_mixed(self, A, b, x0, method, kw, M):
         from tpu_sparse_torch.solvers import mixed
 
-        refined = {"cg": mixed.cg_refined,
-                   "bicgstab": mixed.bicgstab_refined,
-                   "gmres": mixed.gmres_refined}[method]
-        out = refined(A, b, x0, M=M, **kw)
+        out = getattr(mixed, f"{method}_refined")(A, b, x0, M=M, **kw)
         return out + (_relative_residual(A, b, out[0]),)
 
     def _solve_multirhs(self, A, B, X0, sel_backend, method, tol, atol,
                         maxiter, M, restart, solve_method, precision,
                         multi_rhs, amg_kwargs):
         """(n, k) right-hand sides (JAX ``_solve_multirhs``): block CG for
-        CG with a preconditioner ('auto') or on request, the batched
-        solvers otherwise; precision='mixed' runs the batched refinement.
+        CG and single-reduction CG with a preconditioner ('auto') or on
+        request, batched CG for them otherwise, the batched solvers for the
+        other methods; precision='mixed' runs the batched refinement.
         backend='amg' solves with CG and the V-cycle as M (its ``matmat``:
         one SpMM per level operator), maxiter 100 by default."""
-        from tpu_sparse_torch.solvers import (batch_bicgstab, batch_cg,
-                                              batch_gmres, batch_refined,
-                                              block_cg)
+        from tpu_sparse_torch.solvers import batched, batch_refined, block_cg
 
         if multi_rhs not in ("auto", "block", "batch"):
             raise ValueError(f"unknown multi_rhs '{multi_rhs}'; use "
@@ -492,6 +495,8 @@ class SparseSolver:
         kw = dict(tol=tol, atol=atol, maxiter=maxiter, M=M)
         if method == "gmres":
             kw.update(restart=restart, solve_method=solve_method)
+        elif method == "fgmres":
+            kw.update(restart=restart)
         if precision == "mixed":
             if multi_rhs == "block":
                 warnings.warn(
@@ -500,14 +505,16 @@ class SparseSolver:
                     "instead.", stacklevel=3)
             X, infos, iters, res = batch_refined(method, A, B, X0, **kw)
             iters = iters.max()
-        elif method == "cg" and (multi_rhs == "block" or (
+        elif method in ("cg", "cg_sr") and (multi_rhs == "block" or (
                 multi_rhs == "auto" and M is not None)):
             # measured in the JAX package: for independent right-hand sides
-            # batched CG beats block CG; a preconditioned solve keeps it
+            # batched CG beats block CG; a preconditioned solve keeps it.
+            # Block CG already fuses its reductions across the block, so
+            # the single-reduction form adds nothing (JAX router :756-779)
             X, infos, iters, res = block_cg(A, B, X0, **kw)
         else:
-            fn = {"cg": batch_cg, "bicgstab": batch_bicgstab,
-                  "gmres": batch_gmres}[method]
+            fn = getattr(batched, "batch_cg" if method == "cg_sr"
+                         else f"batch_{method}")
             X, infos, iters, res = fn(A, B, X0, **kw)
             iters = iters.max()
         with torch.no_grad():
@@ -527,6 +534,20 @@ class SparseSolver:
 
     def gmres(self, A, b, **kw):
         return self.solve(A, b, method="gmres", **kw)
+
+    def amg(self, A, b, **kw):
+        return self.solve(A, b, method="amg", **kw)
+
+    def direct(self, A, b, **kw):
+        return self.solve(A, b, method="direct", **kw)
+
+    @contextmanager
+    def session(self):
+        """Batch-solving context (reference solver.py:102-106): ``with
+        solver.session() as s: s.solve(...)``; probes the backends once up
+        front and yields this solver."""
+        _ = self.available_backends
+        yield self
 
 
 def _matrix_free(A) -> bool:
@@ -608,3 +629,11 @@ def bicgstab(A, b, **kwargs):
 
 def gmres(A, b, **kwargs):
     return solve(A, b, method="gmres", **kwargs)
+
+
+def amg(A, b, **kwargs):
+    return solve(A, b, method="amg", **kwargs)
+
+
+def direct_solve(A, b, **kwargs):
+    return solve(A, b, method="direct", **kwargs)

@@ -21,9 +21,21 @@ slot gets one, padding slots included, as in JAX. x0 and M get no
 gradient. Nonsymmetric methods solve the adjoint system without M (M^H of
 an arbitrary operator cannot be formed).
 
-Matrix-free callables are forward only here: the JAX package's
-``_callable_solve`` / ``_callable_solve_explicit_T`` are ROADMAP queue 1,
-item 6 (callable adjoint).
+Matrix-free callables (``_callable_solve``, the counterpart of the JAX
+``_callable_solve`` / ``_callable_solve_explicit_T``) solve under
+``no_grad`` and return ``x* + Z(b - A_fn(x*))``, where ``Z`` is the
+identity's zero: its forward returns zeros, its backward solves the
+adjoint system for the cotangent. The one extra matvec ``A_fn(x*)`` is
+on the autograd graph, so b and every tensor that A_fn's output depends
+on through torch ops get their gradients, as closed-over arrays do under
+JAX's ``custom_linear_solve``. Symmetric methods solve the adjoint
+system with A_fn and M; the others with A^H as the vector-Jacobian
+product of the linear A_fn, checked once per backward against A_fn by
+<u, A w> = <A^H u, w>: an A_fn that autograd cannot transpose (one that
+launches a kernel with no backward) raises an error naming
+``A_transpose=`` and never yields partial gradients. With
+``A_transpose`` the backward solves with it, without M, and only b gets
+a gradient (the JAX contract).
 
 The extended runners: ``ext_run`` solves a float32 DIA system in the
 halo-extended layout (fused CG kernels for cg, K10 for bicgstab, else the
@@ -38,6 +50,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from tpu_sparse_torch.kernels import spmv_reference
 from tpu_sparse_torch.kernels.cuda_bicgstab import fused_bicgstab_ext
@@ -45,16 +58,26 @@ from tpu_sparse_torch.kernels.cuda_cg import fused_cg_ext, make_fused_operator
 from tpu_sparse_torch.kernels.cuda_spmv import (ExtendedStencilOperator,
                                                 make_extended_operator_f64)
 from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
+from tpu_sparse_torch.solvers.fcg import fcg_full
+from tpu_sparse_torch.solvers.fgmres import fgmres_full
 from tpu_sparse_torch.solvers.krylov import bicgstab_full, cg_full, gmres_full
+from tpu_sparse_torch.solvers.minres import minres_full
+from tpu_sparse_torch.solvers.pipelined import cg_sr_full
 from tpu_sparse_torch.sparse.containers import (CSR, DIA, is_sparse, values,
                                                 with_values)
 from tpu_sparse_torch.sparse.cwell import CWELL, CWELLSeg
 from tpu_sparse_torch.utils.opcache import TensorCache
+from tpu_sparse_torch.utils.tree import (tree_add, tree_leaves, tree_norm,
+                                         tree_sub, tree_vdot)
 
-_SOLVERS = {"cg": cg_full, "bicgstab": bicgstab_full, "gmres": gmres_full}
+_SOLVERS = {"cg": cg_full, "cg_sr": cg_sr_full, "fcg": fcg_full,
+            "bicgstab": bicgstab_full, "gmres": gmres_full,
+            "fgmres": fgmres_full, "minres": minres_full}
 
-# 'symmetric': the adjoint solve may reuse A and M (hermitian operators)
-_SYMMETRIC = {"cg": True, "bicgstab": False, "gmres": False}
+# 'symmetric': the adjoint solve may reuse A (hermitian operators); FCG
+# also tolerates a nonsymmetric M, so the forward M is reused too
+_SYMMETRIC = {"cg": True, "cg_sr": True, "fcg": True, "bicgstab": False,
+              "gmres": False, "fgmres": False, "minres": True}
 
 _FUSED_KW = ("tol", "atol", "maxiter")
 
@@ -241,13 +264,109 @@ def ext_krylov_diff_f64(method: str, kw: dict, A, b, x0, M):
     return implicit_solve(ext_run_f64, method, kw, A, b, x0, M)
 
 
-def _dispatch(method: str, A, b, x0, M, kw: dict):
+class _AdjointSolve(torch.autograd.Function):
+    """Zeros of the shape of r in the forward; in the backward, the
+    solution v of the adjoint system for the cotangent g, as the gradient
+    of r. Added to a solve's x it changes no value and puts the adjoint
+    solve on the graph."""
+
+    @staticmethod
+    def forward(ctx, adjoint, spec, *leaves):
+        ctx.adjoint, ctx.spec = adjoint, spec
+        return tuple(torch.zeros_like(t) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = pytree.tree_unflatten([t.contiguous() for t in grads], ctx.spec)
+        return (None, None) + tuple(tree_leaves(ctx.adjoint(g)))
+
+
+def _vjp_transpose(A_fn: Callable) -> Callable:
+    """A^H u as the vector-Jacobian product of the linear A_fn (at 0)."""
+
+    def At(u):
+        leaves, spec = pytree.tree_flatten(u)
+        with torch.enable_grad():
+            z = [torch.zeros_like(t).requires_grad_() for t in leaves]
+            y = tree_leaves(A_fn(pytree.tree_unflatten(z, spec)))
+            try:
+                g = torch.autograd.grad(y, z, grad_outputs=leaves)
+            except RuntimeError as err:
+                raise _no_transpose(str(err)) from err
+        return pytree.tree_unflatten(list(g), spec)
+
+    return At
+
+
+def _no_transpose(why: str) -> RuntimeError:
+    return RuntimeError(
+        "the adjoint of this matrix-free operator is not available from "
+        "torch autograd (for instance, A_fn launches a kernel that has no "
+        f"backward): {why}. Pass A_transpose= (the adjoint matvec) to "
+        "bicgstab_diff / gmres_diff / fgmres_diff, or give A as a matrix")
+
+
+def _check_transpose(A_fn: Callable, At: Callable, u) -> None:
+    """Raise unless <u, A w> = <A^H u, w> for a fixed pseudo-random w: an
+    A_fn whose product leaves autograd's graph for part of the work would
+    otherwise give partial gradients."""
+    leaves, spec = pytree.tree_flatten(u)
+    gen = torch.Generator(device=leaves[0].device).manual_seed(0)
+    w = pytree.tree_unflatten(
+        [torch.randn(t.shape, generator=gen, device=t.device,
+                     dtype=t.dtype) for t in leaves], spec)
+    Aw, Atu = A_fn(w), At(u)
+    lhs, rhs = tree_vdot(u, Aw), tree_vdot(Atu, w)
+    scale = tree_norm(u) * tree_norm(Aw) + tree_norm(Atu) * tree_norm(w)
+    tol = 1e-3 if torch.finfo(leaves[0].dtype).bits <= 32 else 1e-8
+    if not bool((lhs - rhs).abs() <= tol * scale):
+        raise _no_transpose(
+            f"<u, A w> = {complex(lhs):.6g} but <A^H u, w> = "
+            f"{complex(rhs):.6g} for autograd's A^H")
+
+
+def _callable_solve(method: str, kw: dict, A_fn: Callable, b, x0, M,
+                    A_transpose: Optional[Callable]):
+    """Solve with a matrix-free A_fn (JAX ``_callable_solve`` and, with
+    ``A_transpose``, ``_callable_solve_explicit_T``). Returns (x, info,
+    iters, res); x carries the adjoint gradient (module docstring)."""
+    solver = _SOLVERS[method]
+    with torch.no_grad():
+        out = solver(A_fn, b, x0, M=M, **kw)
+    if not torch.is_grad_enabled():
+        return out
+    x = out[0]
+    if A_transpose is not None:
+        r = b
+
+        def adjoint(g):
+            with torch.no_grad():
+                return solver(A_transpose, g, None, M=None, **kw)[0]
+    else:
+        # A_fn(x*) on the graph: d/dtheta of b - A_theta x* is the source
+        # term of every closed-over tensor theta
+        r = tree_sub(b, A_fn(x))
+        if _SYMMETRIC[method]:
+            A_adj = A_fn
+        else:
+            A_adj = _vjp_transpose(A_fn)
+
+        def adjoint(g):
+            if A_adj is not A_fn:
+                _check_transpose(A_fn, A_adj, g)
+            with torch.no_grad():
+                return solver(A_adj, g, None, M=M, **kw)[0]
+    leaves, spec = pytree.tree_flatten(r)
+    if not any(t.requires_grad for t in leaves):
+        return out
+    z = _AdjointSolve.apply(adjoint, spec, *leaves)
+    return (tree_add(x, pytree.tree_unflatten(list(z), spec)),) + \
+        tuple(out[1:])
+
+
+def _dispatch(method: str, A, b, x0, M, kw: dict, A_transpose=None):
     if callable(A) and not is_sparse(A) and not isinstance(A, torch.Tensor):
-        if _needs_grad(b, x0):
-            raise NotImplementedError(
-                "gradients through a solve with a matrix-free operator are "
-                "not ported yet: ROADMAP queue 1, item 6 (callable adjoint)")
-        return _matrix_run(method, kw, A, b, x0, M)
+        return _callable_solve(method, kw, A, b, x0, M, A_transpose)
     return implicit_solve(_matrix_run, method, kw, A, b, x0, M)
 
 
@@ -255,22 +374,65 @@ def cg_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
             maxiter: Optional[int] = None, M=None):
     """CG with the adjoint gradient (A hermitian: the adjoint solve reuses
     A and M). Returns (x, info, iterations, residual_norm); gradients flow
-    to b and A's values through x."""
+    to b and A's values through x (to b and the tensors a matrix-free A
+    depends on, for a callable)."""
     return _dispatch("cg", A, b, x0, M,
                      dict(tol=tol, atol=atol, maxiter=maxiter))
 
 
-def bicgstab_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
-                  maxiter: Optional[int] = None, M=None):
-    """BiCGStab with the adjoint gradient (adjoint solve on A^H, no M)."""
-    return _dispatch("bicgstab", A, b, x0, M,
+def cg_sr_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
+               maxiter: Optional[int] = None, M=None):
+    """Single-reduction CG with the adjoint gradient (A hermitian: the
+    adjoint solve reuses A and M); the contract of ``cg_diff``."""
+    return _dispatch("cg_sr", A, b, x0, M,
                      dict(tol=tol, atol=atol, maxiter=maxiter))
+
+
+def fcg_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
+             maxiter: Optional[int] = None, M=None):
+    """Flexible CG with the adjoint gradient (A hermitian, M arbitrary:
+    the adjoint solve reuses both)."""
+    return _dispatch("fcg", A, b, x0, M,
+                     dict(tol=tol, atol=atol, maxiter=maxiter))
+
+
+def minres_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
+                maxiter: Optional[int] = None, M=None):
+    """MINRES with the adjoint gradient (A symmetric, possibly indefinite:
+    the adjoint solve reuses A and M)."""
+    return _dispatch("minres", A, b, x0, M,
+                     dict(tol=tol, atol=atol, maxiter=maxiter))
+
+
+def bicgstab_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
+                  maxiter: Optional[int] = None, M=None, A_transpose=None):
+    """BiCGStab with the adjoint gradient (adjoint solve on A^H, no M).
+
+    A_transpose: the adjoint matvec of a matrix-free A that autograd
+    cannot transpose (a kernel without a backward); b alone then gets a
+    gradient. Ignored for matrix operands."""
+    return _dispatch("bicgstab", A, b, x0, M,
+                     dict(tol=tol, atol=atol, maxiter=maxiter),
+                     A_transpose=A_transpose)
 
 
 def gmres_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
                restart: int = 20, maxiter: Optional[int] = None, M=None,
-               solve_method: str = "batched"):
-    """GMRES with the adjoint gradient (adjoint solve on A^H, no M)."""
+               solve_method: str = "batched", A_transpose=None):
+    """GMRES with the adjoint gradient (adjoint solve on A^H, no M);
+    A_transpose as in ``bicgstab_diff``."""
     return _dispatch("gmres", A, b, x0, M,
                      dict(tol=tol, atol=atol, restart=restart,
-                          maxiter=maxiter, solve_method=solve_method))
+                          maxiter=maxiter, solve_method=solve_method),
+                     A_transpose=A_transpose)
+
+
+def fgmres_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
+                restart: int = 20, maxiter: Optional[int] = None, M=None,
+                A_transpose=None):
+    """Flexible GMRES with the adjoint gradient (adjoint solve on A^H, no
+    M); A_transpose as in ``bicgstab_diff``."""
+    return _dispatch("fgmres", A, b, x0, M,
+                     dict(tol=tol, atol=atol, restart=restart,
+                          maxiter=maxiter),
+                     A_transpose=A_transpose)

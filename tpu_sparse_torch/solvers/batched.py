@@ -14,22 +14,28 @@ axis). A loop reads the host once per ``CHECK_EVERY`` iterations on
 do on ``active``.
 
 Every solver returns ``(X, infos (k,), iterations (k,), res_norms (k,))``.
-``batch_fcg``, ``batch_fgmres`` and ``batch_minres`` wait for their
-single-RHS solvers (ROADMAP queue 1, item 14).
+``batch_fcg``, ``batch_minres`` and ``batch_cg_sr`` share the loops of
+``fcg_full``, ``minres_full`` and ``cg_sr_full`` the same way, and
+``batch_fgmres`` mirrors ``fgmres_full`` as ``batch_gmres`` mirrors
+``gmres_full``. ``batch_cg_sr`` has no JAX name: it is the column-batched
+``cg_sr_full`` that the JAX ``batch_refined`` reaches by ``vmap``.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 
 from tpu_sparse_torch.kernels import as_matmat
-from tpu_sparse_torch.solvers.krylov import (_apply_givens_rotations,
+from tpu_sparse_torch.solvers.fcg import _fcg_loop
+from tpu_sparse_torch.solvers.krylov import (EXIT_CHECK, _apply_givens,
                                              _bicgstab_loop, _cg_loop,
-                                             _final_check_relax, _real_dtype)
-
-_ITEM_14 = "ROADMAP queue 1, item 14 (other solvers)"
+                                             _final_check_relax, _real_dtype,
+                                             _upper_triangular_solve)
+from tpu_sparse_torch.solvers.minres import _minres_loop
+from tpu_sparse_torch.solvers.pipelined import _cg_sr_loop
 
 
 def cols_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -89,6 +95,50 @@ def batch_cg(A, B: torch.Tensor, X0=None, *, tol: float = 1e-5,
     bs, atol_t, atol2 = _thresholds(B, tol, atol)
     X, k = _cg_loop(A_mm, as_matmat(M), B, X0, atol2, maxiter, M is None,
                     vdot_real=cols_vdot_real)
+    res, failed = _final(A_mm, B, X, bs, atol_t, tol)
+    info = torch.where(failed, -1, 0).to(torch.int32)
+    return X, info, _per_column(k, B.shape[1]), res
+
+
+def batch_cg_sr(A, B: torch.Tensor, X0=None, *, tol: float = 1e-5,
+                atol=0.0, maxiter: Optional[int] = None, M=None):
+    """Single-reduction CG over each column of B (``cg_sr_full`` per
+    column)."""
+    X0 = _start(B, X0)
+    maxiter = 10 * B.shape[0] if maxiter is None else int(maxiter)
+    A_mm = as_matmat(A)
+    bs, atol_t, atol2 = _thresholds(B, tol, atol)
+    X, k = _cg_sr_loop(A_mm, as_matmat(M), B, X0, atol2, maxiter, M is None,
+                       vdot_real=cols_vdot_real)
+    res, failed = _final(A_mm, B, X, bs, atol_t, tol)
+    info = torch.where(failed, -1, 0).to(torch.int32)
+    return X, info, _per_column(k, B.shape[1]), res
+
+
+def batch_fcg(A, B: torch.Tensor, X0=None, *, tol: float = 1e-5,
+              atol=0.0, maxiter: Optional[int] = None, M=None):
+    """Flexible CG over each column of B (``fcg_full`` per column)."""
+    X0 = _start(B, X0)
+    maxiter = 10 * B.shape[0] if maxiter is None else int(maxiter)
+    A_mm = as_matmat(A)
+    bs, atol_t, atol2 = _thresholds(B, tol, atol)
+    X, k = _fcg_loop(A_mm, as_matmat(M), B, X0, atol2, maxiter,
+                     vdot_real=cols_vdot_real)
+    res, failed = _final(A_mm, B, X, bs, atol_t, tol)
+    info = torch.where(failed, -1, 0).to(torch.int32)
+    return X, info, _per_column(k, B.shape[1]), res
+
+
+def batch_minres(A, B: torch.Tensor, X0=None, *, tol: float = 1e-5,
+                 atol=0.0, maxiter: Optional[int] = None, M=None):
+    """MINRES over each column of B (``minres_full`` per column)."""
+    X0 = _start(B, X0)
+    maxiter = 10 * B.shape[0] if maxiter is None else int(maxiter)
+    A_mm = as_matmat(A)
+    bs, atol_t, _ = _thresholds(B, tol, atol)
+    atol_norm = torch.maximum(tol * torch.sqrt(bs), atol_t)
+    X, k = _minres_loop(A_mm, as_matmat(M), B, X0, atol_norm, maxiter,
+                        vdot_real=cols_vdot_real)
     res, failed = _final(A_mm, B, X, bs, atol_t, tol)
     info = torch.where(failed, -1, 0).to(torch.int32)
     return X, info, _per_column(k, B.shape[1]), res
@@ -154,8 +204,13 @@ def _cgs2_rows(V: torch.Tensor, x: torch.Tensor, kplus: int,
 
 
 def _arnoldi_rows(k: int, A, M, V: torch.Tensor, restart: int):
+    return _arnoldi_step_rows(k, M(A(V[:, k])), V, restart)
+
+
+def _arnoldi_step_rows(k: int, w: torch.Tensor, V: torch.Tensor,
+                       restart: int):
+    """``krylov._arnoldi_step`` for every row."""
     eps = torch.finfo(_real_dtype(V.dtype)).eps
-    w = M(A(V[:, k]))
     w_pre = _rows_norm(w)
     w, h = _cgs2_rows(V, w, k + 1, w_pre)
     unit_w, w_norm = _safe_normalize_rows(w, thresh=eps * w_pre)
@@ -183,19 +238,6 @@ def gj_solve_batched(D: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return aug[:, :, s:]
 
 
-def _upper_solve_rows(R: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Back-substitution for each upper-triangular R[j]; zero pivots give
-    0 (``krylov._upper_triangular_solve``)."""
-    m = R.shape[-1]
-    y = torch.zeros_like(c)
-    for kk in range(m):
-        i = m - 1 - kk
-        num = c[:, i] - torch.sum(R[:, i] * y, dim=-1)
-        piv = R[:, i, i]
-        y[:, i] = num / torch.where(piv != 0, piv, torch.ones_like(piv))
-    return y
-
-
 def _lstsq_rows(H: torch.Tensor, beta: torch.Tensor, restart: int):
     """min_y ||beta e1 - H^T y|| per row: the normal equations for 64-bit
     and complex cycles, Householder QR for 32-bit ones (``krylov``'s
@@ -212,7 +254,7 @@ def _lstsq_rows(H: torch.Tensor, beta: torch.Tensor, restart: int):
             eps * trace)[:, None, None]
         return gj_solve_batched(G, _bmv(Hh, rhs)[:, :, None])[:, :, 0]
     Q, R = torch.linalg.qr(Hm, mode="reduced")
-    return _upper_solve_rows(R, _bmv(Q.conj().transpose(1, 2), rhs))
+    return _upper_triangular_solve(R, _bmv(Q.conj().transpose(1, 2), rhs))
 
 
 def _new_basis_rows(unit_residual: torch.Tensor, restart: int):
@@ -241,42 +283,97 @@ def _gmres_batched_rows(A, b, x0, unit_residual, residual_norm, ptol,
 
 
 def _gmres_incremental_rows(A, b, x0, unit_residual, residual_norm, ptol,
-                            restart, M):
+                            restart, M, flexible: bool = False):
     """One restart cycle of ``krylov._gmres_incremental`` for every row:
-    the Givens helpers of ``krylov`` run elementwise on (k,) entries."""
+    ``krylov._apply_givens`` on a (k, restart + 1, restart + 1) stack of
+    rotation products. ``flexible``: the FGMRES cycle, as there."""
     dtype, dev, nrhs = b.dtype, b.device, b.shape[0]
     V = _new_basis_rows(unit_residual, restart)
+    Z = torch.zeros_like(V[:, :restart]) if flexible else None
     R = torch.zeros((nrhs, restart, restart), dtype=dtype, device=dev)
-    beta_vec = torch.zeros((restart + 1, nrhs), dtype=dtype, device=dev)
-    beta_vec[0] = residual_norm.to(dtype)
-    givens = torch.zeros((restart, 2, nrhs), dtype=dtype, device=dev)
-    err = beta_vec[0].abs()
+    beta = residual_norm.to(dtype)
+    G = torch.eye(restart + 1, dtype=dtype, device=dev).repeat(nrhs, 1, 1)
+    err = beta.abs()
     breakdown = torch.zeros(nrhs, dtype=torch.bool, device=dev)
     k_done = torch.zeros(nrhs, dtype=torch.int64, device=dev)
     for k in range(restart):
         active = (err > ptol) & ~breakdown
-        unit_w, row, brk = _arnoldi_rows(k, A, M, V, restart)
-        col, cs_k, sn_k = _apply_givens_rotations(row.T, givens, k)
-        bk = cs_k.conj() * beta_vec[k] - sn_k.conj() * beta_vec[k + 1]
-        bk1 = sn_k * beta_vec[k] + cs_k * beta_vec[k + 1]
+        if flexible:
+            z = M(V[:, k])
+            Z[:, k] = torch.where(active[:, None], z, Z[:, k])
+            unit_w, row, brk = _arnoldi_step_rows(k, A(z), V, restart)
+        else:
+            unit_w, row, brk = _arnoldi_rows(k, A, M, V, restart)
+        col, G_new = _apply_givens(G, row, k)
         V[:, k + 1] = torch.where(active[:, None], unit_w, V[:, k + 1])
-        R[:, :, k] = torch.where(active[:, None], col[:restart].T, R[:, :, k])
-        givens[k] = torch.where(active, torch.stack([cs_k, sn_k]), givens[k])
-        beta_vec[k] = torch.where(active, bk, beta_vec[k])
-        beta_vec[k + 1] = torch.where(active, bk1, beta_vec[k + 1])
-        err = torch.where(active, bk1.abs(), err)
+        R[:, :, k] = torch.where(active[:, None], col[:, :restart], R[:, :, k])
+        G = torch.where(active[:, None, None], G_new, G)
+        err = torch.where(active, (beta * G_new[:, k + 1, 0]).abs(), err)
         breakdown = torch.where(active, brk, breakdown)
         k_done = k_done + active.to(torch.int64)
+        if k % EXIT_CHECK == EXIT_CHECK - 1 and not bool(
+                ((err > ptol) & ~breakdown).any()):
+            break  # the later steps would all be masked
     # identity on R's unused tail: one triangular solve gives y = 0 past k
     idx = torch.arange(restart, device=dev)
     unused = idx[None, :] >= k_done[:, None]
     R = R + torch.diag_embed(unused.to(dtype))
     rhs = torch.where(unused, torch.zeros((), dtype=dtype, device=dev),
-                      beta_vec[:restart].T)
-    y = _upper_solve_rows(R, rhs)
+                      beta[:, None] * G[:, :restart, 0])
+    y = _upper_triangular_solve(R, rhs)
+    if flexible:
+        x = x0 + _bmv(Z.transpose(1, 2), y)
+        return (x,) + _safe_normalize_rows(b - A(x))
     x = x0 + _bmv(V[:, :restart].transpose(1, 2), y)
     unit_residual, residual_norm = _safe_normalize_rows(M(b - A(x)))
     return x, unit_residual, residual_norm
+
+
+def _rows_operator(A):
+    """A as a map of (k, n) rows to (k, n) rows through one (n, k) product
+    (``as_matmat``)."""
+    A_mm = as_matmat(A)
+    return lambda v: A_mm(v.T).T.contiguous()
+
+
+def _batch_gmres_restarts(A, B, X0, tol, atol, restart, maxiter, M,
+                          cycle_fn, *, left: bool):
+    """``krylov._gmres_restarts`` per row: one host read per restart cycle,
+    on whether any column is active."""
+    X0 = _start(B, X0)
+    n = B.shape[0]
+    restart = min(restart, n)
+    maxiter = 10 * n if maxiter is None else int(maxiter)
+    A_run, M_run = _rows_operator(A), _rows_operator(M)
+    P = M_run if left else (lambda v: v)  # the residual the loop monitors
+    b = B.T.contiguous()
+    b_norm = _rows_norm(b)
+    atol_ = torch.maximum(tol * b_norm, torch.as_tensor(
+        atol, dtype=b_norm.dtype, device=b_norm.device))
+    ptol = atol_
+    if left:
+        ptol = _rows_norm(M_run(b)) * torch.clamp_max(atol_ / torch.where(
+            b_norm > 0, b_norm, torch.ones_like(b_norm)), 1.0)
+
+    x = X0.T.contiguous()
+    unit_residual, residual_norm = _safe_normalize_rows(P(b - A_run(x)))
+    k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    active = (k < maxiter) & (residual_norm > atol_)
+    while bool(active.any()):  # one host read per restart cycle
+        x_n, u_n, r_n = cycle_fn(A_run, b, x, unit_residual, residual_norm,
+                                 ptol, restart, M_run)
+        x = torch.where(active[:, None], x_n, x)
+        unit_residual = torch.where(active[:, None], u_n, unit_residual)
+        residual_norm = torch.where(active, r_n, residual_norm)
+        k = k + active.to(torch.int32)
+        active = (k < maxiter) & (residual_norm > atol_)
+
+    res_norm = _rows_norm(P(b - A_run(x)))
+    relaxed = atol_ * _final_check_relax(_real_dtype(b.dtype))
+    failed = (~torch.isfinite(_rows_norm(x))) | (~torch.isfinite(res_norm)) \
+        | (res_norm > relaxed)
+    info = torch.where(failed, -1, 0).to(torch.int32)
+    return x.T.contiguous(), info, k, res_norm
 
 
 def batch_gmres(A, B: torch.Tensor, X0=None, *, tol: float = 1e-5,
@@ -291,55 +388,16 @@ def batch_gmres(A, B: torch.Tensor, X0=None, *, tol: float = 1e-5,
         cycle_fn = _gmres_incremental_rows
     else:
         raise ValueError(f"unsupported solve_method: {solve_method}")
-    X0 = _start(B, X0)
-    n = B.shape[0]
-    restart = min(restart, n)
-    maxiter = 10 * n if maxiter is None else int(maxiter)
-    A_mm, M_mm = as_matmat(A), as_matmat(M)
-
-    def A_run(v):  # (k, n) rows -> (k, n) rows through one (n, k) product
-        return A_mm(v.T).T.contiguous()
-
-    def M_run(v):
-        return M_mm(v.T).T.contiguous()
-
-    b = B.T.contiguous()
-    b_norm = _rows_norm(b)
-    atol_ = torch.maximum(tol * b_norm, torch.as_tensor(
-        atol, dtype=b_norm.dtype, device=b_norm.device))
-    Mb_norm = _rows_norm(M_run(b))
-    ptol = Mb_norm * torch.clamp_max(
-        atol_ / torch.where(b_norm > 0, b_norm, torch.ones_like(b_norm)), 1.0)
-
-    # the restart loop of krylov._gmres_solve, per row
-    x = X0.T.contiguous()
-    unit_residual, residual_norm = _safe_normalize_rows(M_run(b - A_run(x)))
-    k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
-    active = (k < maxiter) & (residual_norm > atol_)
-    while bool(active.any()):  # one host read per restart cycle
-        x_n, u_n, r_n = cycle_fn(A_run, b, x, unit_residual, residual_norm,
-                                 ptol, restart, M_run)
-        x = torch.where(active[:, None], x_n, x)
-        unit_residual = torch.where(active[:, None], u_n, unit_residual)
-        residual_norm = torch.where(active, r_n, residual_norm)
-        k = k + active.to(torch.int32)
-        active = (k < maxiter) & (residual_norm > atol_)
-
-    res_norm = _rows_norm(M_run(b - A_run(x)))
-    relaxed = atol_ * _final_check_relax(_real_dtype(b.dtype))
-    failed = (~torch.isfinite(_rows_norm(x))) | (~torch.isfinite(res_norm)) \
-        | (res_norm > relaxed)
-    info = torch.where(failed, -1, 0).to(torch.int32)
-    return x.T.contiguous(), info, k, res_norm
+    return _batch_gmres_restarts(A, B, X0, tol, atol, restart, maxiter, M,
+                                 cycle_fn, left=True)
 
 
-def batch_fcg(A, B, X0=None, **kw):
-    raise NotImplementedError(f"batch_fcg is not ported yet: {_ITEM_14}")
-
-
-def batch_fgmres(A, B, X0=None, **kw):
-    raise NotImplementedError(f"batch_fgmres is not ported yet: {_ITEM_14}")
-
-
-def batch_minres(A, B, X0=None, **kw):
-    raise NotImplementedError(f"batch_minres is not ported yet: {_ITEM_14}")
+def batch_fgmres(A, B: torch.Tensor, X0=None, *, tol: float = 1e-5,
+                 atol=0.0, restart: int = 20, maxiter: Optional[int] = None,
+                 M=None):
+    """FGMRES(restart) over each column of B (``fgmres_full`` per column):
+    iterations are restart cycles and the residual is the true one. One
+    host read per cycle, on whether any column is active."""
+    return _batch_gmres_restarts(
+        A, B, X0, tol, atol, restart, maxiter, M,
+        partial(_gmres_incremental_rows, flexible=True), left=False)

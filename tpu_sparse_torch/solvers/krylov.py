@@ -15,9 +15,10 @@ condition once every ``CHECK_EVERY`` iterations, and between checks each
 iteration is masked by an on-device ``active`` flag, so the state freezes
 exactly at the iteration where the per-iteration loop would have stopped
 and ``k`` counts the same iterations. GMRES reads its condition once per
-restart cycle; inside a cycle every Arnoldi step runs, and a breakdown (or
-the incremental method's ``err <= ptol`` early exit) masks the later steps
-on the device.
+restart cycle; inside a cycle a breakdown (or the incremental method's
+``err <= ptol`` early exit) masks the later steps on the device, and the
+incremental cycle (also FGMRES's) reads the host every ``EXIT_CHECK``
+steps to stop once all later steps would be masked.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ from tpu_sparse_torch.utils.tree import (
 Operator = Union[Any, Callable]
 
 CHECK_EVERY = 16  # iterations between host reads of the loop condition
+# Arnoldi steps between host reads of the incremental cycle's early exit
+EXIT_CHECK = 4
 
 
 def _identity(x):
@@ -80,6 +83,29 @@ def _final_check_relax(dtype: torch.dtype) -> float:
     slightly above it. The reference relaxes its final check 10x for this
     (torch_sparse_linalg.py:765-771); 64-bit stays strict."""
     return 10.0 if torch.finfo(dtype).bits <= 32 else 1.0
+
+
+def _thresholds(b, tol: float, atol):
+    """(<b, b>, atol as a tensor, the squared stopping threshold
+    max(tol^2 <b, b>, atol^2))."""
+    bs = tree_vdot_real(b, b)
+    atol_t = torch.as_tensor(atol, dtype=bs.dtype, device=bs.device)
+    return bs, atol_t, torch.maximum((tol * tol) * bs, atol_t * atol_t)
+
+
+def _final_check(A_fn: Callable, b, x, bs: torch.Tensor,
+                 atol_t: torch.Tensor, tol: float):
+    """(info, ||b - A x||). The residual is the unpreconditioned one: the
+    loops stop on <r, r> without M, and a strong M can inflate ||M r|| and
+    flag a false pass. info is -1 when x or the residual is not finite or
+    the residual exceeds max(tol ||b||, atol) (relaxed in 32-bit), else 0.
+    """
+    res_norm = tree_norm(tree_sub(b, A_fn(x)))
+    thresh = torch.maximum(tol * torch.sqrt(bs), atol_t) * _final_check_relax(
+        _real_dtype(_float_dtype(b)))
+    failed = (~torch.isfinite(tree_norm(x))) | (~torch.isfinite(res_norm)) \
+        | (res_norm > thresh)
+    return torch.where(failed, -1, 0).to(torch.int32), res_norm
 
 
 def _cg_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
@@ -145,21 +171,9 @@ def cg_full(A: Operator, b: Any, x0: Optional[Any] = None, *,
     precond_identity = M is None
     M_fn = _identity if M is None else as_matvec(M)
 
-    bs = tree_vdot_real(b, b)
-    atol_t = torch.as_tensor(atol, dtype=bs.dtype, device=bs.device)
-    atol2 = torch.maximum((tol * tol) * bs, atol_t * atol_t)
-
+    bs, atol_t, atol2 = _thresholds(b, tol, atol)
     x, k = _cg_loop(A_fn, M_fn, b, x0, atol2, maxiter, precond_identity)
-
-    # Unpreconditioned residual: the loop's stopping rule uses <r, r>
-    # without M, and a strong M can inflate ||M r|| and flag a false pass.
-    res_norm = tree_norm(tree_sub(b, A_fn(x)))
-    b_norm = torch.sqrt(bs)
-    thresh = torch.maximum(tol * b_norm, atol_t) * _final_check_relax(
-        _real_dtype(_float_dtype(b)))
-    failed = (~torch.isfinite(tree_norm(x))) | (~torch.isfinite(res_norm)) \
-        | (res_norm > thresh)
-    info = torch.where(failed, -1, 0).to(torch.int32)
+    info, res_norm = _final_check(A_fn, b, x, bs, atol_t, tol)
     return x, info, k, res_norm
 
 
@@ -250,19 +264,10 @@ def bicgstab_full(A: Operator, b: Any, x0: Optional[Any] = None, *,
     A_fn = as_matvec(A)
     M_fn = _identity if M is None else as_matvec(M)
 
-    bs = tree_vdot_real(b, b)
-    atol_t = torch.as_tensor(atol, dtype=bs.dtype, device=bs.device)
-    atol2 = torch.maximum((tol * tol) * bs, atol_t * atol_t)
-
+    bs, atol_t, atol2 = _thresholds(b, tol, atol)
     x, k = _bicgstab_loop(A_fn, M_fn, b, x0, atol2, maxiter)
-
-    # unpreconditioned residual, as in cg_full
-    res_norm = tree_norm(tree_sub(b, A_fn(x)))
-    thresh = torch.maximum(tol * torch.sqrt(bs), atol_t) * _final_check_relax(
-        _real_dtype(_float_dtype(b)))
-    failed = (~torch.isfinite(tree_norm(x))) | (~torch.isfinite(res_norm)) \
-        | (res_norm > thresh)
-    info = torch.where(k < 0, k, torch.where(failed, -1, 0)).to(torch.int32)
+    info, res_norm = _final_check(A_fn, b, x, bs, atol_t, tol)
+    info = torch.where(k < 0, k, info).to(torch.int32)
     return x, info, k, res_norm
 
 
@@ -312,8 +317,12 @@ def _kth_arnoldi_iteration(k: int, A: Callable, M: Callable,
                            V: torch.Tensor, restart: int):
     """One Arnoldi step (reference :331-388): returns the new basis vector
     V[k+1], the row k of H (length restart + 1) and the breakdown flag."""
+    return _arnoldi_step(k, M(A(V[k])), V, restart)
+
+
+def _arnoldi_step(k: int, w: torch.Tensor, V: torch.Tensor, restart: int):
+    """``_kth_arnoldi_iteration`` given the product w of step k."""
     eps = torch.finfo(_real_dtype(V.dtype)).eps
-    w = M(A(V[k]))
     w_pre = torch.linalg.vector_norm(w)
     w, h = _iterative_classical_gram_schmidt(V, w, k + 1, w_pre)
     unit_w, w_norm = _safe_normalize(w, thresh=eps * w_pre)
@@ -340,15 +349,13 @@ def _gauss_jordan_solve(G: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _upper_triangular_solve(R: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Back-substitution for upper-triangular R; a zero pivot gives 0."""
-    m = R.shape[0]
-    y = torch.zeros_like(c)
-    for k in range(m):
-        i = m - 1 - k
-        num = c[i] - torch.dot(R[i], y)
-        piv = R[i, i]
-        y[i] = num / torch.where(piv != 0, piv, torch.ones_like(piv))
-    return y
+    """Back-substitution for upper-triangular R; leading dimensions batch.
+    A zero pivot divides by 1, as the JAX package's loop does; one
+    triangular solve instead of its loop over the rows."""
+    d = torch.diagonal(R, dim1=-2, dim2=-1)
+    R = R + torch.diag_embed((d == 0).to(R.dtype))
+    return torch.linalg.solve_triangular(R, c.unsqueeze(-1),
+                                         upper=True).squeeze(-1)
 
 
 def _lstsq_normal(H: torch.Tensor, beta: torch.Tensor, restart: int):
@@ -404,78 +411,152 @@ def _gmres_batched(A, b, x0, unit_residual, residual_norm, ptol, restart, M):
 
 def _givens_rotation(a, b):
     """cs, sn zeroing b (reference ``_givens_rotation``, :508-518)."""
-    denom = torch.sqrt(a.abs() ** 2 + b.abs() ** 2)
+    denom = torch.hypot(a.abs(), b.abs())
     safe = denom > 0
-    denom_ = torch.where(safe, denom, torch.ones_like(denom))
-    cs = torch.where(safe, a / denom_, torch.ones_like(a))
-    sn = torch.where(safe, -b / denom_, torch.zeros_like(b))
-    return cs, sn
+    denom_ = torch.where(safe, denom, 1.0)
+    return (torch.where(safe, a / denom_, 1.0),
+            torch.where(safe, -b / denom_, 0.0))
 
 
-def _apply_givens_rotations(col: torch.Tensor, givens: torch.Tensor, k: int):
-    """Rotations 0..k-1 on the new column, then the k-th rotation
-    (reference :521-554 / :599-623)."""
-    col = col.clone()
-    for i in range(k):
-        cs, sn = givens[i, 0], givens[i, 1]
-        hi = cs.conj() * col[i] - sn.conj() * col[i + 1]
-        hip1 = sn * col[i] + cs * col[i + 1]
-        col[i] = hi
-        col[i + 1] = hip1
-    cs_k, sn_k = _givens_rotation(col[k], col[k + 1])
-    col[k] = cs_k.conj() * col[k] - sn_k.conj() * col[k + 1]
-    col[k + 1] = 0.0
-    return col, cs_k, sn_k
+def _apply_givens(G: torch.Tensor, row: torch.Tensor, k: int):
+    """The rotations 0..k-1 on the new Hessenberg column ``row``, then the
+    k-th rotation, which zeroes its entry k + 1 (reference :521-554 /
+    :599-623). The rotations so far are held as their product G, (m, m)
+    with m = restart + 1, so that applying them is one matrix-vector
+    product, not k launches of scalar work; the rotated right-hand side
+    beta e1 is beta G[:, 0]. Leading dimensions of G and row batch.
+    Returns (rotated column, G with the k-th rotation)."""
+    col = torch.matmul(G, row.unsqueeze(-1)).squeeze(-1)
+    a, b = col[..., k], col[..., k + 1]
+    cs, sn = _givens_rotation(a, b)
+    col[..., k] = cs.conj() * a - sn.conj() * b
+    col[..., k + 1] = 0.0
+    gk, gk1 = G[..., k, :], G[..., k + 1, :]
+    c_, s_ = cs.unsqueeze(-1), sn.unsqueeze(-1)
+    G = G.clone()
+    G[..., k, :] = c_.conj() * gk - s_.conj() * gk1
+    G[..., k + 1, :] = s_ * gk + c_ * gk1
+    return col, G
 
 
 def _gmres_incremental(A, b, x0, unit_residual, residual_norm, ptol,
-                       restart, M):
+                       restart, M, flexible: bool = False):
     """One restart cycle, incremental (Givens QR) method (reference
-    :557-638), with the in-cycle early exit ``err <= ptol`` as a mask."""
+    :557-638), with the in-cycle early exit ``err <= ptol`` as a mask;
+    every ``EXIT_CHECK`` steps one host read ends the cycle once every
+    later step would be masked, so no matvec or preconditioner runs past
+    the exit by more than ``EXIT_CHECK - 1`` steps.
+
+    ``flexible`` makes it the FGMRES cycle (``solvers.fgmres``): M on the
+    right, w = A(M(v_k)), the preconditioned vectors z_k kept in Z and x
+    updated from Z, and the new residual the true b - A x."""
     dtype, dev = b.dtype, b.device
     V = _new_basis(unit_residual, restart)
+    Z = torch.zeros_like(V[:restart]) if flexible else None
     R = torch.zeros((restart, restart), dtype=dtype, device=dev)
-    beta_vec = torch.zeros(restart + 1, dtype=dtype, device=dev)
-    beta_vec[0] = residual_norm.to(dtype)
-    givens = torch.zeros((restart, 2), dtype=dtype, device=dev)
-    err = beta_vec[0].abs()
+    beta = residual_norm.to(dtype)
+    G = torch.eye(restart + 1, dtype=dtype, device=dev)
+    err = beta.abs()
     breakdown = torch.zeros((), dtype=torch.bool, device=dev)
     k_done = torch.zeros((), dtype=torch.int64, device=dev)
     for k in range(restart):
         active = (err > ptol) & ~breakdown
-        unit_w, row, brk = _kth_arnoldi_iteration(k, A, M, V, restart)
-        col, cs_k, sn_k = _apply_givens_rotations(row, givens, k)
-        bk = cs_k.conj() * beta_vec[k] - sn_k.conj() * beta_vec[k + 1]
-        bk1 = sn_k * beta_vec[k] + cs_k * beta_vec[k + 1]
+        if flexible:
+            z = M(V[k])
+            Z[k] = torch.where(active, z, Z[k])
+            unit_w, row, brk = _arnoldi_step(k, A(z), V, restart)
+        else:
+            unit_w, row, brk = _kth_arnoldi_iteration(k, A, M, V, restart)
+        col, G_new = _apply_givens(G, row, k)
         V[k + 1] = torch.where(active, unit_w, V[k + 1])
         R[:, k] = torch.where(active, col[:restart], R[:, k])
-        givens[k] = torch.where(active, torch.stack([cs_k, sn_k]), givens[k])
-        beta_vec[k] = torch.where(active, bk, beta_vec[k])
-        beta_vec[k + 1] = torch.where(active, bk1, beta_vec[k + 1])
-        err = torch.where(active, bk1.abs(), err)
+        G = torch.where(active, G_new, G)
+        err = torch.where(active, (beta * G_new[k + 1, 0]).abs(), err)
         breakdown = torch.where(active, brk, breakdown)
         k_done = k_done + active.to(torch.int64)
+        if k % EXIT_CHECK == EXIT_CHECK - 1 and not bool(
+                (err > ptol) & ~breakdown):
+            break  # the later steps would all be masked
     # identity on R's unused tail: one triangular solve gives y = 0 past k
     idx = torch.arange(restart, device=dev)
     R = R + torch.diag((idx >= k_done).to(dtype))
-    rhs = torch.where(idx < k_done, beta_vec[:restart],
+    rhs = torch.where(idx < k_done, beta * G[:restart, 0],
                       torch.zeros((), dtype=dtype, device=dev))
     y = _upper_triangular_solve(R, rhs)
+    if flexible:
+        x = x0 + torch.mv(Z.T, y)
+        return (x,) + _safe_normalize(b - A(x))
     x = x0 + torch.mv(V[:restart].T, y)
     unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
     return x, unit_residual, residual_norm
 
 
-def _gmres_solve(A, b, x0, atol_, ptol, restart, maxiter, M, cycle_fn):
-    """Restart loop (reference ``_gmres_solve_with_method``, :787-803):
-    one host read of the loop condition per cycle."""
-    unit_residual, residual_norm = _safe_normalize(M(b - A(x0)))
-    x, k = x0, 0
+def _flat_operands(A_fn: Callable, M_fn: Callable, b, x0):
+    """The restart cycles work on one flat vector: (A, M, b, x0) on that
+    vector and the map of a flat result back to b's structure. A single
+    1-D tensor passes through unchanged; other pytree operands are
+    flattened and concatenated."""
+    leaves, spec = pytree.tree_flatten(b)
+    if len(leaves) == 1 and leaves[0].dim() == 1:
+        return A_fn, M_fn, leaves[0], tree_leaves(x0)[0], _identity
+
+    def unflatten(v):
+        out, at = [], 0
+        for leaf in leaves:
+            out.append(v[at:at + leaf.numel()].reshape(leaf.shape))
+            at += leaf.numel()
+        return pytree.tree_unflatten(out, spec)
+
+    def flatten(tree):
+        return torch.cat([leaf.reshape(-1) for leaf in tree_leaves(tree)])
+
+    return (lambda v: flatten(A_fn(unflatten(v))),
+            lambda v: flatten(M_fn(unflatten(v))),
+            flatten(b), flatten(x0), unflatten)
+
+
+def _gmres_restarts(A: Operator, b: Any, x0: Optional[Any], tol: float,
+                    atol: float, restart: int, maxiter: Optional[int],
+                    M: Optional[Operator], cycle_fn: Callable, *,
+                    left: bool):
+    """The restart loop of GMRES and FGMRES (reference
+    ``_gmres_solve_with_method``, :787-803), one host read of its condition
+    per cycle, and the final check. ``left``: M preconditions on the left
+    and the loop monitors the preconditioned residual (GMRES); else M is
+    applied inside ``cycle_fn`` on the right and the loop monitors the true
+    residual (FGMRES). Returns (x, info, restart_cycles, residual_norm)."""
+    if x0 is None:
+        x0 = tree_zeros_like(b)
+    _check_tree_compat(x0, b)
+    restart = min(restart, tree_size(b))
+    maxiter = _default_maxiter(b, maxiter)
+    A_run, M_run, b_run, x, unflatten = _flat_operands(
+        as_matvec(A), _identity if M is None else as_matvec(M), b, x0)
+    P = M_run if left else _identity  # the residual the loop monitors
+
+    b_norm = torch.linalg.vector_norm(b_run)
+    atol_ = torch.clamp_min(tol * b_norm, atol)
+    ptol = atol_
+    if left:
+        Mb_norm = torch.linalg.vector_norm(M_run(b_run))
+        ptol = Mb_norm * torch.clamp_max(atol_ / torch.where(
+            b_norm > 0, b_norm, torch.ones_like(b_norm)), 1.0)
+
+    unit_residual, residual_norm = _safe_normalize(P(b_run - A_run(x)))
+    k = 0
     while k < maxiter and bool(residual_norm > atol_):
         x, unit_residual, residual_norm = cycle_fn(
-            A, b, x, unit_residual, residual_norm, ptol, restart, M)
+            A_run, b_run, x, unit_residual, residual_norm, ptol, restart,
+            M_run)
         k += 1
-    return x, k
+
+    res_norm = torch.linalg.vector_norm(P(b_run - A_run(x)))
+    relaxed_atol = atol_ * _final_check_relax(_real_dtype(b_run.dtype))
+    failed = (~torch.isfinite(torch.linalg.vector_norm(x))) \
+        | (~torch.isfinite(res_norm)) | (res_norm > relaxed_atol)
+    info = torch.where(failed, -1, 0).to(torch.int32)
+    k_t = torch.tensor(k, dtype=torch.int32, device=b_norm.device)
+    return unflatten(x), info, k_t, res_norm
 
 
 def gmres(A: Operator, b: Any, x0: Optional[Any] = None, *,
@@ -504,51 +585,5 @@ def gmres_full(A: Operator, b: Any, x0: Optional[Any] = None, *,
         cycle_fn = _gmres_incremental
     else:
         raise ValueError(f"unsupported solve_method: {solve_method}")
-    if x0 is None:
-        x0 = tree_zeros_like(b)
-    _check_tree_compat(x0, b)
-    size = tree_size(b)
-    restart = min(restart, size)
-    if maxiter is None:
-        maxiter = 10 * size  # same default as reference (:719-721)
-    A_fn = as_matvec(A)
-    M_fn = _identity if M is None else as_matvec(M)
-
-    # the cycles work on one flat vector; pytree operands are flattened
-    leaves, spec = pytree.tree_flatten(b)
-    flat = not (len(leaves) == 1 and leaves[0].dim() == 1)
-
-    def unflatten(v):
-        out, at = [], 0
-        for leaf in leaves:
-            out.append(v[at:at + leaf.numel()].reshape(leaf.shape))
-            at += leaf.numel()
-        return pytree.tree_unflatten(out, spec)
-
-    def flatten(tree):
-        return torch.cat([leaf.reshape(-1) for leaf in tree_leaves(tree)])
-
-    if flat:
-        A_run = lambda v: flatten(A_fn(unflatten(v)))  # noqa: E731
-        M_run = lambda v: flatten(M_fn(unflatten(v)))  # noqa: E731
-        b_run, x0_run = flatten(b), flatten(x0)
-    else:
-        A_run, M_run, b_run, x0_run = A_fn, M_fn, leaves[0], \
-            tree_leaves(x0)[0]
-
-    b_norm = torch.linalg.vector_norm(b_run)
-    atol_ = torch.clamp_min(tol * b_norm, atol)
-    Mb_norm = torch.linalg.vector_norm(M_run(b_run))
-    ptol = Mb_norm * torch.clamp_max(
-        atol_ / torch.where(b_norm > 0, b_norm, torch.ones_like(b_norm)), 1.0)
-
-    x, k = _gmres_solve(A_run, b_run, x0_run, atol_, ptol, restart, maxiter,
-                        M_run, cycle_fn)
-
-    res_norm = torch.linalg.vector_norm(M_run(b_run - A_run(x)))
-    relaxed_atol = atol_ * _final_check_relax(_real_dtype(b_run.dtype))
-    failed = (~torch.isfinite(torch.linalg.vector_norm(x))) \
-        | (~torch.isfinite(res_norm)) | (res_norm > relaxed_atol)
-    info = torch.where(failed, -1, 0).to(torch.int32)
-    k_t = torch.tensor(k, dtype=torch.int32, device=b_norm.device)
-    return (unflatten(x) if flat else x), info, k_t, res_norm
+    return _gmres_restarts(A, b, x0, tol, atol, restart, maxiter, M,
+                           cycle_fn, left=True)

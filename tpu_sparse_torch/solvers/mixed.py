@@ -1,7 +1,9 @@
 """Mixed-precision iterative refinement (defect correction).
 
 Counterpart of ``tpu_sparse/solvers/mixed.py`` (``refined_solve``,
-``_make_inner``, ``cg_refined``, ``bicgstab_refined``, ``gmres_refined``):
+``_make_inner``, ``cg_refined``, ``bicgstab_refined``, ``gmres_refined``,
+``cg_sr_refined``, ``minres_refined``, ``fcg_refined``,
+``fgmres_refined``):
 
     x = 0  (f64)
     repeat:
@@ -42,8 +44,12 @@ from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.kernels.cuda_spmv import (make_extended_operator,
                                                 make_extended_operator_f64)
 from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
+from tpu_sparse_torch.solvers.fcg import fcg_full
+from tpu_sparse_torch.solvers.fgmres import fgmres_full
 from tpu_sparse_torch.solvers.krylov import (_default_maxiter, bicgstab_full,
                                              cg_full, gmres_full)
+from tpu_sparse_torch.solvers.minres import minres_full
+from tpu_sparse_torch.solvers.pipelined import cg_sr_full
 from tpu_sparse_torch.sparse.containers import (DIA, is_sparse, values,
                                                 with_values)
 from tpu_sparse_torch.utils.tree import (
@@ -250,6 +256,49 @@ def gmres_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
                          rescue_maxiter=rescue_cap)
 
 
+def cg_sr_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
+                  inner_tol: float = 1e-5, maxiter: Optional[int] = None,
+                  max_sweeps: int = 8, M=None):
+    """Defect correction around the single-reduction CG."""
+    return refined_solve(cg_sr_full, A, b, x0, tol=tol, atol=atol,
+                         inner_tol=inner_tol, maxiter=maxiter,
+                         max_sweeps=max_sweeps, M=M)
+
+
+def minres_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
+                   inner_tol: float = 1e-5, maxiter: Optional[int] = None,
+                   max_sweeps: int = 8, M=None):
+    """Defect correction around MINRES: symmetric indefinite systems with
+    float32 sweeps (a sweep only needs the inner solve to lower the true
+    residual, which MINRES does monotonically)."""
+    return refined_solve(minres_full, A, b, x0, tol=tol, atol=atol,
+                         inner_tol=inner_tol, maxiter=maxiter,
+                         max_sweeps=max_sweeps, M=M)
+
+
+def fcg_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
+                inner_tol: float = 1e-5, maxiter: Optional[int] = None,
+                max_sweeps: int = 8, M=None):
+    """Defect correction around flexible CG. A preconditioner with ``.to``
+    is cast to float32 for the sweeps; a plain callable M is applied to
+    float32 vectors there and must accept them."""
+    return refined_solve(fcg_full, A, b, x0, tol=tol, atol=atol,
+                         inner_tol=inner_tol, maxiter=maxiter,
+                         max_sweeps=max_sweeps, M=M)
+
+
+def fgmres_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
+                   inner_tol: float = 1e-5, restart: int = 20,
+                   maxiter: Optional[int] = None, max_sweeps: int = 8,
+                   M=None):
+    """Defect correction around FGMRES (M as in ``fcg_refined``). Unlike
+    ``gmres_refined`` it keeps the given restart, as the JAX package
+    does."""
+    return refined_solve(fgmres_full, A, b, x0, tol=tol, atol=atol,
+                         inner_tol=inner_tol, maxiter=maxiter,
+                         max_sweeps=max_sweeps, M=M, restart=restart)
+
+
 def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
                         X0=None, *, tol: float = 1e-8, atol: float = 0.0,
                         inner_tol: float = 1e-5,
@@ -260,7 +309,7 @@ def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
                         **inner_kwargs):
     """``refined_solve`` for each column of an (n, k) block B, with a
     batched inner solver (``batch_cg``, ``batch_bicgstab``,
-    ``batch_gmres``). A column that is done solves a zero right-hand side,
+    ``batch_gmres``, ``batch_fcg``, ``batch_fgmres``, ``batch_minres``). A column that is done solves a zero right-hand side,
     which takes 0 inner iterations, and is never accepted again: each
     column ends as ``refined_solve`` would end it alone. Returns (X,
     infos, inner iterations, res_norms), each per column."""
@@ -323,18 +372,18 @@ def batch_refined(method: str, A, B: torch.Tensor, X0=None, *,
                   tol: float = 1e-8, atol: float = 0.0,
                   maxiter: Optional[int] = None, M=None, **kw):
     """Mixed-precision solve of each column of B by the defect correction
-    of ``cg_refined`` / ``bicgstab_refined`` / ``gmres_refined`` (their
-    inner tolerance, sweep count and GMRES restart policy). Returns (X,
-    infos, inner_iterations, res_norms)."""
-    from tpu_sparse_torch.solvers.batched import (batch_bicgstab, batch_cg,
-                                                  batch_gmres)
+    of the method's ``*_refined`` (its inner tolerance, sweep count and,
+    for GMRES, restart policy). Returns (X, infos, inner_iterations,
+    res_norms)."""
+    from tpu_sparse_torch.solvers import batched
 
-    inner = {"cg": batch_cg, "bicgstab": batch_bicgstab,
-             "gmres": batch_gmres}
+    inner = {"cg": batched.batch_cg, "cg_sr": batched.batch_cg_sr,
+             "bicgstab": batched.batch_bicgstab,
+             "gmres": batched.batch_gmres, "fcg": batched.batch_fcg,
+             "fgmres": batched.batch_fgmres,
+             "minres": batched.batch_minres}
     if method not in inner:
-        raise NotImplementedError(
-            f"batch_refined for '{method}' is not ported yet: ROADMAP "
-            "queue 1, item 14 (other solvers)")
+        raise ValueError(f"unknown krylov method: {method}")
     caps = {}
     if method == "gmres":
         n = B.shape[0]
