@@ -52,7 +52,7 @@ counters set to 0 just before it and read just after:
   same cycle on the plain versions and the block V-cycle against the
   single ones, and times the cycle by level; phase (21) runs the
   lid-driven cavity (``tpu_sparse_torch.apps.ldc``, float64: K3) on the
-  card against the CPU at nx = 64 (200 steps) and at nx = 256 for 500
+  card against the CPU at nx = 64 (100 steps) and at nx = 256 for 150
   steps;
 * phases (22)-(23): single-reduction CG, FCG (M None and the AMG V(0,3)
   cycle), MINRES on the shifted, indefinite Poisson system and FGMRES(20)
@@ -64,7 +64,18 @@ counters set to 0 just before it and read just after:
   methods at 32^3 on the card against the CPU; gradients through
   matrix-free callables (K4 with ``A_transpose``, a torch-op stencil
   closing over a coefficient, and the error a callable without a
-  transpose raises).
+  transpose raises);
+* phases (24)-(25): the direct solvers through ``solve(...,
+  method="direct")``: a tridiagonal n = 500 (PCR) against the CPU's
+  Thomas solve, a dense n = 2,048, the general system poisson2d(512) +
+  0.1 triu as CSR (n = 262,144: the supernodal LU, every level group one
+  K4 / K5 launch, one K6/K7 launch with B of 8 columns) in float32 and
+  float64 beside SuperLU's own solve of the same factors, the same system
+  at n = 16,384 (and SparseLU there), the level solve against its plain
+  version, level packs against the plain compact SpMV / SpMM, gradients
+  on the card against the CPU; then the lid-driven cavity with
+  ``solver="direct"`` (block PCR) against the CPU at nx = 64 and its
+  steps per second at nx = 256.
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
@@ -840,6 +851,10 @@ def main() -> int:
                        times=times, cg_iters=solves[None])
     systems.clear()
     torch.cuda.empty_cache()
+
+    # ---- (24)-(25) the direct solvers and the LDC's direct path ----------
+    direct_phases(dev, counts=counts, reset_counts=reset_counts,
+                  main_runs=main_runs, times=times)
 
     # ---- results -----------------------------------------------------------
     src_spmv = "tpu_sparse_torch/csrc/dia_spmv.cu"
@@ -1715,26 +1730,30 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
              lambda size, k: (bell_bytes(bell64, size, k), None),
              2 * bell64.blocks.numel(), True)
 
-    def multi_and_singles(op, Bm, kw):
+    def multi_and_singles(op, Bm, kw, its):
+        """The timed calls; each keeps its iterations in ``its``."""
         def multi():
-            return solve(op, Bm, **kw)[1].iterations
+            its["multi"] = solve(op, Bm, **kw)[1].iterations
 
         def singles():
-            return [solve(op, Bm[:, j].contiguous(), **kw)[1].iterations
-                    for j in range(Bm.shape[1])]
+            its["singles"] = [
+                solve(op, Bm[:, j].contiguous(), **kw)[1].iterations
+                for j in range(Bm.shape[1])]
         return multi, singles
 
     for label, op, Bm, kw, *_ in runs:
-        multi, singles = multi_and_singles(op, Bm, kw)
+        its = {}
+        multi, singles = multi_and_singles(op, Bm, kw, its)
         t_m, t_s = times(multi, 1), times(singles, 1)
-        print(f"  solve {label:38s} {fmt(t_m)} ({multi()} it);   "
-              f"{Bm.shape[1]} single-RHS solves {fmt(t_s)} ({singles()} it);"
-              f" ratio {t_s[0] / t_m[0]:.2f}", flush=True)
+        print(f"  solve {label:38s} {fmt(t_m)} ({its['multi']} it);   "
+              f"{Bm.shape[1]} single-RHS solves {fmt(t_s)} "
+              f"({its['singles']} it); ratio {t_s[0] / t_m[0]:.2f}",
+              flush=True)
 
 
 def amg_phases(dev, g, *, counts, reset_counts, main_runs, times, cg_iters,
-               nx=MAIN_NX, small_nx=F64_NX, ldc_cmp=(64, 200),
-               ldc_run=(256, 500)):
+               nx=MAIN_NX, small_nx=F64_NX, ldc_cmp=(64, 100),
+               ldc_run=(256, 150)):
     """Phases (19)-(21): the AMG hierarchy of the nx^3 Poisson system and
     its V-cycle against the plain versions, the AMG and preconditioner
     solves through ``solve()`` (the main path of this slice) and the
@@ -2039,9 +2058,13 @@ def shifted(A, sigma: float):
 
 def device_busy(run):
     """One call of ``run`` under torch.profiler: (CUDA-event ms, device
-    busy ms or None when the profiler saw no device time, the six kernels
-    with the most device time as (name, ms))."""
+    busy ms or None when the profiler saw no device time, the six rows
+    with the most device time as (name, ms)). Busy time sums the device's
+    own rows (kernels, copies) only: a CPU op's row repeats the device
+    time of the kernels it launched, and CUPTI's "Command Buffer Full"
+    marks a full launch queue, not device work."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -2054,14 +2077,17 @@ def device_busy(run):
         run()
         e1.record()
         torch.cuda.synchronize()
-    dev_us = {}
+    dev_us, busy_us = {}, 0.0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
         if us > 0:
             dev_us[e.key] = us
-    busy = sum(dev_us.values()) / 1e3
+            if (e.device_type == DeviceType.CUDA
+                    and e.key != "Command Buffer Full"):
+                busy_us += us
+    busy = busy_us / 1e3
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
     return (e0.elapsed_time(e1), busy if busy > 0 else None,
             [(k, v / 1e3) for k, v in top])
@@ -2453,6 +2479,368 @@ def more_solver_phases(dev, g, *, counts, reset_counts, main_runs, times,
     del W_sh, A_sh, Wn, Wnt, B, Xs
     torch.cuda.empty_cache()
 
+
+DIRECT_NX = 512  # general_direct_262k: poisson2d(512) + 0.1 triu
+
+
+def skewed_poisson(nx: int, dtype, dev):
+    """poisson2d(nx) + 0.1 triu(poisson2d(nx), 1) in ``dtype`` as a general
+    CSR on ``dev`` (the JAX bench's general-direct system,
+    bench.py:310-352), and its scipy matrix."""
+    import scipy.sparse as sp
+
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.convert import csr_from_arrays, to_scipy_csr
+
+    S = to_scipy_csr(gen.poisson2d(nx, dtype=dtype, device="cpu"))
+    S = (S + 0.1 * sp.triu(S, k=1)).tocsr().astype(dtype)
+    S.sort_indices()
+    return csr_from_arrays(S.data, S.indices, S.indptr, S.shape,
+                           device=dev), S
+
+
+def superlu_reference_residual(S, b, leaf=896) -> float:
+    """True relative residual of SuperLU's own solve of S x = b with the
+    supernodal LU's ordering and options (host scipy, float64): the most
+    the level solves of those factors can give."""
+    import scipy.sparse.linalg as spl
+
+    from tpu_sparse_torch.direct.ordering import nested_dissection
+
+    S = S.astype(np.float64)
+    sigma, _ = nested_dissection(S, leaf=leaf)
+    lu = spl.splu(S[sigma][:, sigma].tocsc(), permc_spec="NATURAL",
+                  diag_pivot_thresh=0.1, options=dict(SymmetricMode=True))
+    bb = np.asarray(b, np.float64)
+    x = np.empty_like(bb)
+    x[sigma] = lu.solve(bb[sigma])
+    return float(np.linalg.norm(bb - S @ x) / np.linalg.norm(bb))
+
+
+def direct_phases(dev, *, counts, reset_counts, main_runs, times,
+                  nx=DIRECT_NX, tri_n=500, dense_n=2048, small_nx=128,
+                  grad_nx=20, K=8, ldc_cmp=(64, 200), ldc_run=(256, 50)):
+    """Phases (24)-(25): the direct solvers through ``solve(...,
+    method="direct")`` on the card (Module C). (24): the tridiagonal
+    n = tri_n (PCR) against the CPU's Thomas solve, ``dense_solve`` at
+    dense_n, the general system ``skewed_poisson(nx)`` in float32 and
+    float64 (the supernodal LU: every level group one K4 / K5 launch) and
+    with B of K columns (K6/K7), the same system at small_nx^2 (float32
+    and float64, SparseLU against the supernodal LU, and the level solve
+    against its plain version), level packs against the plain compact
+    SpMV / SpMM at their main-path shapes, and the gradients of a solve
+    on convection_diffusion_3d_27pt(grad_nx) as CSR, card against CPU. (25):
+    the lid-driven cavity with ``solver="direct"`` (block PCR) on the card
+    against the CPU, then its steps per second."""
+    import torch
+
+    import tpu_sparse_torch
+    from tpu_sparse_torch import direct
+    from tpu_sparse_torch.apps import ldc as tldc
+    from tpu_sparse_torch.direct import supernodal
+    from tpu_sparse_torch.kernels import cuda_cwell
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.sparse import cwell_compact
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.convert import to_csr
+
+    rng = np.random.default_rng(SEED + 24)
+    t_phase = time.perf_counter()
+
+    def fmt(t):
+        return f"{t[0]:.2f} ms ({t[1]:.2f}-{t[2]:.2f})"
+
+    def step(what):
+        print(f"  [{what}: {time.perf_counter() - t_phase:.0f} s into the "
+              "phase]", flush=True)
+
+    def true_rel(S, b, x):
+        """Largest ||b - A x|| / ||b|| over the columns, in float64 on the
+        host (A in its own dtype's values)."""
+        bb = b.detach().double().cpu().numpy()
+        R = bb - S.astype(np.float64) @ x.detach().double().cpu().numpy()
+        return float(np.max(np.linalg.norm(np.atleast_2d(R.T), axis=-1)
+                            / np.linalg.norm(np.atleast_2d(bb.T), axis=-1)))
+
+    def rhs(S, dtype, shape):
+        xt = rng.standard_normal(shape).astype(dtype)
+        return torch.from_numpy((S.astype(np.float64) @ xt).astype(dtype)
+                                ).to(dev)
+
+    def grew_since(before):
+        return {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+
+    def level_packs(lu):
+        return [N for P in (lu.packsL, lu.packsU) for g in P if g
+                for N in g if N is not None]
+
+    def pack_stats(lu):
+        """(levels L / U, groups, plane-pack bytes, compact-plan bytes) of
+        a factor's forward packs (plans exist once a solve has run)."""
+        packs = level_packs(lu)
+        planes = sum(t.numel() * t.element_size() for N in packs
+                     for t in (N.vals, N.idx2, N.srow))
+        plan = 0
+        for N in packs:
+            pl, cv = cwell_compact.compact(N)
+            plan += pl.nbytes + cv.numel() * cv.element_size()
+        return (len(lu.rangesL), len(lu.rangesU), len(packs), planes, plan)
+
+    # ---- (24) the direct solves ----------------------------------------
+    phase(f"(24) main path: solve(..., method='direct') on the card: "
+          f"tridiagonal n={tri_n} (PCR), dense n={dense_n}, the general "
+          f"system poisson2d({nx}) + 0.1 triu as CSR (n = {nx * nx}, "
+          f"supernodal LU) in float32 and float64 and with B of {K} "
+          f"columns, the same at n = {small_nx ** 2}, gradients")
+    A_tri = gen.tridiagonal(tri_n, device=dev)
+    b_tri = torch.from_numpy(rng.standard_normal(tri_n)).to(dev)
+    Md = rng.standard_normal((dense_n, dense_n)) + 2 * np.sqrt(
+        dense_n) * np.eye(dense_n)
+    A_dn, b_dn = (torch.from_numpy(Md).to(dev),
+                  torch.from_numpy(rng.standard_normal(dense_n)).to(dev))
+    systems = {(m, dt): skewed_poisson(m, dt, dev)
+               for m in (nx, small_nx) for dt in (np.float32, np.float64)}
+    rhs_1 = {key: rhs(S, key[1], S.shape[0])
+             for key, (_, S) in systems.items()}
+    rhs_k = {key: rhs(S, key[1], (S.shape[0], K))
+             for key, (_, S) in systems.items() if key[0] == nx}
+    solver = tpu_sparse_torch.SparseSolver()
+    factor_s = {}
+    for key, (A, _) in systems.items():  # set-up: the host factor, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver._supernodal_lu(A)
+        torch.cuda.synchronize()
+        factor_s[key] = time.perf_counter() - t0
+    step("factors")
+
+    reset_counts()  # the main-path run of this phase starts here
+    x_tri, r_tri = tpu_sparse_torch.solve(A_tri, b_tri, method="direct")
+    x_dn, r_dn = tpu_sparse_torch.solve(A_dn, b_dn, method="direct")
+    out = {}
+    for key, (A, S) in systems.items():
+        before = counts()
+        t0 = time.perf_counter()
+        x, r = solver.solve(A, rhs_1[key], method="direct")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        grew = grew_since(before)
+        X = rX = grew_k = None
+        if key in rhs_k:
+            before = counts()
+            X, rX = solver.solve(A, rhs_k[key], method="direct")
+            torch.cuda.synchronize()
+            grew_k = grew_since(before)
+        out[key] = (x, r, grew, first_s, X, rX, grew_k)
+    C = to_csr(gen.convection_diffusion_3d_27pt(grad_nx, dtype=np.float64,
+                                                device="cpu"))
+    b_g = torch.from_numpy(rng.standard_normal(C.shape[0]))
+    grads = {}
+    for where in ("cpu", dev):
+        Cw = C.to(where)
+        vals = Cw.data.clone().requires_grad_()
+        bw = b_g.to(where, copy=True).requires_grad_()
+        xg, rg = solver.solve(Cw.with_data(vals), bw, method="direct")
+        xg.sum().backward()
+        check(rg.converged and rg.residual <= 1e-10,
+              f"differentiated direct solve on {where}")
+        grads[str(where)] = (vals.grad.cpu(), bw.grad.cpu())
+    torch.cuda.synchronize()
+    main_runs["phase (24)"] = counts()
+    print(f"  launches in the main-path run (phase 24): "
+          f"{main_runs['phase (24)']}")
+    step("main path")
+
+    # checks, all after the main-path counts
+    e_tri = rel_err(x_tri.cpu(), direct.thomas_solve(A_tri.to("cpu"),
+                                                     b_tri.cpu()))
+    print(f"  tridiagonal n={tri_n} f64 (PCR on the card): {r_tri}; "
+          f"against the CPU's Thomas solve {e_tri:.2e}")
+    check(r_tri.converged and e_tri <= 1e-10,
+          "tridiagonal direct solve: the card's PCR differs from Thomas")
+    e_dn = rel_err(x_dn.cpu(), direct.dense_solve(A_dn.cpu(), b_dn.cpu()))
+    print(f"  dense n={dense_n} f64: {r_dn}; against the CPU {e_dn:.2e}")
+    check(r_dn.converged and e_dn <= 1e-10, "dense direct solve differs")
+    ref64 = superlu_reference_residual(systems[nx, np.float64][1],
+                                       rhs_1[nx, np.float64].cpu().numpy())
+    print(f"  general n={nx * nx}: SuperLU's own float64 solve with the "
+          f"supernodal LU's ordering and options: true rel res {ref64:.3e}"
+          " (what these factors can give)")
+    step("SuperLU reference")
+    sfx = {np.float32: "f32", np.float64: "f64"}
+    for key, (x, r, grew, first_s, X, rX, grew_k) in out.items():
+        m, dt = key
+        A, S = systems[key]
+        lu = solver._supernodal_lu(A)
+        lvL, lvU, groups, planes, plan = pack_stats(lu)
+        rel1 = true_rel(S, rhs_1[key], x)
+        name = f"{dt.__name__} n={m * m}"
+        print(f"  general {name}: factor (host ND + SuperLU + layout, "
+              f"packs on the card) {factor_s[key]:.2f} s; levels L {lvL} "
+              f"U {lvU}, {groups} level groups; plane packs "
+              f"{planes / 1e6:.1f} MB, compact plans {plan / 1e6:.1f} MB; "
+              f"first solve {first_s:.3f} s wall", flush=True)
+        print(f"    single: {r}; true rel res {rel1:.3e}; launches {grew}")
+        check(grew.get(f"cwell_spmv_{sfx[dt]}", 0) > 0,
+              f"general direct {name}: no K4/K5 launch")
+        if m == small_nx:
+            bound = 1e-5 if dt == np.float32 else 1e-10
+            check(rel1 <= bound, f"general direct {name}: true relative "
+                  f"residual above {bound:g}")
+            continue
+        relk = true_rel(S, rhs_k[key], X)
+        print(f"    B ({K} columns): {rX}; worst column true rel res "
+              f"{relk:.3e}; launches {grew_k}", flush=True)
+        check(grew_k.get(f"cwell_spmm_{sfx[dt]}", 0) > 0
+              and grew_k.get(f"cwell_spmv_{sfx[dt]}", 0) == 0,
+              f"general direct {name} with B: a level was not one K6/K7")
+        if dt == np.float64:
+            check(rel1 <= 10 * ref64 and relk <= 10 * ref64,
+                  f"general direct {name}: the level solves lose more than "
+                  "10x against SuperLU's own solve of the same factors")
+    eA = rel_err(grads[str(dev)][0], grads["cpu"][0])
+    eb = rel_err(grads[str(dev)][1], grads["cpu"][1])
+    print(f"  gradients of a solve on convection_diffusion_3d_27pt("
+          f"{grad_nx}) as CSR, f64 (card: supernodal with transpose packs; "
+          f"CPU: host SuperLU): values {eA:.2e}, b {eb:.2e}")
+    check(eA <= 1e-10 and eb <= 1e-10,
+          "direct gradients: card and CPU differ")
+
+    # the f64 B solve's columns against their single solves (float32
+    # factors of this system give no solution to compare); level packs'
+    # kernels against the plain compact product at their main-path shapes
+    # (the deepest pack and every 32nd); the level solve at small_nx^2
+    # against the one on the plain SpMV
+    for dt in (np.float32, np.float64):
+        A, S = systems[nx, dt]
+        X = out[nx, dt][4]
+        lu = solver._supernodal_lu(A)
+        if dt == np.float64:
+            singles = [solver.solve(A, rhs_k[nx, dt][:, j].contiguous(),
+                                    method="direct")[0] for j in range(K)]
+            worst = max(true_rel(S, rhs_k[nx, dt][:, j], singles[j])
+                        for j in range(K))
+            diff = max(rel_err(X[:, j], singles[j]) for j in range(K))
+            print(f"  float64 n={nx * nx}: {K} single solves' worst true "
+                  f"rel res {worst:.3e} (largest x difference from the B "
+                  f"solve's columns {diff:.2e})")
+            check(worst <= 10 * ref64, "float64 single solves of the B "
+                  "columns lose more than 10x against SuperLU's own")
+        packs = sorted(level_packs(lu),
+                       key=lambda N: -cwell_compact.compact(N)[0].depth)
+        sample = packs[:1] + packs[1::32]
+        y = torch.from_numpy(rng.standard_normal(lu.n_pad).astype(dt)).to(
+            dev)
+        Y = torch.from_numpy(rng.standard_normal((lu.n_pad, K)).astype(
+            dt)).to(dev)
+        e1 = ek = 0.0
+        for N in sample:
+            pl, cv = cwell_compact.compact(N)
+            e1 = max(e1, rel_err(cuda_cwell.cwell_spmv_cuda(N, y),
+                                 ref.cwell_compact_spmv(pl, cv, y)))
+            ek = max(ek, rel_err(cuda_cwell.cwell_spmm_cuda(N, Y),
+                                 ref.cwell_compact_spmm(pl, cv, Y)))
+        tol_k = 1e-5 if dt == np.float32 else 1e-12
+        print(f"  {dt.__name__} n={nx * nx}: {len(sample)} of {len(packs)} "
+              f"level packs (deepest plan "
+              f"{cwell_compact.compact(packs[0])[0].depth} slot rows): "
+              f"K4/K5 against the plain compact SpMV {e1:.2e}, K6/K7 "
+              f"against the plain SpMM {ek:.2e}", flush=True)
+        check(e1 <= tol_k and ek <= tol_k,
+              f"{dt.__name__} level packs: a kernel differs from its plain "
+              "version")
+    step("level packs")
+    A, S = systems[small_nx, np.float64]
+    lu = solver._supernodal_lu(A)
+    bp = lu._scatter(rhs_1[small_nx, np.float64], lu.in_idx)
+    y_k = supernodal._level_solve(lu.diagL, lu.packsL, lu.metaL, lu.rangesL,
+                                  bp, lower=True, transpose=False)
+    spmv_kernel = supernodal.spmv
+    supernodal.spmv = lambda W, v: ref.cwell_compact_spmv(
+        *cwell_compact.compact(W), v)
+    try:
+        y_p = supernodal._level_solve(lu.diagL, lu.packsL, lu.metaL,
+                                      lu.rangesL, bp, lower=True,
+                                      transpose=False)
+    finally:
+        supernodal.spmv = spmv_kernel
+    e_lv = rel_err(y_k, y_p)
+    print(f"  level solve (L, f64, n={small_nx ** 2}) on K5 against the "
+          f"plain compact SpMV: {e_lv:.2e}")
+    check(e_lv <= 1e-10, "the level solve differs from its plain version")
+    step("checks")
+
+    # SparseLU on the small system against the supernodal LU
+    A_s, S_s = systems[small_nx, np.float64]
+    b_s = rhs_1[small_nx, np.float64]
+    t0 = time.perf_counter()
+    slu = direct.SparseLU.factor(A_s)
+    torch.cuda.synchronize()
+    t_slu = time.perf_counter() - t0
+    x_slu = direct.sparse_lu_solve(slu, b_s)
+    e_s = rel_err(x_slu, out[small_nx, np.float64][0])
+    r_s = true_rel(S_s, b_s, x_slu)
+    print(f"  SparseLU n={S_s.shape[0]} f64: factor {t_slu:.2f} s, depths "
+          f"{slu.depth_l}/{slu.depth_u}; true rel res {r_s:.2e}; against "
+          f"the supernodal solve {e_s:.2e}")
+    check(r_s <= 1e-10 and e_s <= 1e-8,
+          "SparseLU differs from the supernodal solve")
+
+    # times (CUDA events), after every check
+    print(f"  times (CUDA events, median and min-max of 5; "
+          f"{torch.cuda.get_device_name(0)}):")
+    print(f"    tridiagonal n={tri_n} f64 PCR solve() "
+          + fmt(times(lambda: tpu_sparse_torch.solve(
+              A_tri, b_tri, method="direct"), 10)))
+    print(f"    dense n={dense_n} f64 solve() " + fmt(times(
+        lambda: tpu_sparse_torch.solve(A_dn, b_dn, method="direct"), 1)))
+    for key, (A, S) in systems.items():
+        row = fmt(times(lambda: solver.solve(A, rhs_1[key],
+                                             method="direct"), 1))
+        if key in rhs_k:
+            row += f"; B of {K} columns " + fmt(times(
+                lambda: solver.solve(A, rhs_k[key], method="direct"), 1))
+        print(f"    general {key[1].__name__} n={key[0] ** 2}: repeat "
+              f"solve {row}", flush=True)
+        if key[0] == nx:
+            print_busy(f"general {key[1].__name__} repeat solve",
+                       device_busy(lambda: solver.solve(
+                           A, rhs_1[key], method="direct")))
+    print("    SparseLU n={} solve {}".format(S_s.shape[0], fmt(times(
+        lambda: direct.sparse_lu_solve(slu, b_s), 1))))
+    step("times")
+    del systems, out, solver, slu, A_dn
+    torch.cuda.empty_cache()
+
+    # ---- (25) the lid-driven cavity with solver='direct' ----------------
+    nxc, steps_c = ldc_cmp
+    nxr, steps_r = ldc_run
+    phase(f"(25) lid-driven cavity, solver='direct' (block PCR on the "
+          f"card): nx={nxc}, {steps_c} steps on the card against the CPU; "
+          f"nx={nxr}, {steps_r} steps")
+    cfg = dict(nx=nxc, Re=400.0, solver="direct")
+    card = tldc.LDCSolver(tldc.LDCConfig(device="cuda", **cfg))
+    st_c = card.run(steps_c)
+    cpu = tldc.LDCSolver(tldc.LDCConfig(device="cpu", **cfg))
+    st_h = cpu.run(steps_c)
+    diff = {k: float((getattr(card, k).cpu() - getattr(cpu, k)).abs().max())
+            for k in ("u", "v", "p")}
+    print(f"  nx={nxc}: card {st_c['steps_per_s']:.1f} steps/s, CPU "
+          f"{st_h['steps_per_s']:.1f} steps/s; max |card - CPU| {diff}; "
+          f"mass residual {st_c['mass_residual']:.2e}", flush=True)
+    check(max(diff.values()) <= 1e-8,
+          "LDC direct: the card's fields differ from the CPU's")
+    s = tldc.LDCSolver(tldc.LDCConfig(nx=nxr, Re=400.0, solver="direct",
+                                      device="cuda"))
+    s.run(2)  # warm-up: cuBLAS / cuSOLVER handles and workspaces
+    st = s.run(steps_r)
+    print(f"  nx={nxr}: {steps_r} steps in {st['elapsed_s']:.2f} s wall, "
+          f"{st['steps_per_s']:.2f} steps/s, final mass residual "
+          f"{st['mass_residual']:.2e}", flush=True)
+    check(st["mass_residual"] < 1e-7, "LDC direct mass residual above 1e-7")
+    del card, cpu, s
+    torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -25,6 +25,7 @@ from tpu_sparse.sparse import generators as jgen
 from tpu_sparse_torch.autodiff import implicit
 from tpu_sparse_torch.precond.jacobi import jacobi_preconditioner as tjacobi
 from tpu_sparse_torch.sparse import convert as tconvert
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 DIFF = {"cg": (jcg_diff, implicit.cg_diff),
         "bicgstab": (jbicgstab_diff, implicit.bicgstab_diff),

@@ -30,6 +30,7 @@ from tpu_sparse_torch.precond import _native
 from tpu_sparse_torch.precond import amg as tamg
 from tpu_sparse_torch.sparse.containers import CSR
 from tpu_sparse_torch.sparse.convert import dia_from_numpy
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 MATRICES = {
     "poisson2d(32)": lambda: jgen.poisson2d(32),

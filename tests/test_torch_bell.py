@@ -29,6 +29,7 @@ from tpu_sparse_torch.sparse import (BELL, BSR, bsr_to_bell, csr_to_bsr,
                                      to_gpu_operator)
 from tpu_sparse_torch.sparse import convert as tconvert
 from tpu_sparse_torch.sparse.bell import block_cwell
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _block_matrix(nb, bs, density, seed, spd=False, dtype=np.float64):

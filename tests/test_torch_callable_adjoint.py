@@ -34,6 +34,7 @@ from tpu_sparse_torch import autodiff as tad
 from tpu_sparse_torch import kernels
 from tpu_sparse_torch.sparse import convert as tconvert
 from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 N = 40
 SYMMETRIC = ("cg", "cg_sr", "fcg", "minres")

@@ -31,7 +31,11 @@ V-cycle against the same cycle on the plain versions and the block cycle
 against the single ones within 1e-5 (f32) / 1e-12 (f64) of max|y|;
 preconditioned solves on the card against the CPU with the slack and x
 tolerances above (f64 rtol 1e-8); the lid-driven cavity's fields on the
-card within 1e-8 of the CPU's after 20 steps.
+card within 1e-8 of the CPU's after 20 steps. Direct solves: PCR and
+block PCR on the card within 1e-10 (f64) / 1e-4 (f32) of the CPU's
+Thomas and banded LU; the supernodal router path and SparseLU to a true
+relative residual of 1e-10 (f64) / 1e-5 (f32) on a consistent b, as the
+CPU's host SuperLU; gradients within 1e-10 / 1e-4 of the CPU's.
 """
 
 import numpy as np
@@ -1076,3 +1080,142 @@ def test_flexible_amg_v03_on_card_matches_cpu(dev, method):
     np.testing.assert_allclose(out[1][0].numpy(), out[0][0].numpy(),
                                rtol=1e-3,
                                atol=1e-3 * float(out[0][0].abs().max()))
+
+
+def _skewed_csr(nx, dtype, device):
+    """poisson2d(nx) + 0.1 triu as a general CSR (the JAX bench's
+    general-direct system) and its scipy matrix. It is ill-conditioned
+    (~8e4 at nx = 64, ~4e7 at 128), so right-hand sides are b = A x_true,
+    as in the JAX bench."""
+    import scipy.sparse as sp
+
+    from tpu_sparse_torch.sparse.convert import csr_from_arrays, to_scipy_csr
+
+    S = to_scipy_csr(gen.poisson2d(nx, dtype=np.float64, device="cpu"))
+    S = (S + 0.1 * sp.triu(S, k=1)).tocsr().astype(dtype)
+    S.sort_indices()
+    return csr_from_arrays(S.data, S.indices, S.indptr, S.shape,
+                           device=device), S
+
+
+def _consistent_rhs(S, dtype, shape, seed):
+    """b = S x_true for x_true from default_rng(seed), as a tensor."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+    return torch.from_numpy((S.astype(np.float64) @ x).astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_banded_direct_on_card_matches_cpu(dev, dtype):
+    """PCR (tridiagonal, n >= 64) and block PCR (n >= 512) on the card
+    against the CPU's Thomas and banded LU; f64 within 1e-10, f32 1e-4."""
+    from tpu_sparse_torch import direct
+
+    tol = 1e-10 if dtype == np.float64 else 1e-4
+    for A in (gen.tridiagonal(500, dtype=dtype, device="cpu"),
+              gen.poisson2d(40, dtype=dtype, device="cpu")):
+        B = torch.from_numpy(np.random.default_rng(11).standard_normal(
+            (A.shape[0], 2)).astype(dtype))
+        for b in (B[:, 0].contiguous(), B):
+            x_cpu = direct.banded_solve(A, b)
+            x = direct.banded_solve(A.to(dev), b.to(dev))
+            assert x.is_cuda and _rel(x.cpu(), x_cpu) <= tol
+
+
+def _true_rel(S, b, x):
+    """Largest ||b - S x|| / ||b|| over the columns, in float64 on the
+    host."""
+    bb = b.double().cpu().numpy()
+    R = bb - S.astype(np.float64) @ x.double().cpu().numpy()
+    return float(np.max(np.linalg.norm(np.atleast_2d(R.T), axis=-1)
+                        / np.linalg.norm(np.atleast_2d(bb.T), axis=-1)))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_supernodal_direct_on_card(dev, dtype):
+    """solve(A, b, method='direct') on a general CSR past the densify
+    limit: the supernodal LU on the card (K4 in f32, K5 in f64 on every
+    level), one refinement step, true residual 1e-5 (f32) / 1e-10 (f64),
+    as the CPU's host SuperLU; an (n, 4) b through K6/K7, every column
+    and its single solve to the same residual; TF32 switched on by the
+    caller keeps the bound; gradients in b and A's values on a
+    well-conditioned CSR (convection-diffusion) against the CPU's."""
+    tol = 1e-10 if dtype == np.float64 else 1e-5
+    A, S = _skewed_csr(80, dtype, dev)
+    n = A.shape[0]
+    b = _consistent_rhs(S, dtype, n, 12).to(dev)
+    solver = tpu_sparse_torch.SparseSolver()
+    cuda_cwell.reset_launch_counts()
+    x, r = solver.solve(A, b, method="direct")
+    sfx = "f32" if dtype == np.float32 else "f64"
+    assert r.converged and _true_rel(S, b, x) <= tol
+    assert cuda_cwell.LAUNCHES[f"cwell_spmv_{sfx}"] > 0
+    x_cpu, r_cpu = tpu_sparse_torch.solve(A.to("cpu"), b.cpu(),
+                                          method="direct")
+    assert r_cpu.converged and _true_rel(S, b, x_cpu) <= tol
+    # TF32 switched on by the caller: the solve pins full fp32 and keeps
+    # the bound (the refinement's CSR residual sums by atomics, so repeat
+    # solves agree to the residual, not bit for bit)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x_tf32 = solver.solve(A, b, method="direct")[0]
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert _true_rel(S, b, x_tf32) <= tol
+    B = _consistent_rhs(S, dtype, (n, 4), 13).to(dev)
+    before = cuda_cwell.LAUNCHES[f"cwell_spmm_{sfx}"]
+    X, rB = solver.solve(A, B, method="direct")
+    assert rB.converged and cuda_cwell.LAUNCHES[f"cwell_spmm_{sfx}"] > before
+    assert _true_rel(S, B, X) <= tol
+    for j in range(4):
+        xj = solver.solve(A, B[:, j].contiguous(), method="direct")[0]
+        assert _true_rel(S, B[:, j], xj) <= tol
+    from tpu_sparse_torch.sparse.convert import to_csr
+
+    C = to_csr(gen.convection_diffusion_3d_27pt(17, dtype=dtype,
+                                                device="cpu"))
+    bc = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        C.shape[0]).astype(dtype))
+    grads = []
+    for where in (dev, "cpu"):
+        Cw = C.to(where)
+        vals = Cw.data.clone().requires_grad_()
+        bb = bc.to(where, copy=True).requires_grad_()
+        xw = solver.solve(Cw.with_data(vals), bb, method="direct")[0]
+        xw.sum().backward()
+        grads.append((vals.grad.cpu(), bb.grad.cpu()))
+    gtol = 1e-10 if dtype == np.float64 else 1e-4
+    assert _rel(grads[0][0], grads[1][0]) <= gtol
+    assert _rel(grads[0][1], grads[1][1]) <= gtol
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sparse_lu_on_card_matches_cpu(dev, dtype):
+    """SparseLU's block sweeps on the card (K4 / K5) and on the CPU,
+    solve and solve_transpose, each to the true residual bound."""
+    from tpu_sparse_torch.direct import SparseLU
+
+    tol = 1e-10 if dtype == np.float64 else 1e-4
+    A, S = _skewed_csr(48, dtype, "cpu")
+    b = _consistent_rhs(S, dtype, A.shape[0], 14)
+    lu_cpu, lu = SparseLU.factor(A), SparseLU.factor(A.to(dev))
+    for name, M in (("solve", S), ("solve_transpose", S.T)):
+        x = getattr(lu, name)(b.to(dev))
+        assert _true_rel(M, b, x) <= tol
+        assert _true_rel(M, b, getattr(lu_cpu, name)(b)) <= tol
+
+
+def test_ldc_direct_on_card_matches_cpu(dev):
+    """The LDC with solver='direct': block PCR on the card against the
+    banded LU on the CPU, fields within 1e-8 after 20 steps."""
+    from tpu_sparse_torch.apps import ldc
+
+    kw = dict(nx=32, Re=400.0, solver="direct")
+    card = ldc.LDCSolver(ldc.LDCConfig(device="cuda", **kw))
+    cpu = ldc.LDCSolver(ldc.LDCConfig(device="cpu", **kw))
+    card.run(20)
+    cpu.run(20)
+    for name in ("u", "v", "p"):
+        assert float((getattr(card, name).cpu()
+                      - getattr(cpu, name)).abs().max()) <= 1e-8

@@ -31,6 +31,7 @@ from tpu_sparse_torch.kernels import spmv as tspmv
 from tpu_sparse_torch.sparse import convert as tconvert
 from tpu_sparse_torch.sparse.cwell import (CWELL, CWELLSeg, csr_to_cwell,
                                            csr_to_cwell_segments)
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _random_dense(n, m, density, seed, dtype):

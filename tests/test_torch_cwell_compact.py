@@ -31,6 +31,7 @@ from tpu_sparse_torch.sparse import convert as tconvert
 from tpu_sparse_torch.sparse import cwell_compact as cc
 from tpu_sparse_torch.sparse.bell import block_cwell
 from tpu_sparse_torch.sparse.cwell import csr_to_cwell, csr_to_cwell_segments
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 BOUND = {np.float32: 1e-6, np.float64: 1e-13}
 

@@ -28,6 +28,7 @@ from tpu_sparse.sparse import generators as jgen
 from tpu_sparse_torch.kernels import cuda_bicgstab, cuda_cg, cuda_spmv
 from tpu_sparse_torch.kernels import reference as tref
 from tpu_sparse_torch.sparse.convert import dia_from_numpy
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture

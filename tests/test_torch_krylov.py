@@ -23,6 +23,7 @@ from tpu_sparse_torch.solvers import cg as tcg
 from tpu_sparse_torch.solvers import cg_full as tcg_full
 from tpu_sparse_torch.solvers import cg_refined as tcg_refined
 from tpu_sparse_torch.sparse.convert import dia_from_numpy
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 MATRICES = {
     "tridiagonal100": lambda: jgen.tridiagonal(100),

@@ -13,6 +13,7 @@ import torch
 
 from examples.ldc import ldc_solver as jldc
 from tpu_sparse_torch.apps import ldc as tldc
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 STEPS = 12
 
@@ -52,8 +53,15 @@ def test_ldc_matches_jax(solver, precond, precision):
 
 
 def test_ldc_direct_raises_naming_item_16():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tldc.LDCSolver(tldc.LDCConfig(nx=8, solver="direct", device="cpu"))
+    """solver='direct' (item 16) no longer raises: it pins row 0 of the
+    pressure matrix and runs without pressure iterations (its fields are
+    held against JAX's in tests/test_torch_direct.py); an unknown solver
+    still raises."""
+    s = tldc.LDCSolver(tldc.LDCConfig(nx=8, solver="direct", device="cpu"))
+    assert torch.equal(s.A_pin.data, tldc.pin_pressure_matrix(s.A).data)
+    assert s.run(2)["pressure_iters_total"] == 0
+    with pytest.raises(ValueError, match="unknown solver"):
+        tldc.LDCSolver(tldc.LDCConfig(nx=8, solver="lu", device="cpu"))
 
 
 def test_ldc_cli_and_state_round_trip(tmp_path):

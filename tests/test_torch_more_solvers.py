@@ -37,6 +37,7 @@ from tpu_sparse_torch.precond import amg as tamg
 from tpu_sparse_torch.precond.jacobi import jacobi_preconditioner as tjacobi
 from tpu_sparse_torch.sparse.convert import dia_from_numpy, to_csr
 from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 METHODS = ("cg_sr", "fcg", "minres", "fgmres")
 # restart of every FGMRES call in this file

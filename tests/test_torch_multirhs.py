@@ -34,6 +34,7 @@ from tpu_sparse_torch.precond.jacobi import jacobi_preconditioner
 from tpu_sparse_torch.solvers import batched, block
 from tpu_sparse_torch.sparse import convert as tconvert
 from tpu_sparse_torch.sparse.cwell import csr_to_cwell, csr_to_cwell_segments
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _dia(Aj):

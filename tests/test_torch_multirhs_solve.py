@@ -25,6 +25,7 @@ from tpu_sparse.sparse.cwell import csr_to_cwell as jcsr_to_cwell
 from tpu_sparse_torch.solvers import batched, mixed
 from tpu_sparse_torch.sparse import convert as tconvert
 from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _dia(Aj):

@@ -28,6 +28,7 @@ from tpu_sparse_torch.solvers import bicgstab_refined as tbicgstab_refined
 from tpu_sparse_torch.solvers import gmres_full as tgmres_full
 from tpu_sparse_torch.solvers import gmres_refined as tgmres_refined
 from tpu_sparse_torch.sparse.convert import dia_from_numpy
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _skewed_poisson2d(nx, dtype=np.float64):

@@ -28,6 +28,7 @@ from tpu_sparse_torch.solvers.mixed import _cast_precond, cg_refined
 from tpu_sparse_torch.sparse.convert import (csr_from_arrays,
                                              dia_from_numpy)
 from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 
 def _port(Aj):

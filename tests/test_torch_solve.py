@@ -23,6 +23,7 @@ import tpu_sparse_torch
 from tpu_sparse.sparse import generators as jgen
 from tpu_sparse_torch.api.solver import SolverResult
 from tpu_sparse_torch.sparse.convert import dia_from_numpy
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -214,11 +215,11 @@ def _a_b():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="direct", precision="full"),
-    dict(method="direct"), dict(M="ilu0", method="fcg"),
-    dict(backend="direct"),
-    dict(backend="module_c"), dict(M="ilu0"), dict(M="ilu0", method="cg_sr"),
-    dict(backend="direct", method="fgmres"),
+    dict(M="ilu0", method="bicgstab"),
+    dict(M="ilu0", method="gmres"), dict(M="ilu0", method="fcg"),
+    dict(M="ilu0", method="minres"),
+    dict(M="ilu0", precision="full"), dict(M="ilu0"),
+    dict(M="ilu0", method="cg_sr"), dict(M="ilu0", method="fgmres"),
 ])
 def test_out_of_slice_raises_not_implemented(kw):
     A, b = _a_b()
@@ -288,12 +289,14 @@ def test_inputs_requiring_grad_multi_rhs_and_complex_raise():
 
 
 def test_availability_reports_krylov_only():
-    """krylov and (since the AMG slice) amg; direct is not ported yet."""
+    """krylov, amg (since the AMG slice) and direct (since the direct
+    slice), each by a live probe."""
     from tpu_sparse_torch.api import availability
 
-    assert availability.get_available_backends() == ["krylov", "amg"]
+    assert availability.get_available_backends() == ["krylov", "amg",
+                                                     "direct"]
     d = availability.availability_dict()
-    assert d["krylov"] and d["amg"] and not d["direct"]
+    assert d["krylov"] and d["amg"] and d["direct"]
 
 
 def _imports(path):

@@ -11,6 +11,7 @@ from tpu_sparse.sparse import convert as jconvert
 from tpu_sparse.sparse import generators as jgen
 from tpu_sparse_torch.sparse import convert as tconvert
 from tpu_sparse_torch.sparse import generators as tgen
+from _cpu_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 GENERATORS = [
     ("tridiagonal", (50,), {}),

@@ -5,8 +5,10 @@ of general matrices, the BELL (block-ELL) format and ``to_gpu_operator``;
 the Krylov solvers (CG, single-reduction CG, flexible CG, MINRES,
 BiCGStab, GMRES, flexible GMRES) with mixed-precision refinement and the
 adjoint gradient, for matrices and matrix-free callables; multi-RHS
-solves (each method batched, block CG, batched refinement); the preconditioners (Jacobi, aggregation
-AMG, Chebyshev, Neumann, FSAI) and the ``amg`` backend; the
+solves (each method batched, block CG, batched refinement); the
+preconditioners (Jacobi, aggregation AMG, Chebyshev, Neumann, FSAI) and the
+``amg`` backend; the direct solvers (banded, dense, SparseLU and the
+supernodal level-scheduled LU) and the ``direct`` backend; the
 ``SparseSolver`` / ``solve`` router with ``reorder="rcm"``; the
 lid-driven-cavity application (``python -m tpu_sparse_torch.apps.ldc``);
 hand-written
@@ -18,7 +20,8 @@ plain PyTorch version. Entry points that build matrices default to the
 card (``device="cuda"``).
 """
 
-from tpu_sparse_torch import autodiff, config, kernels, precond, sparse, utils
+from tpu_sparse_torch import (autodiff, config, direct, kernels, precond,
+                              sparse, utils)
 from tpu_sparse_torch.api import SolverResult, SparseSolver, solve
 from tpu_sparse_torch.autodiff import (bicgstab_diff, cg_diff, cg_sr_diff,
                                        fcg_diff, fgmres_diff, gmres_diff,
@@ -34,7 +37,7 @@ from tpu_sparse_torch.sparse import (BELL, BSR, COO, CSR, CWELL, DIA,
 __version__ = "0.5.0"
 
 __all__ = [
-    "autodiff", "config", "kernels", "precond", "sparse", "utils",
+    "autodiff", "config", "direct", "kernels", "precond", "sparse", "utils",
     "BELL", "BSR", "COO", "CSR", "CWELL", "CWELLSeg", "DIA", "bsr_to_bell",
     "csr_to_bsr", "csr_to_cwell", "to_gpu_operator",
     "batch_bicgstab", "batch_cg", "batch_fcg", "batch_fgmres",

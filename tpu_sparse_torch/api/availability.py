@@ -1,9 +1,9 @@
 """Capability detection and reporting.
 
-Counterpart of ``tpu_sparse/api/availability.py``. The ``krylov`` and
-``amg`` backends are ported; direct solvers are a later queue item
-(ROADMAP queue 1, item 16). No probe result is cached, so a transient failure is never pinned for the
-life of the process (the fault R1 that the JAX probes' ``lru_cache`` had).
+Counterpart of ``tpu_sparse/api/availability.py``: the ``krylov``,
+``amg`` and ``direct`` backends. No probe result is cached, so a
+transient failure is never pinned for the life of the process (the fault
+R1 that the JAX probes' ``lru_cache`` had).
 """
 
 from __future__ import annotations
@@ -38,6 +38,20 @@ def check_amg_available() -> bool:
         return False
 
 
+def check_direct_available() -> bool:
+    """Direct solvers: a live probe, as in the JAX package: a 3 x 3
+    tridiagonal solve on the CPU."""
+    try:
+        from tpu_sparse_torch.direct import banded_solve
+        from tpu_sparse_torch.sparse.generators import tridiagonal
+
+        A = tridiagonal(3, device="cpu")
+        x = banded_solve(A, torch.ones(3, dtype=A.dtype))
+        return bool(torch.all(torch.isfinite(x)))
+    except Exception:
+        return False
+
+
 def check_cuda_available() -> bool:
     return torch.cuda.is_available()
 
@@ -46,6 +60,8 @@ def get_available_backends() -> List[str]:
     out = ["krylov"] if check_krylov_available() else []
     if check_amg_available():
         out.append("amg")
+    if check_direct_available():
+        out.append("direct")
     return out
 
 
@@ -53,7 +69,7 @@ def availability_dict() -> Dict[str, bool]:
     return {
         "krylov": check_krylov_available(),
         "amg": check_amg_available(),
-        "direct": False,
+        "direct": check_direct_available(),
         "cuda": check_cuda_available(),
         "distributed": False,
     }
@@ -69,7 +85,7 @@ def print_availability_report(verbose: bool = True) -> Dict[str, bool]:
         f"  device             : {device}",
         f"  krylov solvers     : {'yes' if avail['krylov'] else 'NO'}",
         f"  AMG preconditioner : {'yes' if avail['amg'] else 'NO'}",
-        "  direct solvers     : not in this slice",
+        f"  direct solvers     : {'yes' if avail['direct'] else 'NO'}",
         f"  CUDA kernels       : {'yes' if avail['cuda'] else 'no (plain CPU path)'}",
     ]
     if verbose:

@@ -1,11 +1,11 @@
 """Unified solver router: ``SparseSolver``, ``solve``, ``SolverResult``.
 
-Counterpart of ``tpu_sparse/api/solver.py`` for the slice this package
-ports: the ``krylov`` backend with methods ``cg``, ``cg_sr``, ``fcg``,
-``minres``, ``bicgstab``, ``gmres`` and ``fgmres`` on any operand (a CWELL
-pack runs every matvec on K4 / K5), the
+Counterpart of ``tpu_sparse/api/solver.py``: the ``krylov`` backend with
+methods ``cg``, ``cg_sr``, ``fcg``, ``minres``, ``bicgstab``, ``gmres`` and
+``fgmres`` on any operand (a CWELL pack runs every matvec on K4 / K5), the
 ``amg`` backend (AMG-preconditioned CG, or with ``accelerant=None`` the
-stationary V-cycle iteration), the preconditioners ``M="jacobi" | "amg" |
+stationary V-cycle iteration), the ``direct`` backend (``method="direct"``,
+``_solve_direct``), the preconditioners ``M="jacobi" | "amg" |
 "chebyshev" | "neumann" | "fsai" | "fsai2"`` (built once per matrix
 content and cached), ``reorder="rcm"``, with the extended-layout CUDA
 fast paths for square DIA systems (M None or Jacobi):
@@ -24,6 +24,15 @@ fast paths for square DIA systems (M None or Jacobi):
   is kernel 1); ``cg_sr``, ``fcg``, ``minres`` and ``fgmres`` always take
   this general path, as in the JAX router.
 
+A direct solve of a banded, small or dense system runs
+``direct.direct_solve`` under the adjoint wrapper. A general sparse system
+beyond the densify limit (n > 4096) is factored once per matrix (cached on
+its values tensor): on the card by the supernodal LU, whose solves run K4 /
+K5 (K6/K7 for an (n, k) b) and take one refinement step; on the CPU by
+scipy's SuperLU on the host, as the JAX package does off the TPU. There is
+no fallback between them: the card's path is the supernodal LU or an
+exception.
+
 Every full-precision solve runs through the adjoint wrappers of
 ``autodiff.implicit``, as in the JAX router, so ``solve()`` is
 differentiable in ``b``, in a matrix operand's values and in the tensors
@@ -38,8 +47,9 @@ one SpMM. As in the JAX package it is not differentiable (its loops run
 outside the adjoint wrappers), so inputs that require grad are refused.
 
 The JAX ``jit``/``lru_cache`` wrappers are plain calls here. Parts of the
-JAX router outside this slice raise ``NotImplementedError`` naming their
-ROADMAP queue-1 item; unknown names raise the JAX router's ``ValueError``.
+JAX router not ported yet (native complex, ILU(0)) raise
+``NotImplementedError`` naming their ROADMAP queue-1 item; unknown names
+raise the JAX router's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -55,7 +65,7 @@ from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.kernels.cuda_spmv import extendable
 from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
 from tpu_sparse_torch.sparse.containers import DIA, is_sparse, values
-from tpu_sparse_torch.utils.opcache import OperandCache
+from tpu_sparse_torch.utils.opcache import OperandCache, TensorCache, _leaves
 from tpu_sparse_torch.utils.tree import tree_norm, tree_sub
 
 _BACKEND_ALIASES = {
@@ -73,12 +83,6 @@ _KRYLOV_METHODS = ("cg", "cg_sr", "fcg", "minres", "bicgstab", "gmres",
                    "fgmres")
 # the methods with extended-layout fast paths (JAX router :401-423)
 _EXT_METHODS = ("cg", "bicgstab", "gmres")
-_DEFERRED_METHODS = {
-    "direct": _Q1 + "16 (direct solvers)",
-}
-_DEFERRED_BACKENDS = {
-    "direct": _Q1 + "16 (direct solvers)",
-}
 _PRECOND_NAMES = ("jacobi", "fsai", "fsai2", "chebyshev", "neumann", "ilu0",
                   "amg")
 
@@ -169,6 +173,10 @@ class SparseSolver:
         # built preconditioners, per matrix content (JAX sizes)
         self._m_cache = OperandCache(max_entries=16)
         self._amg_cache = OperandCache(max_entries=8)
+        # direct factors, one per live values tensor (a factor costs
+        # seconds of host work: no size cap that would drop a live one)
+        self._snlu_cache = TensorCache()
+        self._host_lu_cache = TensorCache()
 
     @property
     def available_backends(self) -> List[str]:
@@ -185,16 +193,17 @@ class SparseSolver:
         if not available:
             raise RuntimeError("No sparse solver backends are available!")
         if backend != "auto":
-            if backend in _DEFERRED_BACKENDS:
-                raise _not_ported(f"backend '{backend}'",
-                                  _DEFERRED_BACKENDS[backend])
             if backend not in available:
                 raise ValueError(
                     f"Backend '{backend}' is not available. "
                     f"Available backends: {available}")
             return backend, method
         if method == "direct":
-            raise _not_ported(f"method '{method}'", _DEFERRED_METHODS[method])
+            if "direct" not in available:
+                raise ValueError(
+                    "Direct solver backend is not available; use an "
+                    "iterative method (cg, bicgstab, gmres) instead.")
+            return "direct", "direct"
         if method == "amg":
             if "amg" not in available:
                 raise ValueError("AMG backend is not available.")
@@ -263,9 +272,6 @@ class SparseSolver:
         sel_backend, sel_method = self._select_backend(backend, method)
         multi_rhs = kwargs.pop("multi_rhs", "auto")
         if sel_backend == "krylov":
-            if sel_method in _DEFERRED_METHODS:
-                raise _not_ported(f"method '{sel_method}'",
-                                  _DEFERRED_METHODS[sel_method])
             if sel_method not in _KRYLOV_METHODS:
                 raise ValueError(f"unknown krylov method: {sel_method}")
         _check_in_slice(A, b, x0, M)
@@ -289,11 +295,13 @@ class SparseSolver:
         if self.verbose:
             print(f"[SparseSolver] backend={sel_backend} "
                   f"method={sel_method} precision={precision}")
-        if M is not None and sel_backend == "amg":
-            # AMG builds its own preconditioner: say that M is dropped
+        if M is not None and sel_backend in ("amg", "direct"):
+            # AMG builds its own preconditioner and the direct path
+            # factors A: say that M is dropped
             warnings.warn(
-                f"M is ignored for backend='amg' (method='{sel_method}'); "
-                "use a krylov method to apply a preconditioner.",
+                f"M is ignored for backend='{sel_backend}' "
+                f"(method='{sel_method}'); use a krylov method to apply a "
+                "preconditioner.",
                 stacklevel=2)
             M = None
         elif isinstance(M, str):
@@ -302,9 +310,10 @@ class SparseSolver:
             return self._solve_multirhs(
                 A, b, x0, sel_backend, sel_method, tol, atol, maxiter, M,
                 restart, solve_method, precision, multi_rhs, kwargs)
-        if sel_backend == "amg":
-            x, info, iters, res, rel = self._solve_amg(
-                A, b, x0, tol, atol, maxiter, **kwargs)
+        if sel_backend != "krylov":
+            x, info, iters, res, rel = (
+                self._solve_amg(A, b, x0, tol, atol, maxiter, **kwargs)
+                if sel_backend == "amg" else self._solve_direct(A, b))
             return x, SolverResult(x=x, converged=(info == 0),
                                    iterations=iters, residual=rel,
                                    backend=sel_backend, method=sel_method)
@@ -353,7 +362,7 @@ class SparseSolver:
                 return P.chebyshev_preconditioner(A)
             if name == "neumann":
                 return P.neumann_preconditioner(A)
-            return P.ilu0_preconditioner(A)  # raises: ROADMAP item 16
+            return P.ilu0_preconditioner(A)  # raises: ROADMAP item 16b
 
         return self._m_cache.get_or_build(A, build, extra=(name,))
 
@@ -400,6 +409,63 @@ class SparseSolver:
         out = cg_diff(A, b, x0, tol=tol, atol=atol, maxiter=maxiter,
                       M=self._amg_M(A, **kwargs))
         return out + (_relative_residual(A, b, out[0]),)
+
+    def _supernodal_lu(self, A, with_transpose: bool = False):
+        """The supernodal LU of A (``direct.SupernodalLU``), cached on A's
+        values tensor with its index tensors' versions as the extra key.
+        The transpose solve's packs are built only when a gradient needs
+        them (they double the off-diagonal pack memory); a cached factor
+        without them is rebuilt with them then."""
+        from tpu_sparse_torch.direct import SupernodalLU
+
+        v, key = values(A), _index_key(A)
+        lu = self._snlu_cache.get(v, key)
+        if lu is None or (with_transpose and not lu.has_transpose):
+            lu = SupernodalLU.factor(A, with_transpose=with_transpose)
+            self._snlu_cache.put(v, lu, key)
+        return lu
+
+    def _host_splu(self, A):
+        """scipy's SuperLU factors of A on the host (``direct.HostLU``),
+        cached as ``_supernodal_lu``."""
+        from tpu_sparse_torch.direct import HostLU
+
+        v, key = values(A), _index_key(A)
+        lu = self._host_lu_cache.get(v, key)
+        if lu is None:
+            lu = HostLU(A)
+            self._host_lu_cache.put(v, lu, key)
+        return lu
+
+    def _direct_factors(self, A, b):
+        """The cached factors a general sparse direct solve uses (None for
+        the systems ``direct.direct_solve`` takes): the supernodal LU for
+        a CUDA b, the host SuperLU for a CPU one."""
+        from tpu_sparse_torch.direct import needs_host_splu
+
+        if not needs_host_splu(A):
+            return None
+        if b.is_cuda:
+            return self._supernodal_lu(
+                A, with_transpose=_requires_grad(A, b, None, None))
+        return self._host_splu(A)
+
+    def _solve_direct(self, A, b):
+        """method='direct' (JAX ``_solve_direct``): banded, dense and small
+        systems by ``direct_solve`` under the adjoint wrapper; general
+        sparse systems beyond the densify limit by their cached factors,
+        with one refinement step on the card (the JAX TPU router's
+        ``_jitted_supernodal``). Differentiable in b and A's values either
+        way. Returns (x, info, None, res, rel)."""
+        from tpu_sparse_torch import direct
+
+        lu = self._direct_factors(A, b)
+        if lu is None:
+            x = direct.direct_solve_diff(A, b)
+        else:
+            x = direct.factored_solve(lu, A, b, refine=b.is_cuda)
+        info, res, rel = direct.direct_residual_info(A, b, x)
+        return x, info, None, res, rel
 
     def _reorder_cached(self, A):
         """(A_rcm as CSR, perm, inverse perm) for a matrix operand, cached
@@ -487,6 +553,19 @@ class SparseSolver:
         if multi_rhs not in ("auto", "block", "batch"):
             raise ValueError(f"unknown multi_rhs '{multi_rhs}'; use "
                              "'auto', 'block', or 'batch'")
+        if sel_backend == "direct":
+            # every column at once: the factors' solve takes (n, k)
+            # natively (K6/K7 on the card), the other systems one
+            # ``batch_direct``
+            from tpu_sparse_torch import direct
+
+            lu = self._direct_factors(A, B)
+            X = (batched.batch_direct(A, B) if lu is None
+                 else direct.factored_solve(lu, A, B, refine=B.is_cuda))
+            info, _, rel = direct.direct_residual_info(A, B, X)
+            return X, SolverResult(x=X, converged=(info == 0),
+                                   iterations=None, residual=rel,
+                                   backend=sel_backend, method=method)
         report_method = method
         if sel_backend == "amg":
             M = self._amg_M(A, **amg_kwargs)
@@ -574,6 +653,13 @@ def _check_in_slice(A, b, x0, M) -> None:
     tensors = _tensors(A, b, x0, M)
     if any(t.is_complex() for t in tensors):
         raise _not_ported("complex input", _Q1 + "13 (native complex)")
+
+
+def _index_key(A) -> tuple:
+    """The index tensors of a container with their in-place versions: the
+    extra key of a cache held on its values tensor."""
+    v = values(A)
+    return tuple((id(t), t._version) for t in _leaves(A) if t is not v)
 
 
 def _safe_norm(b) -> torch.Tensor:

@@ -9,8 +9,9 @@ ldc_solver_common.py): a staggered-grid fractional-step incompressible
 Navier-Stokes solver with explicit momentum (central convection and
 diffusion), a pressure-Poisson system with Neumann walls assembled once as
 a 5-point DIA matrix, a pluggable pressure solve (CG, BiCGStab or GMRES,
-full or mixed precision, with no preconditioner, Jacobi, AMG or FSAI), the
-velocity correction and a mass-residual monitor.
+full or mixed precision, with no preconditioner, Jacobi, AMG or FSAI; or
+``solver="direct"``, a banded direct solve of the row-0-pinned matrix),
+the velocity correction and a mass-residual monitor.
 
 Every step is torch ops on the solver's device (the card unless the
 caller asks for the CPU); the JAX version's ``.at[].set`` becomes writes
@@ -18,8 +19,10 @@ into clones and its ``lax.scan`` over steps a Python loop. The pressure
 solves are ``cg_full`` / ``bicgstab_full`` / ``gmres_full`` (their
 ``*_refined`` forms under ``precision="mixed"``); on the card every SpMV of
 the float64 DIA matrix is the fp64 kernel K3 in plain mode. ``solver=
-"direct"`` is not ported yet (ROADMAP queue 1, item 16), and neither is
-the JAX ``save_plot`` (matplotlib).
+"direct"`` is ``direct.banded_solve`` every step, as in the JAX example:
+block PCR with block size nx on the card (the fixed pinned matrix is
+eliminated again each step), the banded LU on the host for a CPU solver.
+The JAX ``save_plot`` (matplotlib) is not ported.
 
 Staggered layout (MAC):
   p[J, I]   cell centres, shape (ny, nx)
@@ -38,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tpu_sparse_torch.direct import banded_solve
 from tpu_sparse_torch.precond import (amg_preconditioner, fsai_preconditioner,
                                       jacobi_preconditioner)
 from tpu_sparse_torch.solvers import (bicgstab_full, bicgstab_refined,
@@ -94,7 +98,7 @@ class LDCConfig:
     lid_velocity: float = 1.0
     L: float = 1.0
     cfl: float = 0.5
-    solver: str = "cg"          # 'cg' | 'bicgstab' | 'gmres'
+    solver: str = "cg"          # 'cg' | 'bicgstab' | 'gmres' | 'direct'
     tol: float = 1e-8
     maxiter: int = 2000
     precond: str = "jacobi"     # 'none' | 'jacobi' | 'amg' | 'fsai'
@@ -114,13 +118,9 @@ class LDCSolver:
 
     def __init__(self, config: LDCConfig):
         cfg = self.config = config
-        if cfg.solver == "direct":
-            raise NotImplementedError(
-                "solver='direct' is not ported yet: ROADMAP queue 1, item "
-                "16 (direct solvers)")
-        if cfg.solver not in _SOLVERS:
+        if cfg.solver not in _SOLVERS and cfg.solver != "direct":
             raise ValueError(f"unknown solver {cfg.solver!r}; use "
-                             f"{', '.join(_SOLVERS)}")
+                             f"{', '.join(_SOLVERS)} or direct")
         nx, ny = cfg.nx, cfg.ny
         self.device = torch.device(cfg.device)
         self.dx = cfg.L / nx
@@ -132,6 +132,9 @@ class LDCSolver:
         self.A = build_pressure_matrix(nx, ny, self.dx, self.dy,
                                        dtype=numpy_dtype(cfg.dtype),
                                        device=self.device)
+        # direct pressure solves need the null space pinned, not projected
+        self.A_pin = (pin_pressure_matrix(self.A)
+                      if cfg.solver == "direct" else None)
         if cfg.precond == "jacobi":
             self.M = jacobi_preconditioner(self.A)
         elif cfg.precond == "amg":
@@ -211,6 +214,15 @@ class LDCSolver:
 
     def _solve_pressure(self, rhs, p_prev):
         cfg = self.config
+        if cfg.solver == "direct":
+            # the reference's module-C step (a cuDSS spsolve per step): a
+            # banded direct solve of the row-0-pinned system, no iterations
+            rhs = rhs.clone()
+            rhs[0] = 0.0
+            x = banded_solve(self.A_pin, rhs)
+            x = x - torch.mean(x)
+            return x.reshape(cfg.ny, cfg.nx), torch.zeros(
+                (), dtype=torch.int64, device=self.device)
         fn = _SOLVERS[cfg.solver][1 if cfg.precision == "mixed" else 0]
         x, _, iters, _ = fn(self.A, rhs, p_prev.reshape(-1), tol=cfg.tol,
                             maxiter=cfg.maxiter, M=self.M)

@@ -1,6 +1,6 @@
 """Preconditioners: Jacobi, L1-Jacobi, aggregation AMG, Chebyshev, Neumann
 and FSAI (the JAX ``tpu_sparse.precond`` names; ILU(0) raises, ROADMAP
-queue 1, item 16)."""
+queue 1, item 16b)."""
 
 from tpu_sparse_torch.precond.amg import (AMGHierarchy, AMGLevel,
                                           AMGPreconditioner, TentativeP,

@@ -9,10 +9,10 @@
 Each is an object with ``__call__`` (a vector), ``matmat`` (an (n, k)
 block: one SpMM per product) and ``.to(device or dtype)``.
 
-``ilu0_preconditioner`` and ``ilu0_factor`` raise: their substitutions are
-O(n) sequential scans that share ``direct/banded._dia_band`` with the
-banded direct solvers, so they land with that slice (ROADMAP queue 1,
-item 16).
+``ilu0_preconditioner`` and ``ilu0_factor`` raise: the JAX factor and both
+substitutions are n-step scans over a (w, 2w + 1) band carry, millions of
+dependent launches per apply on the card, so ILU(0) needs a design of its
+own (ROADMAP queue 1, item 16b).
 """
 
 from __future__ import annotations
@@ -23,9 +23,8 @@ from tpu_sparse_torch.precond.amg import (_chebyshev_smooth, _op_to,
                                           _product, _scale)
 from tpu_sparse_torch.precond.jacobi import diagonal, l1_jacobi_diag
 
-_ILU0 = ("ILU(0) is not ported yet: ROADMAP queue 1, item 16 (direct "
-         "solvers; its substitutions share the banded solvers' band "
-         "layout)")
+_ILU0 = ("ILU(0) is not ported yet: ROADMAP queue 1, item 16b (its "
+         "n-step substitutions need a level-scheduled design on the card)")
 
 
 class ChebyshevPreconditioner:
@@ -95,10 +94,10 @@ def neumann_preconditioner(A, terms: int = 3) -> NeumannPreconditioner:
 
 
 def ilu0_factor(A):
-    """Not ported: ROADMAP queue 1, item 16."""
+    """Not ported: ROADMAP queue 1, item 16b."""
     raise NotImplementedError(_ILU0)
 
 
 def ilu0_preconditioner(A):
-    """Not ported: ROADMAP queue 1, item 16."""
+    """Not ported: ROADMAP queue 1, item 16b."""
     raise NotImplementedError(_ILU0)

@@ -1,10 +1,11 @@
 """Krylov solvers (CG, single-reduction CG, flexible CG, MINRES,
 BiCGStab, GMRES, flexible GMRES), mixed-precision refinement, and the
-multi-RHS solvers (batched and block)."""
+multi-RHS solvers (batched, block, and the direct ``batch_direct``)."""
 
 from tpu_sparse_torch.solvers.batched import (batch_bicgstab, batch_cg,
-                                              batch_fcg, batch_fgmres,
-                                              batch_gmres, batch_minres)
+                                              batch_direct, batch_fcg,
+                                              batch_fgmres, batch_gmres,
+                                              batch_minres)
 from tpu_sparse_torch.solvers.block import block_cg
 from tpu_sparse_torch.solvers.fcg import fcg, fcg_full
 from tpu_sparse_torch.solvers.fgmres import fgmres, fgmres_full
@@ -50,6 +51,7 @@ __all__ = [
     "cg_refined", "bicgstab_refined", "gmres_refined", "refined_solve",
     "cg_sr_refined", "minres_refined", "fcg_refined", "fgmres_refined",
     "batch_cg", "batch_bicgstab", "batch_gmres", "batch_minres",
+    "batch_direct",
     "batch_refined",
     "batch_fcg", "batch_fgmres",
     "block_cg",

@@ -17,7 +17,8 @@ Every solver returns ``(X, infos (k,), iterations (k,), res_norms (k,))``.
 ``batch_fcg``, ``batch_minres`` and ``batch_cg_sr`` share the loops of
 ``fcg_full``, ``minres_full`` and ``cg_sr_full`` the same way, and
 ``batch_fgmres`` mirrors ``fgmres_full`` as ``batch_gmres`` mirrors
-``gmres_full``. ``batch_cg_sr`` has no JAX name: it is the column-batched
+``gmres_full``. ``batch_direct`` solves every column directly at once.
+``batch_cg_sr`` has no JAX name: it is the column-batched
 ``cg_sr_full`` that the JAX ``batch_refined`` reaches by ``vmap``.
 """
 
@@ -218,6 +219,16 @@ def _arnoldi_step_rows(k: int, w: torch.Tensor, V: torch.Tensor,
     row[:, :k + 1] = h
     row[:, k + 1] = w_norm.to(V.dtype)
     return unit_w, row, w_norm == 0.0
+
+
+def batch_direct(A, B: torch.Tensor) -> torch.Tensor:
+    """Direct solve of every column of B (n, k): one
+    ``direct.direct_solve`` of the whole block, whose solvers take (n, k)
+    natively (the JAX package ``vmap``s the single solve)."""
+    from tpu_sparse_torch.direct import direct_solve
+
+    _start(B, None)
+    return direct_solve(A, B)
 
 
 def gj_solve_batched(D: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
