@@ -75,7 +75,18 @@ counters set to 0 just before it and read just after:
   version, level packs against the plain compact SpMV / SpMM, gradients
   on the card against the CPU; then the lid-driven cavity with
   ``solver="direct"`` (block PCR) against the CPU at nx = 64 and its
-  steps per second at nx = 256.
+  steps per second at nx = 256;
+* phase (26): ``tpu_sparse_torch.dist`` on an NCCL group of one rank
+  (initialised in-process on a free localhost port): the halo CG on the
+  cg_110M system and b (kernel 1 extended mode on the rank's rows, with
+  and without Jacobi), the same CG on its CWELL pack (K4), float64 at
+  64^3 on the DIA and CWELL routes (extended fp64 kernel 1, K5), block CG
+  with B of 8 columns on the CWELL pack (K6/K7) and AMG-PCG with the
+  row-sharded hierarchy at 64^3, each held against the single-device
+  solve; the halo SpMV against kernel 1 and the CWELL routes against
+  each other; times beside the single-device and fused CG; the
+  collectives per iteration. No bytes cross a link on one rank: the
+  scaling across cards is ``python -m tpu_sparse_torch.dist.scaling_probe``.
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
@@ -484,8 +495,10 @@ def main() -> int:
         med, lo, hi = t
         return f"{med:9.2f} ms (min {lo:.2f} max {hi:.2f})"
 
+    solve_times = {}
     for label, fn, plain in rows:
         ms = solve_ms(fn)
+        solve_times[label] = ms
         pms = solve_ms(plain) if plain is not None else None
         its = fn()
         pits = plain() if plain is not None else None
@@ -496,6 +509,7 @@ def main() -> int:
 
     A_cg, A64_cg = A, A64   # kernel 1 was timed on these
     b_cg = b                # cg_110M's right-hand side, for phase (13)
+    b_main = b              # and for phase (26)
     del A64L, b64L, x64L_true
     torch.cuda.empty_cache()
     main_runs = {"phases (4)-(5)": main_launches}
@@ -855,6 +869,12 @@ def main() -> int:
     # ---- (24)-(25) the direct solvers and the LDC's direct path ----------
     direct_phases(dev, counts=counts, reset_counts=reset_counts,
                   main_runs=main_runs, times=times)
+
+    # ---- (26) the distributed solvers on an NCCL group of one rank ------
+    dist_phases(dev, b_main, counts=counts, reset_counts=reset_counts,
+                main_runs=main_runs, times=times, cg_iters=solves[None],
+                fused_ms=solve_times["cg f32 M=None (fused)"])
+    del b_main
 
     # ---- results -----------------------------------------------------------
     src_spmv = "tpu_sparse_torch/csrc/dia_spmv.cu"
@@ -2841,6 +2861,238 @@ def direct_phases(dev, *, counts, reset_counts, main_runs, times,
     check(st["mass_residual"] < 1e-7, "LDC direct mass residual above 1e-7")
     del card, cpu, s
     torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_phases(dev, b_main, *, counts, reset_counts, main_runs, times,
+                cg_iters, fused_ms, nx=MAIN_NX, small_nx=F64_NX, K=8):
+    """Phase (26): ``tpu_sparse_torch.dist`` on a process group of one rank
+    (NCCL on the card, gloo on the CPU for a rehearsal): the halo CG on
+    cg_110M's system and b (kernel 1 extended mode), the same CG on its
+    CWELL pack (K4), float64 at small_nx^3 (extended fp64 kernel 1, K5),
+    block CG with B of K columns on the CWELL pack (K6/K7) and AMG-PCG at
+    small_nx^3; then kernel checks, times beside the single-device solves
+    and the collectives per iteration. ``cg_iters``: phase (4)'s fused CG
+    iterations; ``fused_ms``: its (median, min, max) time."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_sparse_torch.dist import (comm_model, distributed_block_cg,
+                                       distributed_cg, make_row_mesh)
+    from tpu_sparse_torch.dist.amg import distributed_amg_preconditioner
+    from tpu_sparse_torch.dist.solvers import _shard_and_resolve
+    from tpu_sparse_torch.dist.spmv import (HaloCWELL, LocalExtendedOperator,
+                                            make_cwell_halo_spmv)
+    from tpu_sparse_torch.kernels import cuda_spmv
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.precond.amg import amg_preconditioner
+    from tpu_sparse_torch.precond.jacobi import jacobi_preconditioner
+    from tpu_sparse_torch.solvers import block_cg, cg_full
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    rng = np.random.default_rng(SEED + 26)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    phase(f"(26) main path: tpu_sparse_torch.dist on a {backend} group of "
+          f"one rank: halo CG on poisson3d_27pt({nx}) f32 (cg_110M's b), "
+          f"the same on its CWELL pack, f64 at {small_nx}^3, block CG with "
+          f"B of {K} columns, AMG-PCG at {small_nx}^3")
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_row_mesh(dev.type)
+        print(f"  {mesh} backend {dist.get_backend()}", flush=True)
+
+        def rel(a, c):
+            return float(torch.linalg.vector_norm((a - c).double())
+                         / torch.linalg.vector_norm(c.double()))
+
+        A = gen.poisson3d_27pt(nx, device=dev)
+        b = b_main
+        n = A.shape[0]
+        A_csr = to_csr(A)
+        A64 = gen.poisson3d_27pt(small_nx, dtype=np.float64, device=dev)
+        b64 = A64 @ torch.from_numpy(rng.standard_normal(
+            A64.shape[0])).to(dev)
+        A64_csr = to_csr(A64)
+        A_amg = gen.poisson3d_27pt(small_nx, device=dev)
+        b_amg = A_amg @ torch.from_numpy(rng.standard_normal(
+            A_amg.shape[0]).astype(np.float32)).to(dev)
+        B = torch.from_numpy(rng.standard_normal((n, K)).astype(
+            np.float32)).to(dev)
+        jac = jacobi_preconditioner(A)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+        # -- the main-path run: every launch from here to the read counts
+        reset_counts()
+        out = {}
+        for label, call in (
+                ("halo cg f32", lambda: distributed_cg(
+                    A, b, mesh=mesh, mode="halo", tol=1e-6, maxiter=500)),
+                ("halo cg f32 jacobi", lambda: distributed_cg(
+                    A, b, mesh=mesh, mode="halo", tol=1e-6, maxiter=500,
+                    M=jac)),
+                ("general cg f32", lambda: distributed_cg(
+                    A_csr, b, mesh=mesh, tol=1e-6, maxiter=500)),
+                ("halo cg f64", lambda: distributed_cg(
+                    A64, b64, mesh=mesh, mode="halo", tol=1e-8)),
+                ("general cg f64", lambda: distributed_cg(
+                    A64_csr, b64, mesh=mesh, tol=1e-8)),
+                ("general block cg f32", lambda: distributed_block_cg(
+                    A_csr, B, mesh=mesh, tol=1e-6, maxiter=500)),
+                ("amg-pcg f32", lambda: distributed_cg(
+                    A_amg, b_amg, mesh=mesh, mode="halo", tol=1e-6,
+                    M=distributed_amg_preconditioner(A_amg, mesh)))):
+            before = counts()
+            t0 = time.perf_counter()
+            x, info, it, res = call()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            grew = {k: v - before[k] for k, v in counts().items()
+                    if v != before[k]}
+            out[label] = (x, int(it))
+            print(f"  {label}: info {info.tolist()} iterations {int(it)} "
+                  f"residual {res.max().item():.3e} first-call wall "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches "
+                  f"{grew}", flush=True)
+            check(bool((info == 0).all()), f"{label}: info {info}")
+        main_runs["phase (26)"] = counts()
+        print(f"  main-path launches in phase (26): "
+              f"{main_runs['phase (26)']}")
+        for k in ("dia_spmv_ext_f32", "dia_spmv_ext_f64", "cwell_spmv_f32",
+                  "cwell_spmv_f64", "cwell_spmm_f32"):
+            check(main_runs["phase (26)"][k] > 0,
+                  f"phase (26): {k} did not carry the distributed path")
+        if dev.type == "cuda":
+            print(f"  peak device memory over the phase's set-up and "
+                  f"solves: {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+                  f"GB", flush=True)
+        for mode in ("gspmd", "halo"):
+            A_sh, rmode, _ = _shard_and_resolve(A_csr, mesh, mode)
+            print(f"  general operand, mode {mode!r}: route {rmode}, "
+                  f"halo plan " + (f"(wl, wr) = ({A_sh.wl}, {A_sh.wr})"
+                                   if isinstance(A_sh, HaloCWELL) else
+                                   "None (one rank: nothing to exchange; "
+                                   "the all_gather route)"))
+
+        # -- against the single-device solves (not counted) --------------
+        x_s, info_s, it_s, _ = cg_full(A, b, tol=1e-6, maxiter=500)
+        xd, itd = out["halo cg f32"]
+        print(f"  halo cg: {itd} iterations, single-device cg_full "
+              f"{int(it_s)}, phase (4)'s fused CG {cg_iters}; x rel diff "
+              f"{rel(xd, x_s):.2e}")
+        check(abs(itd - int(it_s)) <= 2 and rel(xd, x_s) <= 1e-5,
+              "distributed CG differs from the single-device CG")
+        check(abs(itd - cg_iters) <= 2,
+              "distributed CG iterations differ from the fused CG's")
+        xj_s, _, itj_s, _ = cg_full(A, b, tol=1e-6, maxiter=500, M=jac)
+        check(abs(out["halo cg f32 jacobi"][1] - int(itj_s)) <= 2
+              and rel(out["halo cg f32 jacobi"][0], xj_s) <= 1e-5,
+              "distributed Jacobi-CG differs from the single-device one")
+        W = csr_to_cwell(A_csr)
+        xg_s, _, itg_s, _ = cg_full(W, b, tol=1e-6, maxiter=500)
+        check(abs(out["general cg f32"][1] - int(itg_s)) <= 2
+              and rel(out["general cg f32"][0], xg_s) <= 1e-5,
+              "distributed CWELL CG differs from the single-device one")
+        x64_s, _, it64_s, _ = cg_full(A64, b64, tol=1e-8)
+        for label in ("halo cg f64", "general cg f64"):
+            check(abs(out[label][1] - int(it64_s)) <= 2
+                  and rel(out[label][0], x64_s) <= 1e-6,
+                  f"{label} differs from the single-device f64 CG")
+        Xb_s, _, itb_s, _ = block_cg(W, B, tol=1e-6, maxiter=500)
+        print(f"  block cg: {out['general block cg f32'][1]} iterations, "
+              f"single-device {int(itb_s)}; X rel diff "
+              f"{rel(out['general block cg f32'][0], Xb_s):.2e}")
+        check(abs(out["general block cg f32"][1] - int(itb_s)) <= 2
+              and rel(out["general block cg f32"][0], Xb_s) <= 1e-4,
+              "distributed block CG differs from the single-device one")
+        xa_s, _, ita_s, _ = cg_full(A_amg, b_amg, tol=1e-6,
+                                    M=amg_preconditioner(A_amg))
+        print(f"  amg-pcg: {out['amg-pcg f32'][1]} iterations, "
+              f"single-device {int(ita_s)}")
+        check(abs(out["amg-pcg f32"][1] - int(ita_s)) <= 2
+              and rel(out["amg-pcg f32"][0], xa_s) <= 1e-3,
+              "distributed AMG-PCG differs from the single-device one")
+
+        # -- kernels on the distributed routes against their plain versions
+        A_sh, _, op = _shard_and_resolve(A, mesh, "halo")
+        loc = LocalExtendedOperator(A_sh)
+        xv = torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(dev)
+        xe = loc.extend(xv)
+        y_k, y_p = loc(xe), loc.apply_plain(xe)
+        whole = cuda_spmv.ExtendedStencilOperator(A)
+        err = rel_err(y_k, y_p)
+        print(f"  kernel 1 extended on the rank's rows: rel err to plain "
+              f"{err:.2e}; bit-equal to the single-device extended "
+              f"operator: {bool(torch.equal(y_k, whole(whole.extend(xv))))}"
+              f"; the halo SpMV equals it: "
+              f"{bool(torch.equal(op(xv), loc.extract(y_k)))}")
+        check(err <= 1e-5 and torch.equal(op(xv), loc.extract(y_k)),
+              "the halo SpMV disagrees with kernel 1")
+        W_sh, _, ag = _shard_and_resolve(A_csr, mesh, "allgather")
+        H0 = HaloCWELL(W_sh.W, 0, 0, W_sh.shape, 0)
+        y_h = make_cwell_halo_spmv(H0, mesh)(xv)
+        y_ag = ag(xv)
+        y_ref = ref.cwell_spmv(W_sh.W, xv)
+        print(f"  CWELL halo route (empty plan) == all_gather route: "
+              f"{bool(torch.equal(y_h, y_ag))}; rel err to the plain "
+              f"SpMV {rel_err(y_ag, y_ref):.2e}")
+        check(torch.equal(y_h, y_ag) and rel_err(y_ag, y_ref) <= 1e-5,
+              "the CWELL routes disagree")
+
+        # -- times: CUDA events, median and min-max of 5 ------------------
+        def fmt(t):
+            return f"{t[0]:.2f} ms ({t[1]:.2f}-{t[2]:.2f})"
+
+        t_d = times(lambda: distributed_cg(A, b, mesh=mesh, mode="halo",
+                                           tol=1e-6, maxiter=500), 1)
+        t_s = times(lambda: cg_full(A, b, tol=1e-6, maxiter=500), 1)
+        t_g = times(lambda: distributed_cg(A_csr, b, mesh=mesh, tol=1e-6,
+                                           maxiter=500), 1)
+        t_spmv = times(lambda: op(xv), 20)
+        t_k = times(lambda: whole.apply_cuda(whole.extend(xv))
+                    if dev.type == "cuda" else whole(whole.extend(xv)), 20)
+        print(f"  time to tol 1e-6 at n={n}: distributed halo CG "
+              f"{fmt(t_d)} ({itd} it, {t_d[0] / itd:.3f} ms/it); "
+              f"single-device cg_full {fmt(t_s)} ({int(it_s)} it); "
+              f"phase (4)'s fused CG {fmt(fused_ms)} ({cg_iters} it); "
+              f"distributed CWELL CG {fmt(t_g)}")
+        print(f"  one distributed halo SpMV {fmt(t_spmv)} "
+              f"({A.nnz / (t_spmv[0] * 1e-3) / 1e9:.2f} Gnnz/s) against "
+              f"extend + kernel 1 extended {fmt(t_k)}")
+
+        # -- collectives per iteration (the recorder) ---------------------
+        for label, pipeline in (("cg", False), ("cg_sr", True)):
+            st = comm_model.measure_per_iteration(
+                lambda k, p=pipeline: distributed_cg(
+                    A, b, mesh=mesh, mode="halo", tol=0.0, maxiter=k,
+                    pipeline=p))
+            print(f"  collectives per {label} iteration: {st.summary()}")
+            check(st.summary().get("all-reduce", {}).get("count")
+                  == (2 if label == "cg" else 1),
+                  f"{label}: unexpected all-reduce rounds per iteration")
+            check("collective-permute" not in st.summary(),
+                  "one rank exchanged halo bytes")
+        del A, A_csr, A64, A64_csr, A_amg, B, W
+    finally:
+        dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1219,3 +1219,105 @@ def test_ldc_direct_on_card_matches_cpu(dev):
     for name in ("u", "v", "p"):
         assert float((getattr(card, name).cpu()
                       - getattr(cpu, name)).abs().max()) <= 1e-8
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A world-size-1 NCCL group on this process's card (torch.distributed
+    needs an address: a free localhost port), destroyed after the test."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from tpu_sparse_torch.dist import make_row_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield make_row_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dist_halo_spmv_world1_nccl(nccl_mesh, dtype):
+    """The halo SpMV of a one-rank NCCL group: kernel 1 in extended mode on
+    the rank's rows, bit for bit the single-device ExtendedStencilOperator,
+    and no halo bytes recorded (no neighbour)."""
+    from tpu_sparse_torch.dist import comm_model, distributed_matvec_op
+
+    A = gen.poisson3d_27pt(24, dtype=dtype, device="cuda")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        A.shape[0]).astype(dtype)).cuda()
+    _, mv = distributed_matvec_op(A, nccl_mesh, "halo")
+    before = cuda_spmv.LAUNCHES["dia_spmv_ext_" + ("f32" if dtype ==
+                                                   np.float32 else "f64")]
+    st = comm_model.measure_collectives(mv, x)
+    after = cuda_spmv.LAUNCHES["dia_spmv_ext_" + ("f32" if dtype ==
+                                                  np.float32 else "f64")]
+    op = cuda_spmv.ExtendedStencilOperator(A)
+    assert mv.mode == "halo" and after == before + 1
+    assert torch.equal(st.result, op.matvec(x))
+    assert "collective-permute" not in st.summary()
+    # a block takes the plain DIA SpMM (no fused multiply-adds): within
+    # 1e-5 of max|y| of the kernel's columns
+    X = torch.stack([x, 2 * x], dim=1)
+    y = op.matvec(x)
+    bound = 1e-5 * float(y.abs().max())
+    assert float((mv(X) - torch.stack([y, 2 * y], 1)).abs().max()) <= bound
+
+
+def test_dist_device_mismatch_raises(nccl_mesh):
+    """A CPU tensor on the NCCL mesh raises, a gloo mesh refuses a CUDA
+    tensor, and a CPU mesh on an NCCL group is refused: no fallback."""
+    import torch.distributed as dist
+
+    from tpu_sparse_torch.dist import distributed_cg, make_row_mesh
+    from tpu_sparse_torch.dist.mesh import RowMesh
+
+    A = gen.poisson2d(16, device="cuda")
+    with pytest.raises(ValueError, match="cpu tensor"):
+        distributed_cg(A, torch.ones(256, dtype=torch.float64),
+                       mesh=nccl_mesh)
+    with pytest.raises(ValueError, match="gloo"):
+        make_row_mesh("cpu")
+    gloo = RowMesh(dist.new_group(backend="gloo"), 0, 1,
+                   torch.device("cpu"))
+    with pytest.raises(ValueError, match="cuda tensor"):
+        gloo.all_reduce(torch.ones((), device="cuda"))
+
+
+def test_dist_solves_world1_nccl(nccl_mesh):
+    """Halo CG, CWELL CG and block CG of a one-rank NCCL group equal the
+    single-device solves (same kernels, identity reductions)."""
+    from tpu_sparse_torch.dist import distributed_block_cg, distributed_cg
+    from tpu_sparse_torch.solvers import block_cg, cg_full
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A = gen.poisson3d_27pt(32, device="cuda")
+    rng = np.random.default_rng(5)
+    b = A @ torch.from_numpy(rng.standard_normal(A.shape[0]).astype(
+        np.float32)).cuda()
+    x, info, it, _ = distributed_cg(A, b, mesh=nccl_mesh, mode="halo",
+                                    tol=1e-6)
+    xs, _, its, _ = cg_full(A, b, tol=1e-6)
+    assert int(info) == 0 and int(it) == int(its)
+    assert torch.equal(x, xs)
+    Ac = to_csr(A)
+    xg, info, itg, _ = distributed_cg(Ac, b, mesh=nccl_mesh, tol=1e-6)
+    xgs, _, itgs, _ = cg_full(csr_to_cwell(Ac), b, tol=1e-6)
+    assert int(info) == 0 and int(itg) == int(itgs)
+    assert torch.equal(xg, xgs)
+    B = torch.from_numpy(rng.standard_normal((A.shape[0], 4)).astype(
+        np.float32)).cuda()
+    X, infos, itb, _ = distributed_block_cg(Ac, B, mesh=nccl_mesh, tol=1e-6)
+    Xs, _, itbs, _ = block_cg(csr_to_cwell(Ac), B, tol=1e-6)
+    assert bool((infos == 0).all()) and int(itb) == int(itbs)
+    assert float((X - Xs).abs().max() / Xs.abs().max()) <= 1e-5

@@ -441,16 +441,20 @@ def _chebyshev_smooth(A, dinv, x, b, degree: int, lam_max: float,
 
 def v_cycle(hier: AMGHierarchy, b: torch.Tensor, *, pre_sweeps: int = 0,
             post_sweeps: int = 3, omega: float = 1.0,
-            smoother: str = "l1_jacobi", plain: bool = False
-            ) -> torch.Tensor:
+            smoother: str = "l1_jacobi", plain: bool = False,
+            product=None) -> torch.Tensor:
     """One V-cycle applied to b (x0 = 0), b of shape (n,) or (n, k).
 
     The default sweeps are the reference's AMGX configuration (0 pre / 3
     post L1-Jacobi sweeps). smoother: 'l1_jacobi' or 'chebyshev' (sweeps
     are then the polynomial degree). ``plain=True`` runs every product of
     a vector b through the plain PyTorch versions (``spmv_reference``),
-    the yardstick for the same cycle on the card's kernels."""
-    product = _product_plain if plain else _product
+    the yardstick for the same cycle on the card's kernels. ``product``
+    (op, x) -> op @ x replaces both for every level operator, and for a
+    ``coarse_inv`` that is not a tensor: the distributed hierarchy's
+    (``dist.amg``) operators are row-sharded objects it applies."""
+    if product is None:
+        product = _product_plain if plain else _product
 
     def smooth(lvl, x, rhs, sweeps):
         if sweeps <= 0:
@@ -465,6 +469,8 @@ def v_cycle(hier: AMGHierarchy, b: torch.Tensor, *, pre_sweeps: int = 0,
     def descend(level_idx: int, rhs: torch.Tensor) -> torch.Tensor:
         if level_idx == len(hier.levels):
             ci = hier.coarse_inv
+            if not isinstance(ci, torch.Tensor):
+                return product(ci, rhs)
             return (ci @ rhs.to(ci.dtype)).to(rhs.dtype)
         lvl = hier.levels[level_idx]
         x = torch.zeros_like(rhs)

@@ -21,15 +21,15 @@ is active, so the extra SpMM runs only on those iterations.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from tpu_sparse_torch.kernels import as_matmat
-from tpu_sparse_torch.solvers.batched import (cols_norm, cols_vdot_real,
+from tpu_sparse_torch.solvers.batched import (cols_vdot_real,
                                               gj_solve_batched)
 from tpu_sparse_torch.solvers.krylov import (CHECK_EVERY, _final_check_relax,
-                                             _real_dtype)
+                                             _identity, _real_dtype)
 
 REPLACE_EVERY = 32  # iterations between true-residual replacements
 
@@ -39,19 +39,23 @@ def _gj_matrix_solve(G: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return gj_solve_batched(G[None], C[None])[0]
 
 
-def _mgs_block(P: torch.Tensor) -> torch.Tensor:
+def _mgs_block(P: torch.Tensor, allreduce: Optional[Callable] = None
+               ) -> torch.Tensor:
     """Orthonormalise the k columns of P by modified Gram-Schmidt; a
-    column that nearly vanishes after projection deflates to exact zero."""
+    column that nearly vanishes after projection deflates to exact zero.
+    ``allreduce`` sums each inner product over the ranks that hold rows
+    of P (the distributed block CG)."""
+    red = _identity if allreduce is None else allreduce
     k = P.shape[1]
     eps = torch.finfo(_real_dtype(P.dtype)).eps
-    scale = torch.sqrt(torch.sum((P.conj() * P).real))  # block norm
+    scale = torch.sqrt(red(torch.sum((P.conj() * P).real)))  # block norm
     rows = P.T.contiguous()  # column j of P as a contiguous row
     qs = []
     for j in range(k):
         v = rows[j]
         for q in qs:
-            v = v - q * torch.vdot(q, v)
-        nrm = torch.sqrt(torch.sum((v.conj() * v).real))
+            v = v - q * red(torch.vdot(q, v))
+        nrm = torch.sqrt(red(torch.sum((v.conj() * v).real)))
         keep = nrm > 32 * eps * scale
         safe = torch.where(keep, nrm, torch.ones_like(nrm))
         qs.append(torch.where(keep, v / safe.to(P.dtype),
@@ -61,11 +65,15 @@ def _mgs_block(P: torch.Tensor) -> torch.Tensor:
 
 def block_cg(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *,
              tol: float = 1e-5, atol: float = 0.0,
-             maxiter: Optional[int] = None, M=None):
+             maxiter: Optional[int] = None, M=None,
+             allreduce: Optional[Callable] = None):
     """Stabilised block CG for SPD A with B of shape (n, k).
 
     Returns ``(X, infos, iterations, res_norms)``: infos and res_norms per
-    column (k,), as ``batch_cg``; iterations the shared block count."""
+    column (k,), as ``batch_cg``; iterations the shared block count.
+    ``allreduce`` sums the Gram products, column dots and norms over the
+    ranks that hold rows of B (the distributed block CG, which passes
+    ``maxiter``)."""
     if B.dim() != 2:
         raise ValueError("block_cg expects B of shape (n, k)")
     n, nrhs = B.shape
@@ -77,12 +85,17 @@ def block_cg(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *,
     dtype = B.dtype
     eye = torch.eye(nrhs, dtype=dtype, device=B.device)
 
-    bs = cols_vdot_real(B, B)
+    red = _identity if allreduce is None else allreduce
+
+    def cols_dot(U, V):
+        return red(cols_vdot_real(U, V))
+
+    bs = cols_dot(B, B)
     atol_t = torch.as_tensor(atol, dtype=bs.dtype, device=bs.device)
     atol2 = torch.maximum((tol * tol) * bs, atol_t * atol_t)
 
     def gram(U, V):
-        return U.conj().T @ V
+        return red(U.conj().T @ V)
 
     def dead_fix(S):
         """Unit pivots for zero (inactive or deflated) direction columns."""
@@ -91,8 +104,8 @@ def block_cg(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *,
 
     X = X0
     R = B - A_mm(X0)
-    rs = cols_vdot_real(R, R)
-    P = _mgs_block(M_mm(R) * (rs > atol2).to(dtype)[None, :])
+    rs = cols_dot(R, R)
+    P = _mgs_block(M_mm(R) * (rs > atol2).to(dtype)[None, :], allreduce)
     k = torch.zeros((), dtype=torch.int32, device=B.device)
     active = (k < maxiter) & torch.any(rs > atol2)
     it = 0  # host count of loop bodies: equals k while the loop is active
@@ -112,10 +125,10 @@ def block_cg(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *,
                 R_new = B - A_mm(X_new)
             else:
                 R_new = R - Q @ alpha
-            rs_new = cols_vdot_real(R_new, R_new)
+            rs_new = cols_dot(R_new, R_new)
             Z = M_mm(R_new) * (rs_new > atol2).to(dtype)[None, :]
             beta = _gj_matrix_solve(S, gram(Q, Z))
-            P_new = _mgs_block(Z - Pm @ beta)
+            P_new = _mgs_block(Z - Pm @ beta, allreduce)
             X = torch.where(active, X_new, X)
             R = torch.where(active, R_new, R)
             P = torch.where(active, P_new, P)
@@ -126,7 +139,8 @@ def block_cg(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *,
 
     # per-column final check on recomputed residuals, relaxed for 32-bit
     # arithmetic as in cg_full
-    res = cols_norm(B - A_mm(X))
+    E = B - A_mm(X)
+    res = torch.sqrt(cols_dot(E, E))
     thresh = torch.maximum(tol * torch.sqrt(bs), atol_t) * _final_check_relax(
         _real_dtype(dtype))
     finite = torch.isfinite(res) & torch.all(torch.isfinite(X.real), dim=0)

@@ -23,6 +23,7 @@ steps to stop once all later steps would be masked.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Optional, Union
 
 import torch
@@ -85,25 +86,29 @@ def _final_check_relax(dtype: torch.dtype) -> float:
     return 10.0 if torch.finfo(dtype).bits <= 32 else 1.0
 
 
-def _thresholds(b, tol: float, atol):
+def _thresholds(b, tol: float, atol, vdot_real: Callable = tree_vdot_real):
     """(<b, b>, atol as a tensor, the squared stopping threshold
-    max(tol^2 <b, b>, atol^2))."""
-    bs = tree_vdot_real(b, b)
+    max(tol^2 <b, b>, atol^2)). ``vdot_real`` is the dot product (the
+    distributed solvers pass an all-reduced one)."""
+    bs = vdot_real(b, b)
     atol_t = torch.as_tensor(atol, dtype=bs.dtype, device=bs.device)
     return bs, atol_t, torch.maximum((tol * tol) * bs, atol_t * atol_t)
 
 
 def _final_check(A_fn: Callable, b, x, bs: torch.Tensor,
-                 atol_t: torch.Tensor, tol: float):
+                 atol_t: torch.Tensor, tol: float,
+                 norm: Callable = tree_norm):
     """(info, ||b - A x||). The residual is the unpreconditioned one: the
     loops stop on <r, r> without M, and a strong M can inflate ||M r|| and
     flag a false pass. info is -1 when x or the residual is not finite or
     the residual exceeds max(tol ||b||, atol) (relaxed in 32-bit), else 0.
+    ``norm`` is the 2-norm (the distributed solvers pass an all-reduced
+    one).
     """
-    res_norm = tree_norm(tree_sub(b, A_fn(x)))
+    res_norm = norm(tree_sub(b, A_fn(x)))
     thresh = torch.maximum(tol * torch.sqrt(bs), atol_t) * _final_check_relax(
         _real_dtype(_float_dtype(b)))
-    failed = (~torch.isfinite(tree_norm(x))) | (~torch.isfinite(res_norm)) \
+    failed = (~torch.isfinite(norm(x))) | (~torch.isfinite(res_norm)) \
         | (res_norm > thresh)
     return torch.where(failed, -1, 0).to(torch.int32), res_norm
 
@@ -281,10 +286,19 @@ def bicgstab_full(A: Operator, b: Any, x0: Optional[Any] = None, *,
 # XLA's static shapes; plain slicing V[:k + 1] takes its place here.
 
 
-def _safe_normalize(x: torch.Tensor, thresh=None):
+def _vnorm(x: torch.Tensor, allreduce: Optional[Callable] = None):
+    """||x||: ``vector_norm``, or with an ``allreduce`` (the distributed
+    solvers' sum over ranks) the root of the all-reduced local <x, x>."""
+    if allreduce is None:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(allreduce(torch.vdot(x, x).real))
+
+
+def _safe_normalize(x: torch.Tensor, thresh=None,
+                    allreduce: Optional[Callable] = None):
     """(x / ||x||, ||x||), or zeros and 0 when ||x|| <= thresh (default
     the dtype's eps); reference ``_safe_normalize`` (:217-273)."""
-    norm = torch.linalg.vector_norm(x)
+    norm = _vnorm(x, allreduce)
     if thresh is None:
         thresh = torch.finfo(_real_dtype(x.dtype)).eps
     use = norm > thresh
@@ -294,7 +308,8 @@ def _safe_normalize(x: torch.Tensor, thresh=None):
 
 
 def _iterative_classical_gram_schmidt(V: torch.Tensor, x: torch.Tensor,
-                                      kplus: int, x_norm: torch.Tensor):
+                                      kplus: int, x_norm: torch.Tensor,
+                                      allreduce: Optional[Callable] = None):
     """Classical Gram-Schmidt of x against V[:kplus], with the second pass
     (CGS2) kept where the first cancelled more than half the norm:
     ``||q|| < ||x|| / sqrt(2)``. That is the JAX package's rule (its
@@ -302,30 +317,36 @@ def _iterative_classical_gram_schmidt(V: torch.Tensor, x: torch.Tensor,
     quantity; ROADMAP queue 3, R2), kept here so the two packages agree.
     The JAX ``lax.cond`` reads no host value; here both passes run and the
     second is selected on the device, so no Arnoldi step waits for the
-    host."""
+    host. With an ``allreduce`` (rows of V and x split over ranks) each
+    pass all-reduces its projection h = Vk^H x, one (kplus,) vector, and
+    the norm its local <q, q>."""
+    red = _identity if allreduce is None else allreduce
     Vk = V[:kplus]
-    h = torch.mv(Vk.conj(), x)
+    h = red(torch.mv(Vk.conj(), x))
     q = x - torch.mv(Vk.T, h)
-    need = torch.linalg.vector_norm(q) * 1.4142135623730951 < x_norm
-    dh = torch.mv(Vk.conj(), q)
+    need = _vnorm(q, allreduce) * 1.4142135623730951 < x_norm
+    dh = red(torch.mv(Vk.conj(), q))
     q = torch.where(need, q - torch.mv(Vk.T, dh), q)
     h = torch.where(need, h + dh, h)
     return q, h
 
 
 def _kth_arnoldi_iteration(k: int, A: Callable, M: Callable,
-                           V: torch.Tensor, restart: int):
+                           V: torch.Tensor, restart: int,
+                           allreduce: Optional[Callable] = None):
     """One Arnoldi step (reference :331-388): returns the new basis vector
     V[k+1], the row k of H (length restart + 1) and the breakdown flag."""
-    return _arnoldi_step(k, M(A(V[k])), V, restart)
+    return _arnoldi_step(k, M(A(V[k])), V, restart, allreduce)
 
 
-def _arnoldi_step(k: int, w: torch.Tensor, V: torch.Tensor, restart: int):
+def _arnoldi_step(k: int, w: torch.Tensor, V: torch.Tensor, restart: int,
+                  allreduce: Optional[Callable] = None):
     """``_kth_arnoldi_iteration`` given the product w of step k."""
     eps = torch.finfo(_real_dtype(V.dtype)).eps
-    w_pre = torch.linalg.vector_norm(w)
-    w, h = _iterative_classical_gram_schmidt(V, w, k + 1, w_pre)
-    unit_w, w_norm = _safe_normalize(w, thresh=eps * w_pre)
+    w_pre = _vnorm(w, allreduce)
+    w, h = _iterative_classical_gram_schmidt(V, w, k + 1, w_pre, allreduce)
+    unit_w, w_norm = _safe_normalize(w, thresh=eps * w_pre,
+                                     allreduce=allreduce)
     row = torch.zeros(restart + 1, dtype=V.dtype, device=V.device)
     row[:k + 1] = h
     row[k + 1] = w_norm.to(V.dtype)
@@ -387,7 +408,8 @@ def _new_basis(unit_residual: torch.Tensor, restart: int) -> torch.Tensor:
     return V
 
 
-def _gmres_batched(A, b, x0, unit_residual, residual_norm, ptol, restart, M):
+def _gmres_batched(A, b, x0, unit_residual, residual_norm, ptol, restart, M,
+                   allreduce: Optional[Callable] = None):
     """One restart cycle, batched solve method (reference :431-493): the
     full Arnoldi sweep, then one least-squares problem."""
     dtype = b.dtype
@@ -396,7 +418,8 @@ def _gmres_batched(A, b, x0, unit_residual, residual_norm, ptol, restart, M):
     breakdown = torch.zeros((), dtype=torch.bool, device=b.device)
     for k in range(restart):
         active = ~breakdown
-        unit_w, row, brk = _kth_arnoldi_iteration(k, A, M, V, restart)
+        unit_w, row, brk = _kth_arnoldi_iteration(k, A, M, V, restart,
+                                                  allreduce)
         V[k + 1] = torch.where(active, unit_w, V[k + 1])
         H[k] = torch.where(active, row, H[k])
         breakdown = torch.where(active, brk, breakdown)
@@ -405,7 +428,8 @@ def _gmres_batched(A, b, x0, unit_residual, residual_norm, ptol, restart, M):
     else:
         y = _lstsq_qr(H, residual_norm.to(dtype), restart)
     x = x0 + torch.mv(V[:restart].T, y)
-    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
+    unit_residual, residual_norm = _safe_normalize(M(b - A(x)),
+                                                   allreduce=allreduce)
     return x, unit_residual, residual_norm
 
 
@@ -440,7 +464,8 @@ def _apply_givens(G: torch.Tensor, row: torch.Tensor, k: int):
 
 
 def _gmres_incremental(A, b, x0, unit_residual, residual_norm, ptol,
-                       restart, M, flexible: bool = False):
+                       restart, M, flexible: bool = False,
+                       allreduce: Optional[Callable] = None):
     """One restart cycle, incremental (Givens QR) method (reference
     :557-638), with the in-cycle early exit ``err <= ptol`` as a mask;
     every ``EXIT_CHECK`` steps one host read ends the cycle once every
@@ -464,9 +489,10 @@ def _gmres_incremental(A, b, x0, unit_residual, residual_norm, ptol,
         if flexible:
             z = M(V[k])
             Z[k] = torch.where(active, z, Z[k])
-            unit_w, row, brk = _arnoldi_step(k, A(z), V, restart)
+            unit_w, row, brk = _arnoldi_step(k, A(z), V, restart, allreduce)
         else:
-            unit_w, row, brk = _kth_arnoldi_iteration(k, A, M, V, restart)
+            unit_w, row, brk = _kth_arnoldi_iteration(k, A, M, V, restart,
+                                                      allreduce)
         col, G_new = _apply_givens(G, row, k)
         V[k + 1] = torch.where(active, unit_w, V[k + 1])
         R[:, k] = torch.where(active, col[:restart], R[:, k])
@@ -485,9 +511,10 @@ def _gmres_incremental(A, b, x0, unit_residual, residual_norm, ptol,
     y = _upper_triangular_solve(R, rhs)
     if flexible:
         x = x0 + torch.mv(Z.T, y)
-        return (x,) + _safe_normalize(b - A(x))
+        return (x,) + _safe_normalize(b - A(x), allreduce=allreduce)
     x = x0 + torch.mv(V[:restart].T, y)
-    unit_residual, residual_norm = _safe_normalize(M(b - A(x)))
+    unit_residual, residual_norm = _safe_normalize(M(b - A(x)),
+                                                   allreduce=allreduce)
     return x, unit_residual, residual_norm
 
 
@@ -518,31 +545,38 @@ def _flat_operands(A_fn: Callable, M_fn: Callable, b, x0):
 def _gmres_restarts(A: Operator, b: Any, x0: Optional[Any], tol: float,
                     atol: float, restart: int, maxiter: Optional[int],
                     M: Optional[Operator], cycle_fn: Callable, *,
-                    left: bool):
+                    left: bool, allreduce: Optional[Callable] = None):
     """The restart loop of GMRES and FGMRES (reference
     ``_gmres_solve_with_method``, :787-803), one host read of its condition
     per cycle, and the final check. ``left``: M preconditions on the left
     and the loop monitors the preconditioned residual (GMRES); else M is
     applied inside ``cycle_fn`` on the right and the loop monitors the true
-    residual (FGMRES). Returns (x, info, restart_cycles, residual_norm)."""
+    residual (FGMRES). Returns (x, info, restart_cycles, residual_norm).
+    ``allreduce`` (the distributed solvers' sum over ranks, which hold
+    rows of every vector) reduces every inner product and norm; the caller
+    then clips ``restart`` to the global size and passes ``maxiter``."""
     if x0 is None:
         x0 = tree_zeros_like(b)
     _check_tree_compat(x0, b)
-    restart = min(restart, tree_size(b))
+    if allreduce is None:
+        restart = min(restart, tree_size(b))
+    else:
+        cycle_fn = functools.partial(cycle_fn, allreduce=allreduce)
     maxiter = _default_maxiter(b, maxiter)
     A_run, M_run, b_run, x, unflatten = _flat_operands(
         as_matvec(A), _identity if M is None else as_matvec(M), b, x0)
     P = M_run if left else _identity  # the residual the loop monitors
 
-    b_norm = torch.linalg.vector_norm(b_run)
+    b_norm = _vnorm(b_run, allreduce)
     atol_ = torch.clamp_min(tol * b_norm, atol)
     ptol = atol_
     if left:
-        Mb_norm = torch.linalg.vector_norm(M_run(b_run))
+        Mb_norm = _vnorm(M_run(b_run), allreduce)
         ptol = Mb_norm * torch.clamp_max(atol_ / torch.where(
             b_norm > 0, b_norm, torch.ones_like(b_norm)), 1.0)
 
-    unit_residual, residual_norm = _safe_normalize(P(b_run - A_run(x)))
+    unit_residual, residual_norm = _safe_normalize(P(b_run - A_run(x)),
+                                                   allreduce=allreduce)
     k = 0
     while k < maxiter and bool(residual_norm > atol_):
         x, unit_residual, residual_norm = cycle_fn(
@@ -550,9 +584,9 @@ def _gmres_restarts(A: Operator, b: Any, x0: Optional[Any], tol: float,
             M_run)
         k += 1
 
-    res_norm = torch.linalg.vector_norm(P(b_run - A_run(x)))
+    res_norm = _vnorm(P(b_run - A_run(x)), allreduce)
     relaxed_atol = atol_ * _final_check_relax(_real_dtype(b_run.dtype))
-    failed = (~torch.isfinite(torch.linalg.vector_norm(x))) \
+    failed = (~torch.isfinite(_vnorm(x, allreduce))) \
         | (~torch.isfinite(res_norm)) | (res_norm > relaxed_atol)
     info = torch.where(failed, -1, 0).to(torch.int32)
     k_t = torch.tensor(k, dtype=torch.int32, device=b_norm.device)

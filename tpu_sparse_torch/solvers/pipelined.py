@@ -49,17 +49,29 @@ def _positive_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 def _cg_sr_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
                 maxiter: int, precond_is_identity: bool,
-                vdot_real: Callable = tree_vdot_real):
+                vdot_real: Callable = tree_vdot_real,
+                vdots_real: Optional[Callable] = None):
     """The Chronopoulos-Gear recurrence; batched like ``krylov._cg_loop``
-    through its dot products (``solvers.batched.batch_cg_sr``)."""
+    through its dot products (``solvers.batched.batch_cg_sr``).
+    ``vdots_real`` takes the list of an iteration's (a, b) pairs and
+    returns their dot products together: the distributed solver reduces
+    them in one all-reduce (default: ``vdot_real`` of each pair)."""
+    if vdots_real is None:
+        def vdots_real(pairs):
+            return [vdot_real(a, c) for a, c in pairs]
+
+    def dots(r, u, w):
+        """<r,u>, <w,u> and the monitored <r,r> (gamma without M)."""
+        pairs = [(r, u), (w, u)] + ([] if precond_is_identity else [(r, r)])
+        out = [d.to(rdtype) for d in vdots_real(pairs)]
+        return out[0], out[1], out[0] if precond_is_identity else out[2]
+
     r = tree_sub(b, A(x0))
     u = M(r)
     w = A(u)
     dtype = _float_dtype(u)
     rdtype = _real_dtype(dtype)
-    gamma = vdot_real(r, u).to(rdtype)
-    delta = vdot_real(w, u).to(rdtype)
-    rr = gamma if precond_is_identity else vdot_real(r, r).to(rdtype)
+    gamma, delta, rr = dots(r, u, w)
     # a zero or indefinite start (r0 = 0) gives alpha 0
     alpha = _positive_ratio(gamma, delta)
     x, p, s = x0, u, w
@@ -75,10 +87,7 @@ def _cg_sr_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
             r_new = tree_axpy(-alpha.to(dtype), s, r)
             u = M(r_new)
             w = A(u)
-            gamma_new = vdot_real(r_new, u).to(rdtype)
-            delta = vdot_real(w, u).to(rdtype)
-            rr_new = gamma_new if precond_is_identity \
-                else vdot_real(r_new, r_new).to(rdtype)
+            gamma_new, delta, rr_new = dots(r_new, u, w)
             beta = gamma_new / gamma
             alpha_new = _positive_ratio(gamma_new,
                                         delta - beta * gamma_new / alpha)
