@@ -86,7 +86,17 @@ counters set to 0 just before it and read just after:
   solve; the halo SpMV against kernel 1 and the CWELL routes against
   each other; times beside the single-device and fused CG; the
   collectives per iteration. No bytes cross a link on one rank: the
-  scaling across cards is ``python -m tpu_sparse_torch.dist.scaling_probe``.
+  scaling across cards is ``python -m tpu_sparse_torch.dist.scaling_probe``;
+* phase (27): ILU(0) through ``solve(M="ilu0")``: the 160^3 set-up (the
+  host factor and the level packs, timed apart; 1,114 levels each way),
+  CG on the cg_110M system and b and BiCGStab on the convection-diffusion
+  system at 160^3 (every level sweep one K4 launch), float64 'auto' and
+  'full' at 64^3 (K4 inner sweeps, K5 sweeps), batched CG with B of 8
+  columns (K6/K7 sweeps) and a CG gradient in b at 32^3 against the CPU;
+  K4, K5 and K6/K7 against the plain compact product on those level
+  packs (the deepest and every 32nd); the card's factor and applies against the CPU's at 16^3; one apply's
+  time, launches and K4 device time; ILU-PCG beside M None / Jacobi; a
+  cuSPARSE float64 CSR matvec at 160^3 (kernel 3's library yardstick).
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
@@ -874,6 +884,12 @@ def main() -> int:
     dist_phases(dev, b_main, counts=counts, reset_counts=reset_counts,
                 main_runs=main_runs, times=times, cg_iters=solves[None],
                 fused_ms=solve_times["cg f32 M=None (fused)"])
+
+    # ---- (27) ILU(0): host factor, level-scheduled sweeps ----------------
+    ilu_phases(dev, b_main, counts=counts, reset_counts=reset_counts,
+               main_runs=main_runs, times=times, cg_iters=solves[None],
+               jacobi_iters=solves["jacobi"],
+               fused_ms=solve_times["cg f32 M=None (fused)"])
     del b_main
 
     # ---- results -----------------------------------------------------------
@@ -3092,6 +3108,325 @@ def dist_phases(dev, b_main, *, counts, reset_counts, main_runs, times,
         dist.destroy_process_group()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+def kernel_profile(run, name: str):
+    """One call of ``run`` under torch.profiler: (device kernels launched,
+    launches of the kernels whose name holds ``name``, their summed device
+    ms), or None when the profiler recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.key != "Command Buffer Full"]
+    if not rows:
+        return None
+
+    def dev_us(e):
+        us = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if us is None else us
+
+    hit = [e for e in rows if name in e.key]
+    return (sum(e.count for e in rows), sum(e.count for e in hit),
+            sum(dev_us(e) for e in hit) / 1e3)
+
+
+def ilu_phases(dev, b_main, *, counts, reset_counts, main_runs, times,
+               cg_iters, jacobi_iters, fused_ms, nx=MAIN_NX,
+               small_nx=F64_NX, grad_nx=32, cmp_nx=16, K=8):
+    """Phase (27): ILU(0) (``precond/ilu.py``: host factor, level-scheduled
+    substitutions). The set-up of poisson3d_27pt(nx) f32 timed in its host
+    factor and its level packs; the main-path run: ``solve(M="ilu0")``
+    with CG on cg_110M's system and b (every level sweep K4), BiCGStab on
+    the convection-diffusion system at nx^3, float64 'auto' and 'full' at
+    small_nx^3 (K4 inner sweeps, K5 sweeps), batched CG with B of K
+    columns at small_nx^3 (K6/K7 sweeps) and a float64 CG gradient in b
+    at grad_nx^3 (the CPU's own solve of it, the comparison, grows with
+    the size; 32^3 keeps the phase short); then K4, K5 and K6/K7 against
+    the plain compact product on those runs' level packs (the deepest and
+    every 32nd), the card against the CPU
+    at cmp_nx^3 (factor, apply, block apply) and grad_nx^3 (the
+    gradient), one apply's time and launches at nx^3, the ILU-PCG times
+    beside M None / Jacobi, a cuSPARSE float64 CSR matvec at nx^3
+    (kernel 3's library yardstick) and the phase's peak memory.
+    ``cg_iters`` / ``jacobi_iters``: phase (4)'s fused CG iterations;
+    ``fused_ms``: its (median, min, max) time with M None."""
+    import torch
+
+    from tpu_sparse_torch import precond as tpre
+    from tpu_sparse_torch.api.solver import _get_default_solver
+    from tpu_sparse_torch.kernels import cuda_cwell
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.precond.ilu import factor_host
+    from tpu_sparse_torch.sparse import cwell_compact
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.convert import to_csr
+
+    import tpu_sparse_torch
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(SEED + 27)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fmt(t):
+        return f"{t[0]:.2f} ms ({t[1]:.2f}-{t[2]:.2f})"
+
+    phase(f"(27) main path: ILU(0) through solve(M='ilu0'): set-up and CG "
+          f"on poisson3d_27pt({nx}) f32 (cg_110M's b), BiCGStab on "
+          f"convection_diffusion_3d_27pt({nx}), f64 'auto' / 'full' and B of "
+          f"{K} columns at {small_nx}^3, a gradient at {grad_nx}^3; card "
+          f"against CPU at {cmp_nx}^3")
+    A = gen.poisson3d_27pt(nx, device=dev)
+    b = b_main
+    n = A.shape[0]
+    A_cd = gen.convection_diffusion_3d_27pt(nx, device=dev)
+    b_cd = A_cd @ torch.from_numpy(rng.standard_normal(n).astype(
+        np.float32)).to(dev)
+    A64 = gen.poisson3d_27pt(small_nx, dtype=np.float64, device=dev)
+    n64 = A64.shape[0]
+    b64 = A64 @ torch.from_numpy(rng.standard_normal(n64)).to(dev)
+    A32s = gen.poisson3d_27pt(small_nx, device=dev)
+    B = torch.from_numpy(rng.standard_normal((n64, K)).astype(
+        np.float32)).to(dev)
+    A_g = gen.poisson3d_27pt(grad_nx, dtype=np.float64, device=dev)
+    b_g = torch.from_numpy(rng.standard_normal(A_g.shape[0])).to(dev)
+    w_g = torch.from_numpy(rng.standard_normal(A_g.shape[0])).to(dev)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(call):
+        """(call's result, its ms by CUDA events; the host clock on the
+        CPU)."""
+        if not cuda:
+            t0 = time.perf_counter()
+            return call(), (time.perf_counter() - t0) * 1e3
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = call()
+        e1.record()
+        e1.synchronize()
+        return r, e0.elapsed_time(e1)
+
+    # -- set-up at nx^3: the host factor alone, then the router's build of
+    # the preconditioner (the factor again and the level packs on the
+    # card), cached for the solves below; the first apply builds each
+    # pack's compact plan
+    solver = _get_default_solver()
+    t0 = time.perf_counter()
+    _, _, _, levels = factor_host(A)
+    t_factor = time.perf_counter() - t0
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    for label, AA in (("poisson3d_27pt", A),
+                      ("convection_diffusion_3d_27pt", A_cd)):
+        t0 = time.perf_counter()
+        MM = solver._precond_M(AA, "ilu0")
+        sync()
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        MM(v)
+        sync()
+        t_plans = time.perf_counter() - t0
+        n_packs = sum(len(sw.operators()) for sw in (MM.fwd, MM.bwd))
+        print(f"  set-up of {label}({nx}): factor + level packs "
+              f"{t_build:.2f} s, first apply (each pack's compact plan) "
+              f"{t_plans:.2f} s; levels {MM.levels}, {n_packs} packs",
+              flush=True)
+        check(MM.levels == (7 * (nx - 1) + 1,) * 2,
+              f"ILU(0) levels {MM.levels}, not the stencil's wavefronts")
+    M = solver._precond_M(A, "ilu0")
+    packs = [N for sw in (M.fwd, M.bwd) for N in sw.operators()]
+    print(f"  poisson3d_27pt({nx}): host factor alone {t_factor:.2f} s "
+          f"(levels {levels}), so its packs take the rest", flush=True)
+
+    # -- the main-path run: every launch from here to the read counts
+    reset_counts()
+    out = {}
+    for label, call in (
+            ("cg f32 ilu0", lambda: tpu_sparse_torch.solve(
+                A, b, method="cg", M="ilu0", tol=1e-6, maxiter=500)),
+            ("bicgstab f32 ilu0 (convection-diffusion)",
+             lambda: tpu_sparse_torch.solve(
+                 A_cd, b_cd, method="bicgstab", M="ilu0", tol=1e-6,
+                 maxiter=500)),
+            (f"cg f64 auto ilu0 {small_nx}^3", lambda: tpu_sparse_torch.solve(
+                A64, b64, method="cg", M="ilu0", tol=1e-8)),
+            (f"cg f64 full ilu0 {small_nx}^3", lambda: tpu_sparse_torch.solve(
+                A64, b64, method="cg", M="ilu0", tol=1e-8,
+                precision="full")),
+            (f"cg batched f32 ilu0 B {K} {small_nx}^3",
+             lambda: tpu_sparse_torch.solve(
+                 A32s, B, method="cg", M="ilu0", tol=1e-6, maxiter=500,
+                 multi_rhs="batch"))):
+        before = counts()
+        (x, res), ms = timed(call)
+        grew = {k: val - before[k] for k, val in counts().items()
+                if val != before[k]}
+        out[label] = (res.iterations, ms)
+        print(f"  {label}: {res}; {ms:.2f} ms (first call); launches "
+              f"{grew}", flush=True)
+        check(res.converged, f"{label} did not converge")
+        check(res.residual <= (1e-5 if "f32" in label else 1e-8),
+              f"{label}: true relative residual {res.residual}")
+    bg = b_g.clone().requires_grad_()
+    xg, resg = tpu_sparse_torch.solve(A_g, bg, method="cg", M="ilu0",
+                                      tol=1e-8, precision="full")
+    (xg * w_g).sum().backward()
+    sync()
+    check(resg.converged, "the differentiated ILU-CG did not converge")
+    main_runs["phase (27)"] = counts()
+    print(f"  main-path launches in phase (27): {main_runs['phase (27)']}")
+    for k in ("cwell_spmv_f32", "cwell_spmv_f64", "cwell_spmm_f32"):
+        check(main_runs["phase (27)"][k] > 0,
+              f"phase (27): {k} did not carry the ILU(0) sweeps")
+    if cuda:
+        print(f"  peak device memory over the phase's set-up and solves: "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+
+    # -- the sweeps' kernels against the plain compact product at their
+    # main-path shapes (not counted): the deepest level pack and every
+    # 32nd of the 160^3 f32 factor (K4), the 64^3 f64 one (K5) and the
+    # 64^3 f32 one with B of K columns (K6/K7)
+    kspmv = cuda_cwell.cwell_spmv_cuda if cuda else cuda_cwell.cwell_spmv
+    kspmm = cuda_cwell.cwell_spmm_cuda if cuda else cuda_cwell.cwell_spmm
+    for label, MM, k, tol in ((f"f32 {nx}^3", M, None, 1e-5),
+                              (f"f64 {small_nx}^3",
+                               solver._precond_M(A64, "ilu0"), None, 1e-12),
+                              (f"f32 {small_nx}^3, B of {K} columns",
+                               solver._precond_M(A32s, "ilu0"), K, 1e-5)):
+        ps = sorted((N for sw in (MM.fwd, MM.bwd) for N in sw.operators()),
+                    key=lambda N: -cwell_compact.compact(N)[0].depth)
+        sample = ps[:1] + ps[1::32]
+        m = ps[0].shape[1]
+        shape = (m,) if k is None else (m, k)
+        y = torch.from_numpy(rng.standard_normal(shape)).to(dev, MM.dtype)
+        err = 0.0
+        for N in sample:
+            pl, cv = cwell_compact.compact(N)
+            if k is None:
+                err = max(err, rel_err(kspmv(N, y),
+                                       ref.cwell_compact_spmv(pl, cv, y)))
+            else:
+                err = max(err, rel_err(kspmm(N, y),
+                                       ref.cwell_compact_spmm(pl, cv, y)))
+        kern = ("K4" if MM.dtype == torch.float32 else "K5") if k is None \
+            else "K6/K7"
+        print(f"  level packs {label}: {len(sample)} of {len(ps)} (deepest "
+              f"plan {cwell_compact.compact(ps[0])[0].depth} slot rows): "
+              f"{kern} against the plain compact product {err:.2e}",
+              flush=True)
+        check(err <= tol, f"ILU(0) level packs {label}: {kern} differs from "
+              "its plain version")
+
+    # -- the card against the CPU (not counted) ---------------------------
+    t0 = time.perf_counter()
+    for make in (gen.poisson3d_27pt, gen.convection_diffusion_3d_27pt):
+        Ac = make(cmp_nx, dtype=np.float64, device="cpu")
+        (Lc, Uc), (Lg, Ug) = tpre.ilu0_factor(Ac), tpre.ilu0_factor(
+            Ac.to(dev))
+        same = (torch.equal(Lg.data.cpu(), Lc.data)
+                and torch.equal(Ug.data.cpu(), Uc.data))
+        Mc, Mg = tpre.ilu0_preconditioner(Ac), tpre.ilu0_preconditioner(
+            Ac.to(dev))
+        vc = torch.from_numpy(rng.standard_normal(Ac.shape[0]))
+        Vc = torch.from_numpy(rng.standard_normal((Ac.shape[0], K)))
+        e1 = rel_err(Mg(vc.to(dev)).cpu(), Mc(vc))
+        ek = rel_err(Mg.matmat(Vc.to(dev)).cpu(), Mc.matmat(Vc))
+        print(f"  {make.__name__}({cmp_nx}) f64: factor card == CPU {same}; "
+              f"apply rel err {e1:.2e}, (n, {K}) block {ek:.2e}; levels "
+              f"{Mg.levels}")
+        check(same and e1 <= 1e-12 and ek <= 1e-12,
+              f"ILU(0) on the card differs from the CPU on {make.__name__}")
+    bc = b_g.cpu().requires_grad_()
+    xc, resc = tpu_sparse_torch.solve(A_g.to("cpu"), bc, method="cg",
+                                      M="ilu0", tol=1e-8, precision="full")
+    (xc * w_g.cpu()).sum().backward()
+    eg = rel_err(bg.grad.cpu(), bc.grad)
+    print(f"  cg gradient in b at {grad_nx}^3 f64: {resg.iterations} it "
+          f"card, {resc.iterations} CPU; rel diff {eg:.2e} (card against "
+          f"CPU checks {time.perf_counter() - t0:.1f} s)")
+    check(eg <= 1e-6, "the ILU-CG gradient differs from the CPU's")
+
+    # -- one apply at nx^3 ----------------------------------------------------
+    before = counts()
+    M(v)
+    sync()
+    per_apply = {k: val - before[k] for k, val in counts().items()
+                 if val != before[k]}
+    t_apply = times(lambda: M(v), 1, reps=5, warmup=1)
+    spmv_bytes = 0
+    for N in packs:
+        pl, cv = cwell_compact.compact(N)
+        # the plan's values and indices, block offsets and window rows,
+        # one x value per slot and the level's y rows
+        spmv_bytes += (pl.slots * (cv.element_size() + pl.idx.element_size()
+                                   + cv.element_size())
+                       + pl.boff.numel() * 8 + pl.srow.numel() * 4
+                       + N.shape[0] * cv.element_size())
+    print(f"  one apply at n={n}: {fmt(t_apply)} (CUDA events), launches "
+          f"counted {per_apply}; the K4 packs' bytes {spmv_bytes / 1e6:.1f}"
+          f" MB, bound {spmv_bytes / 3.35e9:.4f} ms", flush=True)
+    prof = kernel_profile(lambda: M(v), "cwell_spmv") if cuda else None
+    if prof is None:
+        print("  apply under torch.profiler: not measured (no device time)")
+    else:
+        k_all, k4_n, k4_ms = prof
+        print(f"  apply under torch.profiler: {k_all} device kernels, K4 "
+              f"{k4_n} events of the counter's "
+              f"{per_apply.get('cwell_spmv_f32', 0)} launches, {k4_ms:.2f} "
+              f"ms summed over those events ("
+              f"{k4_ms / max(k4_n, 1) * 1e3:.1f} us an event against "
+              f"{spmv_bytes / max(len(packs), 1) / 3.35e6:.2f} us of its "
+              f"bytes at 3.35 TB/s)", flush=True)
+
+    # -- ILU-PCG times beside M None / Jacobi: CG's main-path run and two
+    # more, by CUDA events; BiCGStab's main-path run
+    t_cg = [out["cg f32 ilu0"][1]] + [timed(lambda: tpu_sparse_torch.solve(
+        A, b, method="cg", M="ilu0", tol=1e-6, maxiter=500))[1]
+        for _ in range(2)]
+    it_cg = out["cg f32 ilu0"][0]
+    print(f"  time to tol 1e-6, cg f32 ilu0: "
+          f"{fmt((float(np.median(t_cg)), min(t_cg), max(t_cg)))} (median "
+          f"and min-max of 3), {it_cg} it; bicgstab f32 ilu0 "
+          f"(convection-diffusion): "
+          f"{out['bicgstab f32 ilu0 (convection-diffusion)'][1]:.2f} ms, "
+          f"{out['bicgstab f32 ilu0 (convection-diffusion)'][0]} it",
+          flush=True)
+    print(f"  yardsticks (phase (4)): cg M=None {cg_iters} it "
+          f"{fmt(fused_ms)} (fused); M=jacobi {jacobi_iters} it")
+    check(it_cg < cg_iters, "ILU(0) did not lower CG's iterations")
+
+    # -- kernel 3's library yardstick at nx^3 ---------------------------------
+    del M, packs
+    solver._m_cache._store.clear()
+    if cuda:
+        torch.cuda.empty_cache()
+    A64L = gen.poisson3d_27pt(nx, dtype=np.float64, device=dev)
+    C = to_csr(A64L)
+    lib = torch.sparse_csr_tensor(C.indptr, C.indices, C.data, size=C.shape)
+    x64 = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    e_lib = rel_err(torch.mv(lib, x64), A64L @ x64)
+    t_lib = times(lambda: torch.mv(lib, x64), 10)
+    print(f"  cuSPARSE f64 CSR matvec of poisson3d_27pt({nx}, float64): "
+          f"{fmt(t_lib)} (rel err to kernel 3 plain {e_lib:.1e})")
+    check(e_lib <= 1e-12, "the f64 CSR yardstick computes another function")
+    del lib, C, A64L
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"  phase (27) wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

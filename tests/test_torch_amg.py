@@ -249,12 +249,12 @@ def test_native_loader_builds_per_process_and_forgets_failures(
     built = list(tmp_path.glob("host-*/*.so"))
     assert [p.name for p in built] == ["amg_setup.so"]
 
-    monkeypatch.setattr(_native, "_lib", None)
+    monkeypatch.setattr(_native, "_libs", {})
     monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "fresh")
     monkeypatch.setenv("CXX", sys.executable)  # not a compiler: fails
     with pytest.raises(RuntimeError, match="host C.. build failed"):
         _native.library()
-    assert _native._lib is None and not list(
+    assert not _native._libs and not list(
         (tmp_path / "fresh").glob("host-*/*.so"))
     monkeypatch.delenv("CXX")
     assert _native.l1_row_norms([0, 2], [-1.0, 2.0]).tolist() == [3.0]

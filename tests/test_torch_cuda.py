@@ -35,7 +35,11 @@ card within 1e-8 of the CPU's after 20 steps. Direct solves: PCR and
 block PCR on the card within 1e-10 (f64) / 1e-4 (f32) of the CPU's
 Thomas and banded LU; the supernodal router path and SparseLU to a true
 relative residual of 1e-10 (f64) / 1e-5 (f32) on a consistent b, as the
-CPU's host SuperLU; gradients within 1e-10 / 1e-4 of the CPU's.
+CPU's host SuperLU; gradients within 1e-10 / 1e-4 of the CPU's. ILU(0):
+the card's factor equal to the CPU's (the same host code), one apply
+(K4 / K5 per level pack) and a block apply (K6/K7) within 1e-12 (f64) /
+1e-5 (f32) of the CPU's plain sweeps; ILU-preconditioned solves on the
+card against the CPU with the slack and x tolerances above.
 """
 
 import numpy as np
@@ -1321,3 +1325,62 @@ def test_dist_solves_world1_nccl(nccl_mesh):
     Xs, _, itbs, _ = block_cg(csr_to_cwell(Ac), B, tol=1e-6)
     assert bool((infos == 0).all()) and int(itb) == int(itbs)
     assert float((X - Xs).abs().max() / Xs.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("make", [
+    lambda: gen.poisson3d_27pt(12, dtype=np.float64, device="cpu"),
+    lambda: gen.convection_diffusion_3d_27pt(12, dtype=np.float64,
+                                             device="cpu"),
+    lambda: gen.poisson3d_27pt(12, device="cpu"),
+], ids=["poisson3d-f64", "convdiff3d-f64", "poisson3d-f32"])
+def test_ilu0_on_card_matches_cpu(dev, make):
+    """ILU(0): the card's factor equals the CPU port's (the same host
+    code), and one apply (K4 / K5 per level pack) and a block apply
+    (K6/K7) match the CPU's plain level sweeps within 1e-12 (f64) /
+    1e-5 (f32) of max|y|."""
+    from tpu_sparse_torch import precond as tpre
+
+    A = make()
+    f64 = A.dtype == torch.float64
+    bound = 1e-12 if f64 else 1e-5
+    (Lc, Uc), (Lg, Ug) = tpre.ilu0_factor(A), tpre.ilu0_factor(A.to(dev))
+    assert Lg.data.is_cuda
+    assert torch.equal(Lg.data.cpu(), Lc.data)
+    assert torch.equal(Ug.data.cpu(), Uc.data)
+    Mc, Mg = tpre.ilu0_preconditioner(A), tpre.ilu0_preconditioner(A.to(dev))
+    assert Mg.levels == Mc.levels == (78, 78)
+    rng = np.random.default_rng(6)
+    v = torch.from_numpy(rng.standard_normal(A.shape[0])).to(A.dtype)
+    V = torch.from_numpy(rng.standard_normal((A.shape[0], 8))).to(A.dtype)
+    key = "f64" if f64 else "f32"
+    before = dict(cuda_cwell.LAUNCHES)
+    y = Mg(v.to(dev))
+    Y = Mg.matmat(V.to(dev))
+    assert cuda_cwell.LAUNCHES[f"cwell_spmv_{key}"] - before[
+        f"cwell_spmv_{key}"] == len(Mg.fwd.operators()) + len(
+        Mg.bwd.operators())
+    assert cuda_cwell.LAUNCHES[f"cwell_spmm_{key}"] > before[
+        f"cwell_spmm_{key}"]
+    assert _rel(y.cpu(), Mc(v)) <= bound
+    assert _rel(Y.cpu(), Mc.matmat(V)) <= bound
+
+
+@pytest.mark.parametrize("method,dtype,precision", [
+    ("cg", np.float32, "full"), ("bicgstab", np.float32, "full"),
+    ("cg", np.float64, "full"), ("gmres", np.float64, "auto"),
+    ("minres", np.float64, "full")])
+def test_ilu0_solve_on_card_matches_cpu(dev, method, dtype, precision):
+    A = gen.poisson3d_27pt(16, dtype=dtype, device="cpu")
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        A.shape[0]).astype(dtype))
+    tol = 1e-6 if dtype == np.float32 else 1e-10
+    kw = dict(method=method, M="ilu0", tol=tol, precision=precision,
+              maxiter=500)
+    xc, rc = tpu_sparse_torch.solve(A, b, **kw)
+    xg, rg = tpu_sparse_torch.solve(A.to(dev), b.to(dev), **kw)
+    assert rc.converged and rg.converged
+    slack = 2 if dtype == np.float64 else max(5, rc.iterations // 5)
+    assert abs(rc.iterations - rg.iterations) <= slack
+    rtol = 1e-3 if dtype == np.float32 else 1e-8
+    np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=rtol,
+                               atol=rtol * float(xc.abs().max()))

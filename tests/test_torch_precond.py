@@ -154,12 +154,31 @@ def test_routes_run_the_named_preconditioner(kw, build):
 
 
 def test_ilu0_raises_naming_item_16():
-    _, At, _, bt = _system(4)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tpu_sparse_torch.solve(At, bt, M="ilu0")
+    """ILU(0) raised naming ROADMAP item 16b until it was ported. Now its
+    apply matches JAX's within 1e-12 of max|y|, M='ilu0' routes to CG with
+    that preconditioner (equal to cg_full with it, bit for bit), built
+    once per matrix and reused, and a non-DIA operand raises JAX's
+    ValueError."""
+    Aj, At, _, bt = _system(6)
+    v = np.random.default_rng(9).standard_normal(Aj.shape[0])
+    M = tpre.ilu0_preconditioner(At)
+    _close(M(torch.from_numpy(v)).numpy(),
+           jpre.ilu0_preconditioner(Aj)(jnp.asarray(v)), 1e-12)
+    solver = tpu_sparse_torch.SparseSolver()
+    x, res = solver.solve(At, bt, tol=1e-10, precision="full", M="ilu0")
+    x0, info, iters, _ = cg_full(At, bt, tol=1e-10, M=M)
+    assert res.converged and int(info) == 0
+    assert res.iterations == int(iters) and torch.equal(x, x0)
+    solver.solve(At, bt, tol=1e-10, precision="full", M="ilu0")
+    assert len(solver._m_cache._store) == 1
     for fn in (tpre.ilu0_preconditioner, tpre.ilu0_factor):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn(At)
+        with pytest.raises(ValueError, match="requires a DIA"):
+            fn(csr_from_arrays(*_csr_arrays(), device="cpu"))
+
+
+def _csr_arrays():
+    S = _general(40)
+    return S.data, S.indices, S.indptr, S.shape
 
 
 def test_multi_rhs_amg_runs_block_cg_with_the_vcycle():

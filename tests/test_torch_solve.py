@@ -8,6 +8,7 @@ relative to ||x||.
 """
 
 import ast
+import functools
 import pathlib
 import subprocess
 import sys
@@ -214,6 +215,14 @@ def _a_b():
     return A, torch.ones(16, dtype=torch.float64)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_ilu0_solve(items):
+    Aj = jgen.poisson2d(4)
+    xj, rj = tpu_sparse.solve(Aj, jnp.ones(16), M="ilu0", tol=1e-10,
+                              **dict(items))
+    return np.asarray(xj), rj.converged, rj.iterations
+
+
 @pytest.mark.parametrize("kw", [
     dict(M="ilu0", method="bicgstab"),
     dict(M="ilu0", method="gmres"), dict(M="ilu0", method="fcg"),
@@ -222,9 +231,45 @@ def _a_b():
     dict(M="ilu0", method="cg_sr"), dict(M="ilu0", method="fgmres"),
 ])
 def test_out_of_slice_raises_not_implemented(kw):
+    """M='ilu0' was outside the port until ILU(0) was ported; every route
+    now matches tpu_sparse.solve at tol 1e-10: converged (MINRES: the
+    port's own, JAX's loop has fault R10), equal iterations (the f64
+    'auto' routes run the mixed path: within 2) and x within 1e-10 of
+    max|x|."""
     A, b = _a_b()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tpu_sparse_torch.solve(A, b, **kw)
+    kw = {k: v for k, v in kw.items() if k != "M"}
+    xt, rt = tpu_sparse_torch.solve(A, b, M="ilu0", tol=1e-10, **kw)
+    xj, conv_j, it_j = _jax_ilu0_solve(tuple(sorted(kw.items())))
+    assert rt.converged
+    if kw.get("method") != "minres":
+        assert conv_j
+    slack = 0 if kw.get("precision") == "full" else 2
+    assert abs(rt.iterations - it_j) <= slack, (rt.iterations, it_j)
+    assert xt.dtype == torch.float64
+    assert np.abs(xt.numpy() - xj).max() <= 1e-10 * np.abs(xj).max()
+    assert rt.residual <= 1e-10
+
+
+@pytest.mark.parametrize("k", [None, 3], ids=["vector", "block"])
+@pytest.mark.parametrize("precision", ["full", "auto", "mixed"])
+@pytest.mark.parametrize("method", ["cg", "cg_sr", "fcg", "minres",
+                                    "bicgstab", "gmres", "fgmres"])
+def test_mixed_dtypes_solve_in_the_common_dtype(method, precision, k):
+    """A float64 matrix with a float32 b (and x0): b and x0 are promoted
+    to float64 before any route is chosen, so every method, precision and
+    right-hand-side form gives the float64 solve of the promoted b, bit
+    for bit (GMRES and FGMRES raised a dtype error before)."""
+    A = tpu_sparse_torch.sparse.generators.poisson2d(8, device="cpu")
+    shape = (64,) if k is None else (64, k)
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        shape).astype(np.float32))
+    x0 = torch.zeros(shape, dtype=torch.float32)
+    kw = dict(method=method, precision=precision, tol=1e-8)
+    x, r = tpu_sparse_torch.solve(A, b, x0=x0, **kw)
+    x64, r64 = tpu_sparse_torch.solve(A, b.double(), x0=x0.double(),
+                                      **kw)
+    assert x.dtype == torch.float64 and r.converged
+    assert torch.equal(x, x64) and r.iterations == r64.iterations
 
 
 @pytest.mark.parametrize("kw,msg", [

@@ -6,7 +6,8 @@ the Krylov solvers (CG, single-reduction CG, flexible CG, MINRES,
 BiCGStab, GMRES, flexible GMRES) with mixed-precision refinement and the
 adjoint gradient, for matrices and matrix-free callables; multi-RHS
 solves (each method batched, block CG, batched refinement); the
-preconditioners (Jacobi, aggregation AMG, Chebyshev, Neumann, FSAI) and the
+preconditioners (Jacobi, aggregation AMG, Chebyshev, Neumann, FSAI,
+ILU(0)) and the
 ``amg`` backend; the direct solvers (banded, dense, SparseLU and the
 supernodal level-scheduled LU) and the ``direct`` backend; the
 ``SparseSolver`` / ``solve`` router with ``reorder="rcm"``; the

@@ -6,9 +6,9 @@ methods ``cg``, ``cg_sr``, ``fcg``, ``minres``, ``bicgstab``, ``gmres`` and
 ``amg`` backend (AMG-preconditioned CG, or with ``accelerant=None`` the
 stationary V-cycle iteration), the ``direct`` backend (``method="direct"``,
 ``_solve_direct``), the preconditioners ``M="jacobi" | "amg" |
-"chebyshev" | "neumann" | "fsai" | "fsai2"`` (built once per matrix
-content and cached), ``reorder="rcm"``, with the extended-layout CUDA
-fast paths for square DIA systems (M None or Jacobi):
+"chebyshev" | "neumann" | "fsai" | "fsai2" | "ilu0"`` (built once per
+matrix content and cached), ``reorder="rcm"``, with the extended-layout
+CUDA fast paths for square DIA systems (M None or Jacobi):
 
 * float32 ``b`` on CUDA, cg / bicgstab / gmres: ``autodiff.implicit.
   ext_run`` (fused CG kernels, K10 for bicgstab without x0 and M, else the
@@ -46,9 +46,14 @@ solvers (``solvers.batched``), chosen by ``multi_rhs="auto" | "block" |
 one SpMM. As in the JAX package it is not differentiable (its loops run
 outside the adjoint wrappers), so inputs that require grad are refused.
 
-The JAX ``jit``/``lru_cache`` wrappers are plain calls here. Parts of the
-JAX router not ported yet (native complex, ILU(0)) raise
-``NotImplementedError`` naming their ROADMAP queue-1 item; unknown names
+A matrix operand and a right-hand side of different dtypes solve in
+their common dtype: ``b`` and ``x0`` are promoted to
+``torch.result_type(values(A), b)`` before any route is chosen (a
+float64 matrix with a float32 b is a float64 solve for every method).
+
+The JAX ``jit``/``lru_cache`` wrappers are plain calls here. The part of
+the JAX router not ported yet (native complex) raises
+``NotImplementedError`` naming its ROADMAP queue-1 item; unknown names
 raise the JAX router's ``ValueError``.
 """
 
@@ -227,9 +232,13 @@ class SparseSolver:
         and a matrix operand's values (one adjoint solve); 'mixed' is not.
 
         M: None, a preconditioner callable, or one of the names 'jacobi' |
-        'amg' | 'chebyshev' | 'neumann' | 'fsai' | 'fsai2' (built once per
-        matrix content and cached; 'ilu0' is not ported yet). A non-diagonal
-        M leaves the extended DIA fast paths for the method's loop.
+        'amg' | 'chebyshev' | 'neumann' | 'fsai' | 'fsai2' | 'ilu0' (built
+        once per matrix content and cached; 'ilu0' takes a DIA matrix). A
+        non-diagonal M leaves the extended DIA fast paths for the method's
+        loop.
+
+        A b (or x0) whose dtype differs from a matrix operand's values is
+        promoted to their common dtype first.
 
         backend='amg' (or method='amg') solves with AMG-preconditioned CG;
         ``accelerant=None`` runs the stationary V-cycle iteration instead
@@ -262,6 +271,7 @@ class SparseSolver:
             raise ValueError(
                 f"dimension mismatch: A is {tuple(A.shape)}, b has length "
                 f"{b.shape[0]}")
+        b, x0 = _promote_rhs(A, b, x0)
         if reorder is not None:
             return self._solve_reordered(
                 A, b, x0, reorder, method=method, backend=backend, tol=tol,
@@ -362,7 +372,7 @@ class SparseSolver:
                 return P.chebyshev_preconditioner(A)
             if name == "neumann":
                 return P.neumann_preconditioner(A)
-            return P.ilu0_preconditioner(A)  # raises: ROADMAP item 16b
+            return P.ilu0_preconditioner(A)  # DIA only; raises otherwise
 
         return self._m_cache.get_or_build(A, build, extra=(name,))
 
@@ -641,6 +651,16 @@ def _tensors(A, b, x0, M) -> list:
     if isinstance(M, DiagonalPreconditioner):
         out.append(M.dinv)
     return [t for t in out if isinstance(t, torch.Tensor)]
+
+
+def _promote_rhs(A, b, x0):
+    """b and x0 in the common dtype of a matrix operand's values and b
+    (a matrix-free operator leaves them as they are)."""
+    if _matrix_free(A) or not isinstance(b, torch.Tensor):
+        return b, x0
+    dt = torch.result_type(A if isinstance(A, torch.Tensor) else values(A),
+                           b)
+    return b.to(dt), None if x0 is None else x0.to(dt)
 
 
 def _requires_grad(A, b, x0, M) -> bool:

@@ -1,6 +1,5 @@
-"""Preconditioners: Jacobi, L1-Jacobi, aggregation AMG, Chebyshev, Neumann
-and FSAI (the JAX ``tpu_sparse.precond`` names; ILU(0) raises, ROADMAP
-queue 1, item 16b)."""
+"""Preconditioners: Jacobi, L1-Jacobi, aggregation AMG, Chebyshev, Neumann,
+ILU(0) and FSAI (the JAX ``tpu_sparse.precond`` names)."""
 
 from tpu_sparse_torch.precond.amg import (AMGHierarchy, AMGLevel,
                                           AMGPreconditioner, TentativeP,
@@ -14,6 +13,7 @@ from tpu_sparse_torch.precond.jacobi import (DiagonalPreconditioner, diagonal,
                                              jacobi_preconditioner,
                                              l1_jacobi_diag)
 from tpu_sparse_torch.precond.poly import (ChebyshevPreconditioner,
+                                           ILU0Preconditioner,
                                            NeumannPreconditioner,
                                            chebyshev_preconditioner,
                                            ilu0_factor, ilu0_preconditioner,
@@ -25,7 +25,8 @@ __all__ = [
     "AMGHierarchy", "AMGLevel", "AMGPreconditioner", "TentativeP",
     "amg_hierarchy_from_numpy", "amg_preconditioner", "amg_setup",
     "amg_solve", "amg_stationary_solve", "v_cycle",
-    "ChebyshevPreconditioner", "NeumannPreconditioner",
+    "ChebyshevPreconditioner", "ILU0Preconditioner",
+    "NeumannPreconditioner",
     "chebyshev_preconditioner", "ilu0_factor", "ilu0_preconditioner",
     "neumann_preconditioner",
     "FSAIPreconditioner", "fsai_preconditioner", "fsai_setup",

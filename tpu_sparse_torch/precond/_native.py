@@ -1,7 +1,9 @@
-"""ctypes binding of the host C++ AMG setup (``csrc/host/amg_setup.cc``).
+"""ctypes bindings of the port's host C++: the AMG setup
+(``csrc/host/amg_setup.cc``) and the ILU(0) factor (``csrc/host/ilu0.cc``).
 
 Counterpart of ``tpu_sparse/native/__init__.py`` for the three kernels the
-port's AMG setup runs: ``aggregate``, ``rap_pc`` and ``l1_row_norms``. The
+port's AMG setup runs (``aggregate``, ``rap_pc`` and ``l1_row_norms``),
+plus ``ilu0``, the factor and level schedule of ``precond/ilu.py``. Each
 source compiles with the host C++ compiler (``$CXX``, else ``c++`` or
 ``g++``) at first use into ``tpu_sparse_torch/_build/host-<hash>/``, keyed
 by a hash of the source and flags. Each process builds to a name of its
@@ -26,32 +28,37 @@ import numpy as np
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PACKAGE_DIR / "csrc" / "host" / "amg_setup.cc"
+ILU_SOURCE = PACKAGE_DIR / "csrc" / "host" / "ilu0.cc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+# the factor must round as the JAX scan does: no fused multiply-adds
+ILU_FLAGS = CXX_FLAGS + ("-ffp-contract=off",)
 
 _lock = threading.Lock()
-_lib: "ctypes.CDLL | None" = None
+_libs: "dict[Path, ctypes.CDLL]" = {}
 
 
 def _compiler() -> str:
     for c in (os.environ.get("CXX"), "c++", "g++"):
         if c and shutil.which(c):
             return shutil.which(c)
-    raise RuntimeError("no host C++ compiler (set CXX): the AMG setup of "
+    raise RuntimeError("no host C++ compiler (set CXX): the host code of "
                        "tpu_sparse_torch builds from source at first use")
 
 
-def build() -> Path:
-    """Compile the source unless its library exists; returns its path."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
+def build(source: Path = SOURCE, flags: Tuple[str, ...] = CXX_FLAGS
+          ) -> Path:
+    """Compile ``source`` unless its library exists; returns its path."""
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(flags).encode())
     out_dir = BUILD_DIR / f"host-{h.hexdigest()[:16]}"
-    lib_path = out_dir / "amg_setup.so"
+    lib_path = out_dir / f"{source.stem}.so"
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"amg_setup.{os.getpid()}.{threading.get_ident()}.so"
-    cmd = [_compiler(), *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+    tmp = out_dir / (f"{source.stem}.{os.getpid()}."
+                     f"{threading.get_ident()}.so")
+    cmd = [_compiler(), *flags, str(source), "-o", str(tmp)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -61,27 +68,52 @@ def build() -> Path:
     return lib_path
 
 
-def library() -> ctypes.CDLL:
-    """The loaded library, built on first call."""
-    global _lib
+def _load(source: Path, flags: Tuple[str, ...], bind) -> ctypes.CDLL:
+    """``source``'s library, built and loaded on first call; ``bind(lib)``
+    sets its functions' argument and return types."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            i32p = ctypes.POINTER(ctypes.c_int32)
-            i64p = ctypes.POINTER(ctypes.c_int64)
-            f64p = ctypes.POINTER(ctypes.c_double)
-            lib.ts_aggregate.restype = ctypes.c_int64
-            lib.ts_aggregate.argtypes = [ctypes.c_int64, i32p, i32p, f64p,
-                                         ctypes.c_double, ctypes.c_int32,
-                                         i64p]
-            lib.ts_rap_pc.restype = ctypes.c_int64
-            lib.ts_rap_pc.argtypes = [ctypes.c_int64, ctypes.c_int64, i32p,
-                                      i32p, f64p, i64p, i32p, i32p, f64p,
-                                      ctypes.c_int64]
-            lib.ts_l1_row_norms.restype = None
-            lib.ts_l1_row_norms.argtypes = [ctypes.c_int64, i32p, f64p, f64p]
-            _lib = lib
-        return _lib
+        if source not in _libs:
+            lib = ctypes.CDLL(str(build(source, flags)))
+            bind(lib)
+            _libs[source] = lib
+        return _libs[source]
+
+
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+
+
+def _bind_amg(lib: ctypes.CDLL) -> None:
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.ts_aggregate.restype = ctypes.c_int64
+    lib.ts_aggregate.argtypes = [ctypes.c_int64, _i32p, _i32p, f64p,
+                                 ctypes.c_double, ctypes.c_int32, _i64p]
+    lib.ts_rap_pc.restype = ctypes.c_int64
+    lib.ts_rap_pc.argtypes = [ctypes.c_int64, ctypes.c_int64, _i32p, _i32p,
+                              f64p, _i64p, _i32p, _i32p, f64p,
+                              ctypes.c_int64]
+    lib.ts_l1_row_norms.restype = None
+    lib.ts_l1_row_norms.argtypes = [ctypes.c_int64, _i32p, f64p, f64p]
+
+
+def _bind_ilu(lib: ctypes.CDLL) -> None:
+    for name, fp in (("ts_ilu0_f64", ctypes.c_double),
+                     ("ts_ilu0_f32", ctypes.c_float)):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [ctypes.c_int64, ctypes.c_int64, _i64p,
+                       ctypes.POINTER(fp), ctypes.POINTER(fp), _i32p, _i32p,
+                       _i64p]
+
+
+def library() -> ctypes.CDLL:
+    """The AMG setup's library, built on first call."""
+    return _load(SOURCE, CXX_FLAGS, _bind_amg)
+
+
+def ilu_library() -> ctypes.CDLL:
+    """The ILU(0) factor's library, built on first call."""
+    return _load(ILU_SOURCE, ILU_FLAGS, _bind_ilu)
 
 
 def _as(arr, dtype) -> np.ndarray:
@@ -165,3 +197,34 @@ def l1_row_norms(indptr, data) -> np.ndarray:
                         _ptr(data, ctypes.c_double),
                         _ptr(out, ctypes.c_double))
     return out
+
+
+def ilu0(offsets, data: np.ndarray
+         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]:
+    """ILU(0) of a DIA matrix (``data`` (ndiag, n), float32 or float64, in
+    that dtype) on its own pattern. Returns (factored band (ndiag, n): L's
+    multipliers on the negative offsets, U on the rest; forward levels
+    (n,) int32; backward levels (n,) int32; the two level counts).
+    Raises JAX's ValueError without a stored main diagonal."""
+    data = np.ascontiguousarray(data)
+    if data.dtype not in (np.float32, np.float64):
+        raise TypeError(f"ilu0 takes float32 or float64 values, got "
+                        f"{data.dtype}")
+    offs = _as(offsets, np.int64)
+    nd, n = data.shape
+    if offs.size != nd:
+        raise ValueError("one offset per stored diagonal")
+    if 0 not in offs:
+        raise ValueError("ILU(0) needs a stored main diagonal")
+    lib = ilu_library()
+    out = np.empty_like(data)
+    lev_f = np.empty(n, np.int32)
+    lev_b = np.empty(n, np.int32)
+    n_lev = np.zeros(2, np.int64)
+    f64 = data.dtype == np.float64
+    fn, fp = ((lib.ts_ilu0_f64, ctypes.c_double) if f64
+              else (lib.ts_ilu0_f32, ctypes.c_float))
+    fn(n, nd, _ptr(offs, ctypes.c_int64), _ptr(data, fp), _ptr(out, fp),
+       _ptr(lev_f, ctypes.c_int32), _ptr(lev_b, ctypes.c_int32),
+       _ptr(n_lev, ctypes.c_int64))
+    return out, lev_f, lev_b, (int(n_lev[0]), int(n_lev[1]))

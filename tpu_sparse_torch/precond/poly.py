@@ -9,10 +9,10 @@
 Each is an object with ``__call__`` (a vector), ``matmat`` (an (n, k)
 block: one SpMM per product) and ``.to(device or dtype)``.
 
-``ilu0_preconditioner`` and ``ilu0_factor`` raise: the JAX factor and both
-substitutions are n-step scans over a (w, 2w + 1) band carry, millions of
-dependent launches per apply on the card, so ILU(0) needs a design of its
-own (ROADMAP queue 1, item 16b).
+``ilu0_factor`` and ``ilu0_preconditioner`` (JAX's ILU(0) of a DIA
+matrix) live in ``precond/ilu.py``: a host factor and level-scheduled
+substitutions on the card. They are re-exported here, where the JAX
+package has them.
 """
 
 from __future__ import annotations
@@ -21,10 +21,9 @@ import torch
 
 from tpu_sparse_torch.precond.amg import (_chebyshev_smooth, _op_to,
                                           _product, _scale)
+from tpu_sparse_torch.precond.ilu import (ILU0Preconditioner,  # noqa: F401
+                                          ilu0_factor, ilu0_preconditioner)
 from tpu_sparse_torch.precond.jacobi import diagonal, l1_jacobi_diag
-
-_ILU0 = ("ILU(0) is not ported yet: ROADMAP queue 1, item 16b (its "
-         "n-step substitutions need a level-scheduled design on the card)")
 
 
 class ChebyshevPreconditioner:
@@ -92,12 +91,3 @@ def neumann_preconditioner(A, terms: int = 3) -> NeumannPreconditioner:
                        torch.ones_like(d))
     return NeumannPreconditioner(A, dinv, terms)
 
-
-def ilu0_factor(A):
-    """Not ported: ROADMAP queue 1, item 16b."""
-    raise NotImplementedError(_ILU0)
-
-
-def ilu0_preconditioner(A):
-    """Not ported: ROADMAP queue 1, item 16b."""
-    raise NotImplementedError(_ILU0)
