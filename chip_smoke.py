@@ -39,7 +39,8 @@ counters set to 0 just before it and read just after:
   segmented packs, empty rows and columns) and K8 (bs 1 to 64, padding
   blocks) on edge cases; phase (18) times them beside their bounds (K6/K7:
   the plan's bytes, the plane pack's printed beside), a cuSPARSE SpMM and
-  k K4 launches, and the multi-RHS solves beside k single-RHS solves.
+  k K4 launches, and the multi-RHS solves beside k single-RHS solves
+  (median and min-max of 3).
 * phase (20): the AMG and preconditioner path at n = 160^3: ``solve(A, b,
   backend="amg")`` (AMG-preconditioned CG; the V-cycle runs kernel 1 on
   the DIA levels and K4 on the CWELL restriction and prolongator), the
@@ -52,7 +53,7 @@ counters set to 0 just before it and read just after:
   same cycle on the plain versions and the block V-cycle against the
   single ones, and times the cycle by level; phase (21) runs the
   lid-driven cavity (``tpu_sparse_torch.apps.ldc``, float64: K3) on the
-  card against the CPU at nx = 64 (100 steps) and at nx = 256 for 150
+  card against the CPU at nx = 64 (20 steps) and at nx = 256 for 50
   steps;
 * phases (22)-(23): single-reduction CG, FCG (M None and the AMG V(0,3)
   cycle), MINRES on the shifted, indefinite Poisson system and FGMRES(20)
@@ -67,14 +68,15 @@ counters set to 0 just before it and read just after:
   transpose raises);
 * phases (24)-(25): the direct solvers through ``solve(...,
   method="direct")``: a tridiagonal n = 500 (PCR) against the CPU's
-  Thomas solve, a dense n = 2,048, the general system poisson2d(512) +
-  0.1 triu as CSR (n = 262,144: the supernodal LU, every level group one
+  Thomas solve, a dense n = 2,048, the general system poisson2d(256) +
+  0.1 triu as CSR (n = 65,536: the supernodal LU, every level group one
   K4 / K5 launch, one K6/K7 launch with B of 8 columns) in float32 and
   float64 beside SuperLU's own solve of the same factors, the same system
   at n = 16,384 (and SparseLU there), the level solve against its plain
   version, level packs against the plain compact SpMV / SpMM, gradients
   on the card against the CPU; then the lid-driven cavity with
-  ``solver="direct"`` (block PCR) against the CPU at nx = 64 and its
+  ``solver="direct"`` (block PCR) against the CPU at nx = 64 (50 steps)
+  and its
   steps per second at nx = 256;
 * phase (26): ``tpu_sparse_torch.dist`` on an NCCL group of one rank
   (initialised in-process on a free localhost port): the halo CG on the
@@ -89,14 +91,27 @@ counters set to 0 just before it and read just after:
   scaling across cards is ``python -m tpu_sparse_torch.dist.scaling_probe``;
 * phase (27): ILU(0) through ``solve(M="ilu0")``: the 160^3 set-up (the
   host factor and the level packs, timed apart; 1,114 levels each way),
-  CG on the cg_110M system and b and BiCGStab on the convection-diffusion
-  system at 160^3 (every level sweep one K4 launch), float64 'auto' and
-  'full' at 64^3 (K4 inner sweeps, K5 sweeps), batched CG with B of 8
-  columns (K6/K7 sweeps) and a CG gradient in b at 32^3 against the CPU;
+  CG on the cg_110M system and b (every level sweep one K4 launch),
+  BiCGStab on the convection-diffusion system, float64 'auto' and 'full'
+  (K4 inner sweeps, K5 sweeps) and batched CG with B of 8
+  columns (K6/K7 sweeps) at 64^3, and a CG gradient in b at 32^3 against
+  the CPU;
   K4, K5 and K6/K7 against the plain compact product on those level
   packs (the deepest and every 32nd); the card's factor and applies against the CPU's at 16^3; one apply's
   time, launches and K4 device time; ILU-PCG beside M None / Jacobi; a
-  cuSPARSE float64 CSR matvec at 160^3 (kernel 3's library yardstick).
+  cuSPARSE float64 CSR matvec at 160^3 (kernel 3's library yardstick);
+* phase (28): native complex. CG (M None, Jacobi), BiCGStab and GMRES(20)
+  on D^H A D of the 160^3 systems in complex64 (D = diag(exp(i theta)), a
+  unitary similarity: the real solves' iterations), GMRES(20) on (1 +
+  0.2i) C, CG and batched CG (B of 8 columns) on the CWELL of D^H A D,
+  batched CG on the kron BELL made Hermitian in complex64 and complex128,
+  complex128 'full' / 'mixed' / ILU(0) / batched at 64^3, a gradient at
+  32^3 against the CPU, the supernodal LU of a complex general CSR at n =
+  16,384 against SuperLU's own complex128 solve, and a real L with a
+  complex b (one cast of L); then the complex64 / complex128 builds of
+  kernel 1, K4 / K5, K6/K7 and K8 against their plain versions at the
+  160^3 shapes, timed beside their bounds and cuSPARSE's complex CSR
+  calls, and the complex solves beside the real ones.
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
@@ -890,6 +905,11 @@ def main() -> int:
                main_runs=main_runs, times=times, cg_iters=solves[None],
                jacobi_iters=solves["jacobi"],
                fused_ms=solve_times["cg f32 M=None (fused)"])
+
+    # ---- (28) native complex ---------------------------------------------
+    complex_phases(dev, b_main, note=note, counts=counts,
+                   reset_counts=reset_counts, main_runs=main_runs,
+                   times=times, cg_iters=solves, nonsym_iters=nonsym)
     del b_main
 
     # ---- results -----------------------------------------------------------
@@ -921,6 +941,20 @@ def main() -> int:
                           "tpu_sparse/kernels/pallas_bell.py:34"),
         "bell_spmm_f64": ("tpu_sparse_torch/csrc/bell_spmm.cu",
                           "tpu_sparse/kernels/pallas_bell.py:34"),
+        "dia_spmv_c64": (src_spmv, "tpu_sparse/kernels/pallas_spmv.py:51"),
+        "dia_spmv_c128": (src_spmv, "tpu_sparse/kernels/pallas_spmv.py:51"),
+        "cwell_spmv_c64": ("tpu_sparse_torch/csrc/cwell_spmv.cu",
+                           "tpu_sparse/kernels/pallas_cwell.py:48"),
+        "cwell_spmv_c128": ("tpu_sparse_torch/csrc/cwell_spmv.cu",
+                            "tpu_sparse/kernels/pallas_cwell.py:307"),
+        "cwell_spmm_c64": ("tpu_sparse_torch/csrc/cwell_spmm.cu",
+                           "tpu_sparse/kernels/pallas_cwell.py:639"),
+        "cwell_spmm_c128": ("tpu_sparse_torch/csrc/cwell_spmm.cu",
+                            "tpu_sparse/kernels/pallas_cwell.py:505"),
+        "bell_spmm_c64": ("tpu_sparse_torch/csrc/bell_spmm.cu",
+                          "tpu_sparse/kernels/pallas_bell.py:34"),
+        "bell_spmm_c128": ("tpu_sparse_torch/csrc/bell_spmm.cu",
+                           "tpu_sparse/kernels/pallas_bell.py:34"),
     }
     launches = {k: sum(run[k] for run in main_runs.values() if k in run)
                 for k in origin}
@@ -1681,7 +1715,8 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
     # ---- (18) times ----------------------------------------------------
     phase("(18) times (CUDA events, median and min-max of 5): K6/K7 and K8 "
           "beside bounds, plain versions, cuSPARSE SpMM and k x K4; "
-          "multi-RHS solves beside k single-RHS solves")
+          "multi-RHS solves beside k single-RHS solves (median and min-max "
+          "of 3)")
 
     def fmt(t):
         return f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
@@ -1780,7 +1815,9 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
     for label, op, Bm, kw, *_ in runs:
         its = {}
         multi, singles = multi_and_singles(op, Bm, kw, its)
-        t_m, t_s = times(multi, 1), times(singles, 1)
+        # both ran in phase (17): no warm-up call
+        t_m = times(multi, 1, reps=3, warmup=0)
+        t_s = times(singles, 1, reps=3, warmup=0)
         print(f"  solve {label:38s} {fmt(t_m)} ({its['multi']} it);   "
               f"{Bm.shape[1]} single-RHS solves {fmt(t_s)} "
               f"({its['singles']} it); ratio {t_s[0] / t_m[0]:.2f}",
@@ -1788,8 +1825,8 @@ def multirhs_phases(dev, g, *, note, counts, reset_counts, main_runs,
 
 
 def amg_phases(dev, g, *, counts, reset_counts, main_runs, times, cg_iters,
-               nx=MAIN_NX, small_nx=F64_NX, ldc_cmp=(64, 100),
-               ldc_run=(256, 150)):
+               nx=MAIN_NX, small_nx=F64_NX, ldc_cmp=(64, 20),
+               ldc_run=(256, 50)):
     """Phases (19)-(21): the AMG hierarchy of the nx^3 Poisson system and
     its V-cycle against the plain versions, the AMG and preconditioner
     solves through ``solve()`` (the main path of this slice) and the
@@ -2516,7 +2553,8 @@ def more_solver_phases(dev, g, *, counts, reset_counts, main_runs, times,
     torch.cuda.empty_cache()
 
 
-DIRECT_NX = 512  # general_direct_262k: poisson2d(512) + 0.1 triu
+DIRECT_NX = 256  # poisson2d(256) + 0.1 triu, n = 65,536 (the JAX bench's
+# general_direct_262k system at a quarter of its rows)
 
 
 def skewed_poisson(nx: int, dtype, dev):
@@ -2537,17 +2575,19 @@ def skewed_poisson(nx: int, dtype, dev):
 
 def superlu_reference_residual(S, b, leaf=896) -> float:
     """True relative residual of SuperLU's own solve of S x = b with the
-    supernodal LU's ordering and options (host scipy, float64): the most
-    the level solves of those factors can give."""
+    supernodal LU's ordering and options (host scipy, float64; complex128
+    for a complex S): the most the level solves of those factors can
+    give."""
     import scipy.sparse.linalg as spl
 
     from tpu_sparse_torch.direct.ordering import nested_dissection
 
-    S = S.astype(np.float64)
+    work = np.complex128 if np.iscomplexobj(S.data) else np.float64
+    S = S.astype(work)
     sigma, _ = nested_dissection(S, leaf=leaf)
     lu = spl.splu(S[sigma][:, sigma].tocsc(), permc_spec="NATURAL",
                   diag_pivot_thresh=0.1, options=dict(SymmetricMode=True))
-    bb = np.asarray(b, np.float64)
+    bb = np.asarray(b, work)
     x = np.empty_like(bb)
     x[sigma] = lu.solve(bb[sigma])
     return float(np.linalg.norm(bb - S @ x) / np.linalg.norm(bb))
@@ -2555,7 +2595,7 @@ def superlu_reference_residual(S, b, leaf=896) -> float:
 
 def direct_phases(dev, *, counts, reset_counts, main_runs, times,
                   nx=DIRECT_NX, tri_n=500, dense_n=2048, small_nx=128,
-                  grad_nx=20, K=8, ldc_cmp=(64, 200), ldc_run=(256, 50)):
+                  grad_nx=20, K=8, ldc_cmp=(64, 50), ldc_run=(256, 50)):
     """Phases (24)-(25): the direct solvers through ``solve(...,
     method="direct")`` on the card (Module C). (24): the tridiagonal
     n = tri_n (PCR) against the CPU's Thomas solve, ``dense_solve`` at
@@ -3144,7 +3184,8 @@ def ilu_phases(dev, b_main, *, counts, reset_counts, main_runs, times,
     substitutions). The set-up of poisson3d_27pt(nx) f32 timed in its host
     factor and its level packs; the main-path run: ``solve(M="ilu0")``
     with CG on cg_110M's system and b (every level sweep K4), BiCGStab on
-    the convection-diffusion system at nx^3, float64 'auto' and 'full' at
+    the convection-diffusion system at small_nx^3 (at nx^3 it took a
+    second 160^3 set-up, ~35 s in all), float64 'auto' and 'full' at
     small_nx^3 (K4 inner sweeps, K5 sweeps), batched CG with B of K
     columns at small_nx^3 (K6/K7 sweeps) and a float64 CG gradient in b
     at grad_nx^3 (the CPU's own solve of it, the comparison, grows with
@@ -3183,17 +3224,17 @@ def ilu_phases(dev, b_main, *, counts, reset_counts, main_runs, times,
 
     phase(f"(27) main path: ILU(0) through solve(M='ilu0'): set-up and CG "
           f"on poisson3d_27pt({nx}) f32 (cg_110M's b), BiCGStab on "
-          f"convection_diffusion_3d_27pt({nx}), f64 'auto' / 'full' and B of "
-          f"{K} columns at {small_nx}^3, a gradient at {grad_nx}^3; card "
-          f"against CPU at {cmp_nx}^3")
+          f"convection_diffusion_3d_27pt({small_nx}), f64 'auto' / 'full' "
+          f"and B of {K} columns at {small_nx}^3, a gradient at "
+          f"{grad_nx}^3; card against CPU at {cmp_nx}^3")
     A = gen.poisson3d_27pt(nx, device=dev)
     b = b_main
     n = A.shape[0]
-    A_cd = gen.convection_diffusion_3d_27pt(nx, device=dev)
-    b_cd = A_cd @ torch.from_numpy(rng.standard_normal(n).astype(
-        np.float32)).to(dev)
     A64 = gen.poisson3d_27pt(small_nx, dtype=np.float64, device=dev)
     n64 = A64.shape[0]
+    A_cd = gen.convection_diffusion_3d_27pt(small_nx, device=dev)
+    b_cd = A_cd @ torch.from_numpy(rng.standard_normal(n64).astype(
+        np.float32)).to(dev)
     b64 = A64 @ torch.from_numpy(rng.standard_normal(n64)).to(dev)
     A32s = gen.poisson3d_27pt(small_nx, device=dev)
     B = torch.from_numpy(rng.standard_normal((n64, K)).astype(
@@ -3228,38 +3269,36 @@ def ilu_phases(dev, b_main, *, counts, reset_counts, main_runs, times,
     _, _, _, levels = factor_host(A)
     t_factor = time.perf_counter() - t0
     v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
-    for label, AA in (("poisson3d_27pt", A),
-                      ("convection_diffusion_3d_27pt", A_cd)):
-        t0 = time.perf_counter()
-        MM = solver._precond_M(AA, "ilu0")
-        sync()
-        t_build = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        MM(v)
-        sync()
-        t_plans = time.perf_counter() - t0
-        n_packs = sum(len(sw.operators()) for sw in (MM.fwd, MM.bwd))
-        print(f"  set-up of {label}({nx}): factor + level packs "
-              f"{t_build:.2f} s, first apply (each pack's compact plan) "
-              f"{t_plans:.2f} s; levels {MM.levels}, {n_packs} packs",
-              flush=True)
-        check(MM.levels == (7 * (nx - 1) + 1,) * 2,
-              f"ILU(0) levels {MM.levels}, not the stencil's wavefronts")
+    t0 = time.perf_counter()
     M = solver._precond_M(A, "ilu0")
+    sync()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    M(v)
+    sync()
+    t_plans = time.perf_counter() - t0
+    n_packs = sum(len(sw.operators()) for sw in (M.fwd, M.bwd))
+    print(f"  set-up of poisson3d_27pt({nx}): factor + level packs "
+          f"{t_build:.2f} s, first apply (each pack's compact plan) "
+          f"{t_plans:.2f} s; levels {M.levels}, {n_packs} packs", flush=True)
+    check(M.levels == (7 * (nx - 1) + 1,) * 2,
+          f"ILU(0) levels {M.levels}, not the stencil's wavefronts")
     packs = [N for sw in (M.fwd, M.bwd) for N in sw.operators()]
     print(f"  poisson3d_27pt({nx}): host factor alone {t_factor:.2f} s "
           f"(levels {levels}), so its packs take the rest", flush=True)
+    solver._precond_M(A_cd, "ilu0")(b_cd)  # BiCGStab's set-up, not timed
+    sync()
 
     # -- the main-path run: every launch from here to the read counts
+    bicg_label = f"bicgstab f32 ilu0 (convection-diffusion {small_nx}^3)"
     reset_counts()
     out = {}
     for label, call in (
             ("cg f32 ilu0", lambda: tpu_sparse_torch.solve(
                 A, b, method="cg", M="ilu0", tol=1e-6, maxiter=500)),
-            ("bicgstab f32 ilu0 (convection-diffusion)",
-             lambda: tpu_sparse_torch.solve(
-                 A_cd, b_cd, method="bicgstab", M="ilu0", tol=1e-6,
-                 maxiter=500)),
+            (bicg_label, lambda: tpu_sparse_torch.solve(
+                A_cd, b_cd, method="bicgstab", M="ilu0", tol=1e-6,
+                maxiter=500)),
             (f"cg f64 auto ilu0 {small_nx}^3", lambda: tpu_sparse_torch.solve(
                 A64, b64, method="cg", M="ilu0", tol=1e-8)),
             (f"cg f64 full ilu0 {small_nx}^3", lambda: tpu_sparse_torch.solve(
@@ -3399,10 +3438,8 @@ def ilu_phases(dev, b_main, *, counts, reset_counts, main_runs, times,
     it_cg = out["cg f32 ilu0"][0]
     print(f"  time to tol 1e-6, cg f32 ilu0: "
           f"{fmt((float(np.median(t_cg)), min(t_cg), max(t_cg)))} (median "
-          f"and min-max of 3), {it_cg} it; bicgstab f32 ilu0 "
-          f"(convection-diffusion): "
-          f"{out['bicgstab f32 ilu0 (convection-diffusion)'][1]:.2f} ms, "
-          f"{out['bicgstab f32 ilu0 (convection-diffusion)'][0]} it",
+          f"and min-max of 3), {it_cg} it; {bicg_label}: "
+          f"{out[bicg_label][1]:.2f} ms, {out[bicg_label][0]} it",
           flush=True)
     print(f"  yardsticks (phase (4)): cg M=None {cg_iters} it "
           f"{fmt(fused_ms)} (fused); M=jacobi {jacobi_iters} it")
@@ -3426,6 +3463,462 @@ def ilu_phases(dev, b_main, *, counts, reset_counts, main_runs, times,
     if cuda:
         torch.cuda.empty_cache()
     print(f"  phase (27) wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def unitary_similarity(A, D):
+    """D^H A D for a DIA A and D = diag(d), |d| = 1 (complex128 on A's
+    device): the complex dtype of A's precision. A unitary similarity
+    leaves every Krylov iterate of A x = b unchanged (as D^H x for the
+    right-hand side D^H b), so a complex solve is held to the real one's
+    iterations."""
+    import torch
+
+    dt = (torch.complex64 if A.data.dtype == torch.float32
+          else torch.complex128)
+    n = A.shape[0]
+    data = A.data.to(dt)
+    for d, o in enumerate(A.offsets):
+        i0, i1 = max(0, -o), min(n, n - o)
+        if i1 > i0:
+            data[d, i0:i1] *= (D[i0:i1].conj() * D[i0 + o:i1 + o]).to(dt)
+    return A.with_data(data)
+
+
+def complex_phases(dev, b_main, *, note, counts, reset_counts, main_runs,
+                   times, cg_iters, nonsym_iters, nx=MAIN_NX,
+                   small_nx=F64_NX, grad_nx=32, direct_nx=128, bell_nx=40,
+                   K=8):
+    """Phase (28): native complex. The main-path run: CG on A_h = D^H L D
+    (L = poisson3d_27pt(nx), D = diag(exp(i theta)), theta from
+    default_rng(0); b_h = D^H b with cg_110M's b) with M None and Jacobi,
+    BiCGStab and GMRES(20) on C_h = D^H C D (C the convection-diffusion
+    system, b phase (8)'s), GMRES(20) on (1 + 0.2i) C, CG on the CWELL of
+    A_h (K4 c64), batched CG with B of K complex64 columns on it (K6/K7
+    c64), batched CG on the kron BELL made Hermitian by a unitary
+    similarity at k = K (K8 c64) and k = 4 in complex128 (K8 c128); at
+    small_nx^3 in complex128 'full' with Jacobi on DIA (kernel 1 c128) and
+    CWELL (K5 c128), 'mixed' (complex64 inner sweeps), batched on the
+    CWELL at k = 4 (K6/K7 c128) and M='ilu0'; a CG gradient at
+    grad_nx^3; the supernodal direct solve of
+    poisson2d(direct_nx) (1 + 0.3i) + 0.1 triu; a real L with the complex
+    b_h (one cast of L a solve, none again). The counts are read after
+    that run; then each complex kernel against its plain version at the
+    160^3 shapes (complex64 within 1e-5 of max|y|, complex128 within
+    1e-12), timed (CUDA events, median of 5) beside its bound, its plain
+    version and a cuSPARSE call, the card's ILU(0) apply and gradient
+    against the CPU's, and the solves (median of 3) beside the real
+    solves of the same systems. ``cg_iters``: phase (4)'s iterations by
+    M; ``nonsym_iters``: phase (8)'s by method (BiCGStab is held to the
+    real system's ``bicgstab_full`` instead: phase (8) ran K10, which
+    stops by blocks of 12)."""
+    import scipy.sparse as sp
+    import torch
+
+    import tpu_sparse_torch
+    from tpu_sparse_torch import kernels as tk
+    from tpu_sparse_torch import precond as tpre
+    from tpu_sparse_torch.kernels import cuda_bell, cuda_cwell, cuda_spmv
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.kernels.spmm_probe import (bell_bytes, cwell_bytes,
+                                                     kron_bell)
+    from tpu_sparse_torch.sparse import cwell_compact
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.convert import (csr_from_arrays, to_csr,
+                                                 to_scipy_csr)
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    c64, c128 = torch.complex64, torch.complex128
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fmt(t):
+        return f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
+
+    def crandn(rng, shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                + 1j * rng.standard_normal(shape)).to(
+                                    dev, dtype)
+
+    def true_rel(apply, b, x):
+        """Largest ||b - A x|| / ||b|| over the columns, by the plain
+        product (no kernel launch)."""
+        with torch.no_grad():
+            r = torch.linalg.vector_norm(b - apply(x), dim=0)
+            return float((r / torch.linalg.vector_norm(b, dim=0)).max())
+
+    phase(f"(28) main path: native complex: CG / BiCGStab / GMRES(20) on "
+          f"D^H A D of the {nx}^3 systems (complex64), their CWELL and the "
+          f"kron BELL made Hermitian, with B of {K} columns; complex128 'full' / "
+          f"'mixed' / ILU(0) at {small_nx}^3, a gradient at {grad_nx}^3, "
+          f"the supernodal LU of poisson2d({direct_nx}) (1 + 0.3i) + 0.1 "
+          f"triu; a real L with a complex b")
+    rng = np.random.default_rng(SEED)
+    L = gen.poisson3d_27pt(nx, device=dev)
+    n = L.shape[0]
+    D = torch.from_numpy(np.exp(1j * rng.uniform(0, 2 * np.pi, n))).to(dev)
+    A_h = unitary_similarity(L, D)
+    C = gen.convection_diffusion_3d_27pt(nx, device=dev)
+    C_h = unitary_similarity(C, D)
+    C_s = C.with_data(C.data.to(c64) * (1 + 0.2j))
+    b_h = (D.conj() * b_main).to(c64)
+    x8 = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        n).astype(np.float32)).to(dev)
+    b_cd = C @ x8  # phase (8)'s b (set-up: not counted)
+    b_ch = (D.conj() * b_cd).to(c64)
+    # the yardstick of the complex BiCGStab: the same loop on the real
+    # system (phase (8)'s solve ran K10, whose block-of-12 stopping rule
+    # gives another count)
+    from tpu_sparse_torch.solvers import bicgstab_full
+
+    bicg_real = int(bicgstab_full(C, b_cd, tol=1e-6, maxiter=500)[2])
+    t0 = time.perf_counter()
+    W_h = csr_to_cwell(to_csr(A_h))
+    sync()
+    t_pack = time.perf_counter() - t0
+    Bk = crandn(np.random.default_rng(SEED), (n, K), c64)
+    bell, bell_csr, _ = kron_bell(dev, bell_nx, np.random.default_rng(SEED))
+    # the kron BELL made Hermitian by a unitary similarity: CG reads p^H A p
+    # as real, so (1 + 0.2i) K (complex symmetric, not Hermitian) is no CG
+    # system in either package
+    Db = torch.from_numpy(np.exp(1j * rng.uniform(
+        0, 2 * np.pi, bell.shape[0]))).to(dev)
+    bs = bell.blocksize
+    ii = torch.arange(bs, device=dev)
+    rows = torch.arange(bell.n_block_rows, device=dev)[:, None] * bs + ii
+    cols = bell.indices.long()[:, :, None] * bs + ii
+    bell_z = bell.with_data(
+        bell.blocks * Db[rows].conj()[:, None, :, None]
+        * Db[cols.clamp_max(bell.shape[1] - 1)][:, :, None, :])
+    bell_c = bell_z.with_data(bell_z.blocks.to(c64))
+    bell_csr = bell_csr.with_data(
+        bell_csr.data * Db[bell_csr.row_ids().long()].conj()
+        * Db[bell_csr.indices.long()])
+    del bell, rows, cols
+    Bb = crandn(rng, (bell_c.shape[0], K), c64)
+    Bb128 = Bb[:, :4].to(c128)
+    L64 = gen.poisson3d_27pt(small_nx, dtype=np.float64, device=dev)
+    n64 = L64.shape[0]
+    A64 = unitary_similarity(L64, torch.from_numpy(np.exp(
+        1j * rng.uniform(0, 2 * np.pi, n64))).to(dev))
+    b64 = ref.dia_spmv(A64, crandn(rng, n64, c128))
+    W64 = csr_to_cwell(to_csr(A64))
+    B64 = crandn(rng, (n64, 4), c128)
+    Lg = gen.poisson3d_27pt(grad_nx, dtype=np.float64, device=dev)
+    Ag = unitary_similarity(Lg, torch.from_numpy(np.exp(
+        1j * rng.uniform(0, 2 * np.pi, Lg.shape[0]))).to(dev))
+    bg0 = crandn(rng, Ag.shape[0], c128)
+    wg = crandn(rng, Ag.shape[0], c128)
+    P = to_scipy_csr(gen.poisson2d(direct_nx, dtype=np.float64,
+                                   device="cpu"))
+    S_dir = (P * (1 + 0.3j) + 0.1 * sp.triu(P, k=1)).tocsr()
+    S_dir.sort_indices()
+    A_dir = csr_from_arrays(S_dir.data, S_dir.indices, S_dir.indptr,
+                            S_dir.shape, device=dev)
+    b_dir = torch.from_numpy(S_dir @ (
+        rng.standard_normal(S_dir.shape[0])
+        + 1j * rng.standard_normal(S_dir.shape[0]))).to(dev)
+    sync()
+    print(f"  n={n}: A_h, C_h complex64 DIA {A_h.data.numel() * 8 / 1e6:.1f}"
+          f" MB each; CWELL of A_h packed on the card in {t_pack:.2f} s "
+          f"(S={W_h.srow.shape[1]}); kron BELL n={bell_c.shape[0]}, "
+          f"{bell_c.blocks.numel()} stored entries; {small_nx}^3 n={n64}; "
+          f"direct n={S_dir.shape[0]}, nnz {S_dir.nnz}", flush=True)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    # -- the main-path run: every launch from here to the read counts
+    solver = tpu_sparse_torch.SparseSolver()
+    solve = solver.solve
+    reset_counts()
+    out = {}
+
+    def run(label, call, rel, bound):
+        before = counts()
+        t0 = time.perf_counter()
+        x, res = call()
+        sync()
+        wall = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        rr = rel(x)
+        out[label] = (res.iterations, x)
+        print(f"  {label}: {res}; true rel res {rr:.2e}; first call "
+              f"{wall * 1e3:.1f} ms wall; launches {grew}", flush=True)
+        check(res.converged, f"{label} did not converge")
+        check(rr <= bound, f"{label}: true relative residual {rr}")
+        return res
+
+    def on(A):
+        return lambda x: ref.dia_spmv(A, x) if x.dim() == 1 \
+            else ref.dia_spmm(A, x)
+
+    kw6 = dict(tol=1e-6, maxiter=500)
+    r = run("cg c64 M=None", lambda: solve(A_h, b_h, method="cg", **kw6),
+            lambda x: true_rel(on(A_h), b_h, x), 1e-5)
+    check(abs(r.iterations - cg_iters[None]) <= 3,
+          f"complex CG took {r.iterations} it, phase (4) {cg_iters[None]}")
+    r = run("cg c64 M=jacobi", lambda: solve(A_h, b_h, method="cg",
+                                             M="jacobi", **kw6),
+            lambda x: true_rel(on(A_h), b_h, x), 1e-5)
+    check(abs(r.iterations - cg_iters["jacobi"]) <= 3,
+          f"complex Jacobi CG took {r.iterations} it, phase (4) "
+          f"{cg_iters['jacobi']}")
+    yard = {"bicgstab": bicg_real, "gmres": nonsym_iters["gmres"]}
+    for method, kw in (("bicgstab", {}), ("gmres", dict(restart=20))):
+        r = run(f"{method} c64 on C_h",
+                lambda: solve(C_h, b_ch, method=method, **kw, **kw6),
+                lambda x: true_rel(on(C_h), b_ch, x), 1e-5)
+        print(f"    the real system's {method}: {yard[method]} by the same "
+              f"loop; phase (8) {nonsym_iters[method]}", flush=True)
+        check(abs(r.iterations - yard[method]) <= 2,
+              f"complex {method} took {r.iterations}, the real system "
+              f"{yard[method]}")
+    run("gmres c64 on (1 + 0.2i) C",
+        lambda: solve(C_s, b_ch, method="gmres", restart=20, **kw6),
+        lambda x: true_rel(on(C_s), b_ch, x), 1e-5)
+    r = run("cg c64 on the CWELL of A_h",
+            lambda: solve(W_h, b_h, method="cg", **kw6),
+            lambda x: true_rel(on(A_h), b_h, x), 1e-5)
+    check(abs(r.iterations - out["cg c64 M=None"][0]) <= 2,
+          "complex CG on the CWELL strays from the DIA solve")
+    run(f"cg batched c64 B {K} on the CWELL",
+        lambda: solve(W_h, Bk, method="cg", multi_rhs="batch", **kw6),
+        lambda X: true_rel(on(A_h), Bk, X), 1e-5)
+    run(f"cg batched c64 B {K} on the kron BELL",
+        lambda: solve(bell_c, Bb, method="cg", multi_rhs="batch", **kw6),
+        lambda X: true_rel(lambda Y: ref.bell_spmm(bell_c, Y), Bb, X), 1e-5)
+    run("cg batched c128 B 4 on the kron BELL",
+        lambda: solve(bell_z, Bb128, method="cg", multi_rhs="batch",
+                      tol=1e-10, maxiter=500),
+        lambda X: true_rel(lambda Y: ref.bell_spmm(bell_z, Y), Bb128, X),
+        1e-10)
+    kw10 = dict(tol=1e-10, maxiter=2000)
+    for label, op in (("DIA", A64), ("CWELL", W64)):
+        run(f"cg c128 full jacobi {small_nx}^3 {label}",
+            lambda: solve(op, b64, method="cg", M="jacobi",
+                          precision="full", **kw10),
+            lambda x: true_rel(on(A64), b64, x), 1e-10)
+    run(f"cg c128 mixed {small_nx}^3 (complex64 sweeps)",
+        lambda: solve(A64, b64, method="cg", precision="mixed", **kw10),
+        lambda x: true_rel(on(A64), b64, x), 1e-10)
+    run(f"cg batched c128 B 4 {small_nx}^3 CWELL",
+        lambda: solve(W64, B64, method="cg", multi_rhs="batch",
+                      precision="full", **kw10),
+        lambda X: true_rel(on(A64), B64, X), 1e-10)
+    run(f"cg c128 ilu0 {small_nx}^3",
+        lambda: solve(A64, b64, method="cg", M="ilu0", precision="full",
+                      **kw10),
+        lambda x: true_rel(on(A64), b64, x), 1e-10)
+
+    def grad_run(where):
+        vals = Ag.data.to(where, copy=True).requires_grad_()
+        bg = bg0.to(where, copy=True).requires_grad_()
+        x, res = solve(Ag.to(where).with_data(vals), bg, method="cg",
+                       tol=1e-12, maxiter=2000, precision="full")
+        ((wg.to(where) @ x).abs() ** 2).backward()
+        check(res.converged, f"the gradient's solve on {where} did not "
+              "converge")
+        return vals.grad.cpu(), bg.grad.cpu(), res.iterations
+
+    grads_card = grad_run(dev)
+    run(f"direct c128 poisson2d({direct_nx}) (1 + 0.3i) + 0.1 triu",
+        lambda: solve(A_dir, b_dir, method="direct"),
+        lambda x: float(np.linalg.norm(b_dir.cpu().numpy()
+                                       - S_dir @ x.cpu().numpy())
+                        / np.linalg.norm(b_dir.cpu().numpy())), 1e-6)
+    rel_dir = float(np.linalg.norm(b_dir.cpu().numpy() - S_dir @ out[
+        f"direct c128 poisson2d({direct_nx}) (1 + 0.3i) + 0.1 triu"][1]
+        .cpu().numpy()) / np.linalg.norm(b_dir.cpu().numpy()))
+    rel_splu = superlu_reference_residual(S_dir, b_dir.cpu().numpy())
+    print(f"  direct: true rel res {rel_dir:.3e}; SuperLU's own complex128 "
+          f"solve {rel_splu:.3e} (the bound: 10x)", flush=True)
+    check(rel_dir <= 10 * max(rel_splu, 1e-16),
+          "the complex supernodal solve misses SuperLU's residual by 10x")
+    casts0 = tk.CAST_COUNTS["values_casts"]
+    x_r, r_r = solve(L, b_h, method="cg", **kw6)
+    casts1 = tk.CAST_COUNTS["values_casts"]
+    x_r2, _ = solve(L, b_h, method="cg", **kw6)
+    casts2 = tk.CAST_COUNTS["values_casts"]
+    sync()
+    main_runs["phase (28)"] = counts()
+    print(f"  real L (float32) with the complex b_h: {r_r}; casts of L "
+          f"{casts1 - casts0} in the first solve, {casts2 - casts1} in the "
+          f"second", flush=True)
+    print(f"  main-path launches in phase (28): {main_runs['phase (28)']}",
+          flush=True)
+    keys = ("dia_spmv_c64", "dia_spmv_c128", "cwell_spmv_c64",
+            "cwell_spmv_c128", "cwell_spmm_c64", "cwell_spmm_c128",
+            "bell_spmm_c64", "bell_spmm_c128")
+    for k in keys:
+        check(main_runs["phase (28)"][k] > 0,
+              f"phase (28): {k} was not launched on the main path")
+    check(r_r.converged and casts1 - casts0 == 1 and casts2 == casts1,
+          "a real L with a complex b is not cast exactly once")
+    x_hand, _ = tpu_sparse_torch.SparseSolver().solve(
+        L.with_data(L.data.to(c64)), b_h, method="cg", **kw6)
+    check(torch.equal(x_r, x_hand) and torch.equal(x_r, x_r2),
+          "the real-L solve differs from the solve with L cast by hand")
+    print("  x of the real-L solve == x with L cast by hand, bit for bit",
+          flush=True)
+    if cuda:
+        print(f"  peak device memory over the phase's solves: "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+
+    # -- the card against the CPU (not counted) ----------------------------
+    t0 = time.perf_counter()
+    Mg = solver._precond_M(A64, "ilu0")
+    Mc = tpre.ilu0_preconditioner(A64.to("cpu"))
+    v = crandn(rng, n64, c128)
+    e_ilu = rel_err(Mg(v).cpu(), Mc(v.cpu()))
+    grads_cpu = grad_run("cpu")
+    e_gv = rel_err(grads_card[0], grads_cpu[0])
+    e_gb = rel_err(grads_card[1], grads_cpu[1])
+    print(f"  ILU(0) apply c128 {small_nx}^3 card against CPU: rel err "
+          f"{e_ilu:.2e}; CG gradient {grad_nx}^3 c128 card ({grads_card[2]}"
+          f" it) against CPU ({grads_cpu[2]} it): values {e_gv:.2e}, b "
+          f"{e_gb:.2e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(e_ilu <= 1e-12, "the complex ILU(0) apply differs from the CPU's")
+    check(e_gv <= 1e-10 and e_gb <= 1e-10,
+          "the complex gradient on the card differs from the CPU's")
+    del Mg, Mc, grads_card, grads_cpu
+    solver._m_cache._store.clear()
+
+    # -- each complex kernel against its plain version at the 160^3
+    # shapes, and its time beside its bound, plain version and cuSPARSE
+    A_z = A_h.with_data(A_h.data.to(c128))
+    W_z = W_h.with_data(W_h.vals.to(c128))
+    csr_h = to_csr(A_h)
+    kern_rng = np.random.default_rng(SEED + 28)
+
+    def library(csr, dt):
+        return torch.sparse_csr_tensor(csr.indptr, csr.indices,
+                                       csr.data.to(dt), size=csr.shape)
+
+    def kernel_row(key, kernel, plain, lib_call, nbytes, flops, dt):
+        size = torch.tensor([], dtype=dt).element_size()
+        tol = 1e-5 if dt == c64 else 1e-12
+        y1, y0 = kernel(), plain()
+        err = float((y1 - y0).abs().max())
+        scale = float(y0.abs().max())
+        check(err <= tol * scale,
+              f"{key} disagrees with its plain version: {err} of {scale}")
+        del y1, y0
+        t_k = times(kernel, 10)
+        t_p = times(plain, 1)
+        lib_ms, lib_note = None, ""
+        try:
+            e_lib = rel_err(lib_call(), plain())
+            check(e_lib <= tol, f"the cuSPARSE yardstick of {key} "
+                  "computes another function")
+            t_l = times(lib_call, 10)
+            lib_ms = t_l[0]
+            lib_note = f"cuSPARSE {fmt(t_l)} (rel err {e_lib:.1e})"
+        except RuntimeError as exc:
+            lib_note = f"cuSPARSE none ({str(exc).splitlines()[0][:120]})"
+        t_bytes = nbytes / 3.35e12 * 1e3
+        t_ops = flops / (67e12 if dt == c64 else 34e12) * 1e3
+        bound = max(t_bytes, t_ops)
+        note(key, max_abs_err=err, ms=t_k[0], plain_ms=t_p[0],
+             library_ms=lib_ms, bound_ms=bound,
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"  {key}: kernel {fmt(t_k)}; bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {bound / t_k[0]:.2f} of it); plain "
+              f"{fmt(t_p)}; {lib_note}; max abs err {err:.2e} (max|y| "
+              f"{scale:.2e})", flush=True)
+
+    for key, A_, dt in (("dia_spmv_c64", A_h, c64),
+                        ("dia_spmv_c128", A_z, c128)):
+        xk = crandn(kern_rng, n, dt)
+        lib = library(csr_h, dt)
+        size = torch.tensor([], dtype=dt).element_size()
+        kernel_row(key, lambda: cuda_spmv.dia_spmv_cuda(A_, xk)
+                   if cuda else cuda_spmv.dia_spmv(A_, xk),
+                   lambda: ref.dia_spmv(A_, xk), lambda: torch.mv(lib, xk),
+                   A_.data.numel() * size + 2 * n * size, 8 * L.nnz, dt)
+        del lib
+    for key, W_, dt in (("cwell_spmv_c64", W_h, c64),
+                        ("cwell_spmv_c128", W_z, c128)):
+        xk = crandn(kern_rng, n, dt)
+        plan, cvals = cwell_compact.compact(W_)
+        lib = library(csr_h, dt)
+        size = torch.tensor([], dtype=dt).element_size()
+        nb, S = W_.srow.shape
+        nbytes = (plan.slots * (size + plan.idx.element_size())
+                  + plan.boff.numel() * 8 + nb * S * 4 + 2 * n * size)
+        kernel_row(key, lambda: cuda_cwell.cwell_spmv_cuda(W_, xk)
+                   if cuda else cuda_cwell.cwell_spmv(W_, xk),
+                   lambda: ref.cwell_compact_spmv(plan, cvals, xk),
+                   lambda: torch.mv(lib, xk), nbytes, 8 * W_.nnz, dt)
+        del lib, plan, cvals
+    for key, W_, dt, k in (("cwell_spmm_c64", W_h, c64, K),
+                           ("cwell_spmm_c128", W_z, c128, 4)):
+        Bx = crandn(kern_rng, (n, k), dt)
+        plan, cvals = cwell_compact.compact(W_)
+        lib = library(csr_h, dt)
+        size = torch.tensor([], dtype=dt).element_size()
+        kernel_row(key, lambda: cuda_cwell.cwell_spmm_cuda(W_, Bx)
+                   if cuda else cuda_cwell.cwell_spmm(W_, Bx),
+                   lambda: ref.cwell_compact_spmm(plan, cvals, Bx),
+                   lambda: torch.sparse.mm(lib, Bx),
+                   cwell_bytes(plan, W_, size, k)[0], 8 * W_.nnz * k, dt)
+        Y = (cuda_cwell.cwell_spmm_cuda if cuda else cuda_cwell.cwell_spmm)(
+            W_, Bx)
+        spmv = cuda_cwell.cwell_spmv_cuda if cuda else cuda_cwell.cwell_spmv
+        same = all(torch.equal(Y[:, j], spmv(W_, Bx[:, j].contiguous()))
+                   for j in range(k))
+        print(f"  {key}: every column == K4/K5 bit for bit: {same}")
+        if cuda:
+            check(same, f"{key}: a column differs from K4/K5")
+        del lib, plan, cvals, Bx, Y
+    for key, bl, dt, k in (("bell_spmm_c64", bell_c, c64, K),
+                           ("bell_spmm_c128", bell_z, c128, 4)):
+        Bx = crandn(kern_rng, (bl.shape[1], k), dt)
+        lib = library(bell_csr, dt)
+        size = torch.tensor([], dtype=dt).element_size()
+        kernel_row(key, lambda: cuda_bell.bell_spmm_cuda(bl, Bx)
+                   if cuda else cuda_bell.bell_spmm(bl, Bx),
+                   lambda: ref.bell_spmm(bl, Bx),
+                   lambda: torch.sparse.mm(lib, Bx),
+                   bell_bytes(bl, size, k), 8 * bl.blocks.numel() * k, dt)
+        del lib, Bx
+    del A_z, W_z, csr_h
+
+    # -- solves (median of 3) beside the real solves of the same systems
+    rows = [("cg M=None", lambda: solve(A_h, b_h, method="cg", **kw6),
+             lambda: solve(L, b_main, method="cg", **kw6)),
+            ("cg M=jacobi", lambda: solve(A_h, b_h, method="cg",
+                                          M="jacobi", **kw6),
+             lambda: solve(L, b_main, method="cg", M="jacobi", **kw6)),
+            ("bicgstab", lambda: solve(C_h, b_ch, method="bicgstab", **kw6),
+             lambda: solve(C, b_cd, method="bicgstab", **kw6)),
+            ("gmres(20)", lambda: solve(C_h, b_ch, method="gmres",
+                                        restart=20, **kw6),
+             lambda: solve(C, b_cd, method="gmres", restart=20, **kw6)),
+            ("cg on the CWELL", lambda: solve(W_h, b_h, method="cg", **kw6),
+             None)]
+    for label, cplx, real in rows:
+        its = {}
+
+        def timed(call, tag):
+            def fn():
+                its[tag] = call()[1].iterations
+            return times(fn, 1, reps=3, warmup=1)
+
+        t_c = timed(cplx, "c")
+        line = f"  solve {label:16s} complex64 {fmt(t_c)} {its['c']} it"
+        if real is not None:
+            t_r = timed(real, "r")
+            line += (f";   the real system (float32, its own route) "
+                     f"{fmt(t_r)} {its['r']} it; ratio "
+                     f"{t_c[0] / t_r[0]:.2f}")
+        print(line, flush=True)
+    print(f"  phase (28) wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

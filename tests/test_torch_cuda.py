@@ -1384,3 +1384,276 @@ def test_ilu0_solve_on_card_matches_cpu(dev, method, dtype, precision):
     rtol = 1e-3 if dtype == np.float32 else 1e-8
     np.testing.assert_allclose(xg.cpu().numpy(), xc.numpy(), rtol=rtol,
                                atol=rtol * float(xc.abs().max()))
+
+
+# ---- native complex: the complex64 / complex128 builds of kernel 1, K4 /
+# K5, K6/K7 and K8 against their plain versions (1e-5 / 1e-12 of max|y|),
+# and complex solves on the card against the CPU ----------------------------
+
+_C_BOUND = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+_C_SFX = {torch.complex64: "c64", torch.complex128: "c128"}
+
+
+def _crandn(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape)
+                            + 1j * rng.standard_normal(shape)).to(dtype)
+
+
+def _complex_csr(n, m, per_row, dtype, seed):
+    """_random_csr's pattern with complex values (a tenth of them real,
+    a tenth imaginary, so both halves of the zero test are reached)."""
+    C = _random_csr(n, m, per_row, np.float64, seed)
+    rng = np.random.default_rng(seed + 1)
+    v = rng.standard_normal(C.nnz) + 1j * rng.standard_normal(C.nnz)
+    pick = rng.random(C.nnz)
+    v[pick < 0.1] = v[pick < 0.1].real
+    v[(pick >= 0.1) & (pick < 0.2)] = 1j * v[(pick >= 0.1) & (pick < 0.2)].imag
+    return C.with_data(torch.from_numpy(v).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_dia_spmv_kernel_matches_plain(dev, dtype):
+    rng = np.random.default_rng(20)
+    A = gen.poisson3d_27pt(13, 11, 7, dtype=np.float64, device="cpu")
+    A = A.with_data(_crandn(rng, tuple(A.data.shape), dtype)).to(dev)
+    x = _crandn(rng, A.shape[1], dtype).to(dev)
+    key = "dia_spmv_" + _C_SFX[dtype]
+    before = cuda_spmv.LAUNCHES[key]
+    y = cuda_spmv.dia_spmv_cuda(A, x)
+    assert cuda_spmv.LAUNCHES[key] == before + 1
+    assert y.dtype == dtype
+    assert _rel(y, ref.dia_spmv(A, x)) <= _C_BOUND[dtype]
+    assert torch.equal(y, A @ x)
+    # conjugate views are read as their values, not as raw memory
+    yc = cuda_spmv.dia_spmv_cuda(A.with_data(A.data.conj()), x.conj())
+    assert torch.equal(yc, cuda_spmv.dia_spmv_cuda(
+        A.with_data(A.data.conj().resolve_conj()), x.conj().resolve_conj()))
+    assert _rel(yc, y.conj()) <= _C_BOUND[dtype]
+    with pytest.raises(TypeError):
+        cuda_spmv.dia_spmv_cuda(A, x.real.contiguous())
+    with pytest.raises(TypeError):
+        cuda_spmv.ExtendedStencilOperator(A).apply_cuda(
+            torch.zeros(cuda_spmv.ExtendedStencilOperator(A).E, dtype=dtype,
+                        device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n,m,per_row,group,wide", [
+    (3000, 2500, 8, 1, False), (1001, 777, 7, 2, False),
+    (300, 600, 4, 1, True)])
+def test_complex_cwell_kernels_match_plain(dev, n, m, per_row, group, wide,
+                                           dtype):
+    """K4 / K5 and K6/K7 in complex on the compact plan against its plain
+    versions; every column of K6/K7 equal to K4 / K5 bit for bit."""
+    from tpu_sparse_torch.sparse import cwell_compact
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    C = _complex_csr(n, m, per_row, dtype, 21)
+    if wide:  # a row over 600 columns: more than 256 planes
+        Ad = C.todense()
+        Ad[5] = torch.arange(1, m + 1).to(dtype) * (1 - 0.5j)
+        C = dense_to_csr(Ad)
+    W = csr_to_cwell(C.to(dev), group=group)
+    plan, cvals = cwell_compact.compact(W)
+    assert plan.wide == wide and cvals.dtype == dtype
+    assert cvals.device == W.vals.device  # gathered on the card
+    rng = np.random.default_rng(22)
+    x = _crandn(rng, m, dtype).to(dev)
+    sfx = _C_SFX[dtype]
+    before = dict(cuda_cwell.LAUNCHES)
+    y = cuda_cwell.cwell_spmv_cuda(W, x)
+    assert cuda_cwell.LAUNCHES["cwell_spmv_" + sfx] == \
+        before["cwell_spmv_" + sfx] + 1
+    assert _rel(y, ref.cwell_compact_spmv(plan, cvals, x)) <= _C_BOUND[dtype]
+    assert torch.equal(y, cuda_cwell.cwell_spmv_cuda(W, x))
+    yc = cuda_cwell.cwell_spmv_cuda(W.with_data(W.vals.conj()), x.conj())
+    assert _rel(yc, y.conj()) <= _C_BOUND[dtype]
+    for k in (1, 3, 8):
+        B = _crandn(rng, (m, k), dtype).to(dev)
+        Y = cuda_cwell.cwell_spmm_cuda(W, B)
+        assert _rel(Y, ref.cwell_compact_spmm(plan, cvals, B)) <= \
+            _C_BOUND[dtype]
+        for j in range(k):
+            assert torch.equal(Y[:, j], cuda_cwell.cwell_spmv_cuda(
+                W, B[:, j].contiguous()))
+    assert cuda_cwell.LAUNCHES["cwell_spmm_" + sfx] == \
+        before["cwell_spmm_" + sfx] + 3
+    with pytest.raises(TypeError):
+        cuda_cwell.cwell_spmv_cuda(W, x.real.contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("nb,bs,pad,k", [(40, 8, 0, 8), (30, 3, 1, 5),
+                                         (12, 16, 2, 2), (6, 64, 1, 3)])
+def test_complex_bell_spmm_kernel_matches_plain(dev, nb, bs, pad, k, dtype):
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+
+    rng = np.random.default_rng(nb + bs)
+    Ad = torch.from_numpy(_block_dense(nb, bs, 0.3, nb + bs)).to(dtype)
+    Ad = Ad * (1 + 0.2j) + 1j * (Ad != 0).to(dtype) * 0.1
+    S = csr_to_bsr(dense_to_csr(Ad.to(dev)), bs)
+    A = bsr_to_bell(S, ell_width=int(torch.diff(S.indptr.long()).max())
+                    + pad)
+    B = _crandn(rng, (nb * bs, k), dtype).to(dev)
+    key = "bell_spmm_" + _C_SFX[dtype]
+    before = cuda_bell.LAUNCHES[key]
+    Y0 = ref.bell_spmm(A, B)
+    Y1 = cuda_bell.bell_spmm_cuda(A, B)
+    assert cuda_bell.LAUNCHES[key] == before + 1
+    assert _rel(Y1, Y0) <= _C_BOUND[dtype]
+    assert torch.equal(Y1, cuda_bell.bell_spmm_cuda(A, B))
+    Yc = cuda_bell.bell_spmm_cuda(A.with_data(A.blocks.conj()), B.conj())
+    assert _rel(Yc, Y1.conj()) <= _C_BOUND[dtype]
+    with pytest.raises(TypeError):
+        cuda_bell.bell_spmm_cuda(A, B.real.contiguous())
+
+
+def _hermitian_dia(A, seed=0):
+    """D^H A D with D = diag(exp(i theta)), theta uniform on [0, 2 pi) from
+    default_rng(seed), as a complex128 DIA on A's device."""
+    n = A.shape[0]
+    th = np.random.default_rng(seed).uniform(0, 2 * np.pi, n)
+    D = torch.from_numpy(np.exp(1j * th)).to(A.data.device)
+    data = A.data.to(torch.complex128).clone()
+    for d, o in enumerate(A.offsets):
+        i = torch.arange(max(0, -o), min(n, n - o), device=D.device)
+        data[d, i] = D[i].conj() * data[d, i] * D[i + o]
+    return A.with_data(data)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("fmt,method,M", [
+    (fmt, method, M) for fmt in ("dia", "cwell")
+    for method, M in (("cg", None), ("cg", "jacobi"), ("gmres", None),
+                      ("bicgstab", "ilu0"), ("minres", None), ("cg", "amg"))
+    if not (fmt == "cwell" and M == "ilu0")])  # ILU(0) takes a DIA (JAX's)
+def test_complex_solve_on_card_matches_cpu(dev, method, M, fmt, dtype):
+    """Complex solves on the card (every matvec a complex kernel) against
+    the CPU: iterations within the slack above, x rtol 1e-3 (complex64)
+    / 1e-8 (complex128)."""
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A = _hermitian_dia(gen.poisson3d_27pt(12, dtype=np.float64,
+                                          device="cpu")).to(dtype)
+    if fmt == "cwell":
+        A = csr_to_cwell(to_csr(A))
+    rng = np.random.default_rng(7)
+    b = _crandn(rng, A.shape[0], dtype)
+    tol = 1e-5 if dtype == torch.complex64 else 1e-10
+    kw = dict(method=method, M=M, tol=tol, maxiter=500)
+    xc, rc = tpu_sparse_torch.solve(A, b, **kw)
+    before = {**cuda_spmv.LAUNCHES, **cuda_cwell.LAUNCHES}
+    xg, rg = tpu_sparse_torch.solve(A.to(dev), b.to(dev), **kw)
+    after = {**cuda_spmv.LAUNCHES, **cuda_cwell.LAUNCHES}
+    assert rc.converged and rg.converged
+    key = ("dia_spmv_" if fmt == "dia" else "cwell_spmv_") + _C_SFX[dtype]
+    if M != "ilu0":
+        assert after[key] > before[key]
+    if M == "ilu0":
+        assert after["cwell_spmv_" + _C_SFX[dtype]] > \
+            before["cwell_spmv_" + _C_SFX[dtype]]
+    slack = 2 if dtype == torch.complex128 else max(5, rc.iterations // 5)
+    assert abs(rc.iterations - rg.iterations) <= slack
+    rtol = 1e-3 if dtype == torch.complex64 else 1e-8
+    assert _rel(xg.cpu(), xc) <= rtol
+
+
+def test_complex_multirhs_mixed_and_bell_on_card(dev):
+    """(n, k) complex solves on the card: batched CG on a CWELL (K6/K7
+    c64), the mixed precision (complex64 inner sweeps, complex128
+    residuals), and batched CG on a complex kron BELL (K8 c128)."""
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    rng = np.random.default_rng(8)
+    Ah = _hermitian_dia(gen.poisson3d_27pt(12, dtype=np.float64,
+                                           device="cpu"))
+    W = csr_to_cwell(to_csr(Ah)).to(dev)
+    B = _crandn(rng, (Ah.shape[0], 4), torch.complex128).to(dev)
+    cuda_cwell.reset_launch_counts()
+    X, r = tpu_sparse_torch.solve(W.with_data(W.vals.to(torch.complex64)),
+                                  B.to(torch.complex64), tol=1e-5,
+                                  maxiter=500)
+    assert r.converged and cuda_cwell.LAUNCHES["cwell_spmm_c64"] > 0
+    X, r = tpu_sparse_torch.solve(W, B, tol=1e-10, precision="mixed")
+    assert r.converged
+    assert cuda_cwell.LAUNCHES["cwell_spmm_c64"] > 0
+    assert cuda_cwell.LAUNCHES["cwell_spmm_c128"] > 0
+    R = B - W @ X
+    assert float(torch.linalg.vector_norm(R, dim=0).max()
+                 / torch.linalg.vector_norm(B, dim=0).min()) <= 1e-9
+    import scipy.sparse as sp
+
+    from tpu_sparse_torch.sparse.convert import csr_from_arrays, to_scipy_csr
+
+    S = sp.kron(to_scipy_csr(gen.poisson3d_27pt(6, dtype=np.float64,
+                                                device="cpu")),
+                sp.eye(8) * 4 + sp.eye(8, k=1) - sp.eye(8, k=-1)) * (1 + 0.2j)
+    S = S.tocsr()
+    S.sort_indices()
+    bell = bsr_to_bell(csr_to_bsr(csr_from_arrays(
+        S.data, S.indices, S.indptr, S.shape, device=dev), 8))
+    Bb = _crandn(rng, (S.shape[0], 4), torch.complex128).to(dev)
+    cuda_bell.reset_launch_counts()
+    X, r = tpu_sparse_torch.solve(bell, Bb, method="gmres", tol=1e-10)
+    assert r.converged and cuda_bell.LAUNCHES["bell_spmm_c128"] > 0
+    Xc = torch.from_numpy(sp.linalg.spsolve(S.tocsc(), Bb.cpu().numpy()))
+    assert _rel(X.cpu(), Xc) <= 1e-8
+
+
+def test_complex_banded_direct_on_card_matches_cpu(dev):
+    """PCR (tridiagonal) and block PCR (banded) on complex128 on the card
+    against the CPU's Thomas and banded LU, within 1e-10."""
+    rng = np.random.default_rng(11)
+    for A in (gen.tridiagonal(500, dtype=np.float64, device="cpu"),
+              gen.poisson2d(40, dtype=np.float64, device="cpu")):
+        A = A.with_data(A.data * (1 + 0.3j))
+        b = _crandn(rng, A.shape[0], torch.complex128)
+        xc, rc = tpu_sparse_torch.solve(A, b, method="direct")
+        xg, rg = tpu_sparse_torch.solve(A.to(dev), b.to(dev),
+                                        method="direct")
+        assert rc.converged and rg.converged and xg.dtype == xc.dtype
+        assert _rel(xg.cpu(), xc) <= 1e-10
+
+
+def test_complex_direct_and_gradient_on_card(dev):
+    """The supernodal LU of a complex general CSR on the card (K5 c128 on
+    its level packs): the true residual within 10x of host SuperLU's
+    complex128 solve; gradients in b and A's values against the CPU's
+    within 1e-10."""
+    import scipy.sparse.linalg as spl
+
+    from tpu_sparse_torch.sparse.convert import csr_from_arrays
+
+    _, S = _skewed_csr(80, np.float64, "cpu")
+    S = (S * (1 + 0.3j)).tocsr()
+    A = csr_from_arrays(S.data, S.indices, S.indptr, S.shape, device=dev)
+    rng = np.random.default_rng(9)
+    xt = rng.standard_normal(S.shape[0]) + 1j * rng.standard_normal(
+        S.shape[0])
+    b = torch.from_numpy(S @ xt).to(dev)
+    cuda_cwell.reset_launch_counts()
+    x, r = tpu_sparse_torch.solve(A, b, method="direct")
+    assert r.converged and cuda_cwell.LAUNCHES["cwell_spmv_c128"] > 0
+    bb = b.cpu().numpy()
+    rel = np.linalg.norm(bb - S @ x.cpu().numpy()) / np.linalg.norm(bb)
+    xs = spl.splu(S.tocsc()).solve(bb)
+    rel_s = np.linalg.norm(bb - S @ xs) / np.linalg.norm(bb)
+    assert rel <= 10 * max(rel_s, 1e-15)
+    Ah = _hermitian_dia(gen.poisson3d_27pt(8, dtype=np.float64,
+                                           device="cpu"))
+    w = _crandn(rng, Ah.shape[0], torch.complex128)
+    grads = []
+    for where in (dev, "cpu"):
+        vals = Ah.data.to(where, copy=True).requires_grad_()
+        bw = (Ah @ w).to(where, copy=True).requires_grad_()
+        xw = tpu_sparse_torch.solve(Ah.to(where).with_data(vals), bw,
+                                    method="gmres", tol=1e-12)[0]
+        (xw * w.to(where)).sum().abs().backward()
+        grads.append((vals.grad.cpu(), bw.grad.cpu()))
+    assert _rel(grads[0][0], grads[1][0]) <= 1e-8
+    assert _rel(grads[0][1], grads[1][1]) <= 1e-8

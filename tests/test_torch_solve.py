@@ -327,8 +327,12 @@ def test_inputs_requiring_grad_multi_rhs_and_complex_raise():
     with pytest.raises(ValueError, match="not differentiable"):
         tpu_sparse_torch.solve(A, torch.ones(16, 2, dtype=torch.float64,
                                              requires_grad=True))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tpu_sparse_torch.solve(A, b.to(torch.complex128))
+    # complex input solves natively (it was refused before native complex)
+    xc, rc = tpu_sparse_torch.solve(A, b.to(torch.complex128) * (1 + 1j),
+                                    tol=1e-12)
+    assert rc.converged and xc.dtype == torch.complex128
+    torch.testing.assert_close(A @ xc, b.to(torch.complex128) * (1 + 1j),
+                               rtol=1e-10, atol=1e-10)
     with pytest.raises(ValueError, match="dimension mismatch"):
         tpu_sparse_torch.solve(A, torch.ones(5, dtype=torch.float64))
 

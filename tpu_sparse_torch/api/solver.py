@@ -51,10 +51,17 @@ their common dtype: ``b`` and ``x0`` are promoted to
 ``torch.result_type(values(A), b)`` before any route is chosen (a
 float64 matrix with a float32 b is a float64 solve for every method).
 
-The JAX ``jit``/``lru_cache`` wrappers are plain calls here. The part of
-the JAX router not ported yet (native complex) raises
-``NotImplementedError`` naming its ROADMAP queue-1 item; unknown names
-raise the JAX router's ``ValueError``.
+Complex64 and complex128 operands solve natively, as the JAX package
+solves them off the TPU, through every route of a real operand but the
+extended fast paths (those are real): the general Krylov loops, the
+refinement (complex64 inner sweeps), the preconditioners, AMG, the
+direct solvers and (n, k) right-hand sides; on the card every matvec
+runs the complex build of the kernel its container takes (kernel 1, K4 /
+K5, K6/K7, K8). A real matrix with a complex b is cast to b's dtype
+once per solve (``_promote_operand``), so no matvec casts.
+
+The JAX ``jit``/``lru_cache`` wrappers are plain calls here. Unknown
+names raise the JAX router's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -66,7 +73,7 @@ from typing import Any, Callable, List, Optional, Tuple, Union
 import torch
 
 from tpu_sparse_torch.api import availability
-from tpu_sparse_torch.kernels import as_matvec
+from tpu_sparse_torch.kernels import as_matvec, cast_values
 from tpu_sparse_torch.kernels.cuda_spmv import extendable
 from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
 from tpu_sparse_torch.sparse.containers import DIA, is_sparse, values
@@ -83,17 +90,12 @@ _BACKEND_ALIASES = {
     "direct": "direct",
 }
 
-_Q1 = "ROADMAP queue 1, item "
 _KRYLOV_METHODS = ("cg", "cg_sr", "fcg", "minres", "bicgstab", "gmres",
                    "fgmres")
 # the methods with extended-layout fast paths (JAX router :401-423)
 _EXT_METHODS = ("cg", "bicgstab", "gmres")
 _PRECOND_NAMES = ("jacobi", "fsai", "fsai2", "chebyshev", "neumann", "ilu0",
                   "amg")
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {where}")
 
 
 class SolverResult:
@@ -182,6 +184,8 @@ class SparseSolver:
         # seconds of host work: no size cap that would drop a live one)
         self._snlu_cache = TensorCache()
         self._host_lu_cache = TensorCache()
+        # real operands cast to a complex b's dtype, per matrix content
+        self._cast_cache = OperandCache(max_entries=8)
 
     @property
     def available_backends(self) -> List[str]:
@@ -272,6 +276,7 @@ class SparseSolver:
                 f"dimension mismatch: A is {tuple(A.shape)}, b has length "
                 f"{b.shape[0]}")
         b, x0 = _promote_rhs(A, b, x0)
+        A = self._promote_operand(A, b)
         if reorder is not None:
             return self._solve_reordered(
                 A, b, x0, reorder, method=method, backend=backend, tol=tol,
@@ -284,7 +289,6 @@ class SparseSolver:
         if sel_backend == "krylov":
             if sel_method not in _KRYLOV_METHODS:
                 raise ValueError(f"unknown krylov method: {sel_method}")
-        _check_in_slice(A, b, x0, M)
         multi = isinstance(b, torch.Tensor) and b.dim() == 2
         if precision == "auto":
             # an explicit multi_rhs='block' keeps full precision: the mixed
@@ -343,6 +347,23 @@ class SparseSolver:
                               residual=rel, backend=sel_backend,
                               method=sel_method)
         return x, result
+
+    def _promote_operand(self, A, b):
+        """A matrix operand with real values and a complex b, cast once to
+        b's dtype: cached per matrix content, so a repeat solve casts
+        nothing and its preconditioner and factor caches hit; cast anew in
+        each solve whose values require grad, so the gradient reaches the
+        real values through the cast. Any other operand as it is."""
+        if _matrix_free(A) or not isinstance(b, torch.Tensor) \
+                or not b.is_complex():
+            return A
+        v = A if isinstance(A, torch.Tensor) else values(A)
+        if v.is_complex():
+            return A
+        if torch.is_grad_enabled() and v.requires_grad:
+            return cast_values(A, b.dtype)
+        return self._cast_cache.get_or_build(
+            A, lambda: cast_values(A, b.dtype), extra=(b.dtype,))
 
     def _precond_M(self, A, spec: str):
         """Resolve a string preconditioner name to a preconditioner built
@@ -668,13 +689,6 @@ def _requires_grad(A, b, x0, M) -> bool:
         t.requires_grad for t in _tensors(A, b, x0, M))
 
 
-def _check_in_slice(A, b, x0, M) -> None:
-    """Refuse inputs the slice does not cover yet, naming the queue item."""
-    tensors = _tensors(A, b, x0, M)
-    if any(t.is_complex() for t in tensors):
-        raise _not_ported("complex input", _Q1 + "13 (native complex)")
-
-
 def _index_key(A) -> tuple:
     """The index tensors of a container with their in-place versions: the
     extra key of a cache held on its values tensor."""
@@ -701,7 +715,8 @@ def _extendable_m(M) -> bool:
 
 def _auto_mixed_ok(A, b, tol: float, sel_backend: str) -> bool:
     """precision='auto': real-float64 Krylov solves with a matrix operand
-    and a reachable tolerance run defect correction."""
+    and a reachable tolerance run defect correction; complex solves run
+    in full precision, as the JAX router runs them."""
     if sel_backend != "krylov" or tol < 1e-12:
         return False
     if _matrix_free(A):

@@ -192,7 +192,10 @@ def _adjoint_matrix(A, symmetric: bool):
     else:
         At = A.transpose(-1, -2)
     if At.dtype.is_complex:
-        At = At.conj()
+        # conjugated once here: a conjugate view would be resolved by
+        # every kernel launch of the adjoint solve
+        At = (At.conj().resolve_conj() if isinstance(At, torch.Tensor)
+              else with_values(At, values(At).conj().resolve_conj()))
     return At
 
 

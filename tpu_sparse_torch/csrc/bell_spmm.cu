@@ -1,4 +1,6 @@
-// K8: block-ELL SpMM Y = A B on a BELL matrix, float and double.
+// K8: block-ELL SpMM Y = A B on a BELL matrix, float and double, and
+// complex64 / complex128 (ts_common.cuh's TsComplex: products (ac - bd,
+// ad + bc), a value skipped when both its parts are 0).
 //
 // Replaces tpu_sparse/kernels/pallas_bell.py: `_bell_spmm_kernel` and its
 // column-tiled form `_bell_spmm_kernel_tiled` (call in `_bell_spmm_impl`,
@@ -329,14 +331,16 @@ static int launch_bell_spmm(const T* blocks, const int* idx, const T* B, T* Y,
 // The shipped design: one stage of at most 96 KB in float, 64 KB in
 // double (the probe's fastest of 24 to 96 KB for each type: large units
 // amortise their barriers, and the CTAs on a SM overlap one another's
-// copies and products); bs = 8, the main path's block size, with its inner
-// loop unrolled.
+// copies and products); 64 KB in complex64 (8-byte values, as double) and
+// in complex128, whose tiles hold half the values of double's; bs = 8,
+// the main path's block size, with its inner loop unrolled.
 template <typename T>
 static int bell_spmm_entry(const T* blocks, const int* idx, const T* B, T* Y,
                            long long nbr, long long L, long long bs,
                            long long n_cols, long long k,
                            cudaStream_t stream) {
   constexpr long long stage = (sizeof(T) == 4 ? 96 : 64) * 1024;
+  static_assert(stage <= TS_BELL_SMEM_CAP, "a stage must fit the cap");
   if (bs == 8)
     return launch_bell_spmm<T, 1, 8>(blocks, idx, B, Y, nbr, L, bs, n_cols,
                                      k, stream, stage);
@@ -358,4 +362,20 @@ extern "C" int ts_bell_spmm_f64(const double* blocks, const int* idx,
                                 long long k, cudaStream_t stream) {
   return bell_spmm_entry<double>(blocks, idx, B, Y, nbr, L, bs, n_cols, k,
                                  stream);
+}
+
+extern "C" int ts_bell_spmm_c64(const ts_c64* blocks, const int* idx,
+                                const ts_c64* B, ts_c64* Y, long long nbr,
+                                long long L, long long bs, long long n_cols,
+                                long long k, cudaStream_t stream) {
+  return bell_spmm_entry<ts_c64>(blocks, idx, B, Y, nbr, L, bs, n_cols, k,
+                                 stream);
+}
+
+extern "C" int ts_bell_spmm_c128(const ts_c128* blocks, const int* idx,
+                                 const ts_c128* B, ts_c128* Y, long long nbr,
+                                 long long L, long long bs, long long n_cols,
+                                 long long k, cudaStream_t stream) {
+  return bell_spmm_entry<ts_c128>(blocks, idx, B, Y, nbr, L, bs, n_cols, k,
+                                  stream);
 }

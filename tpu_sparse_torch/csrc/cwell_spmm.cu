@@ -1,5 +1,6 @@
 // K6 / K7: general-structure SpMM Y = W B on the row-compact plan of a
-// CWELL pack, float and double.
+// CWELL pack, float and double, and complex64 / complex128 (ts_common.cuh's
+// TsComplex).
 //
 // Replaces tpu_sparse/kernels/pallas_cwell.py: `_cwell_spmm_gather_kernel`
 // (K6, call in `_cwell_spmm_gather_impl`, entry `cwell_spmm_pallas_gather`)
@@ -20,7 +21,8 @@
 // Y[row, j] = sum over the row's slots of cvals * B[col, j], in slot order,
 // in the value type; slots of value 0 are skipped. That is K4 / K5's sum of
 // each column, operation for operation, so column j of Y equals K4 / K5 on
-// B[:, j] bit for bit.
+// B[:, j] bit for bit (in complex too: every product and sum of TsComplex
+// is rounded on its own, never fused).
 //
 // Bound: device-memory bandwidth. The plan streams 6 / 10 bytes a slot in
 // float / double (12 / 16 wide); B and Y move k values a row. At k = 8 on
@@ -33,13 +35,15 @@
 // slots are contiguous, so thread 0 streams them into shared memory with
 // two 1-D bulk async copies (cp.async.bulk, L2 evict-first) completing on
 // an mbarrier, once, whatever k is; at most ~46 KB a piece (62 slot rows in
-// float, 37 in double), so a longer block streams in pieces and carries its
+// float, 37 in double and complex64, 20 in complex128: the piece is sized
+// by the value's bytes), so a longer block streams in pieces and carries its
 // sums through Y, which reloads them exactly. The block's window rows go to
 // shared memory beside them, so each slot's column decodes there. Then the
 // threads walk the slots out of shared memory for every column: TPR
 // consecutive threads take V consecutive columns each of one row (V = 4
-// floats or 2 doubles, one 16-byte load of B, when k and the pointers
-// allow), so a warp's gather is whole runs of a row of B; the CTA's rows
+// floats, 2 doubles or 2 complex64 values, one 16-byte load of B, when k
+// and the pointers allow; a complex128 value is a 16-byte load alone), so
+// a warp's gather is whole runs of a row of B; the CTA's rows
 // are spread over its warps; column tiles of TPR * V columns follow each
 // other over the same staged slots. One accumulator per (row, column) in
 // registers. Several CTAs a SM hide one block's copy behind another's
@@ -65,7 +69,13 @@
 // V consecutive values of B (read-only for the kernel's lifetime).
 template <typename T, int V>
 __device__ __forceinline__ void ts_vec_ldg(const T* p, T (&o)[V]) {
-  if constexpr (V == 4) {
+  if constexpr (ts_is_complex<T>::value && V == 2) {
+    static_assert(sizeof(T) == 8, "two complex128 values are 32 bytes");
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = T(q.x, q.y); o[1] = T(q.z, q.w);
+  } else if constexpr (ts_is_complex<T>::value) {
+    o[0] = ts_ldg(p);
+  } else if constexpr (V == 4) {
     const float4 q = __ldg(reinterpret_cast<const float4*>(p));
     o[0] = q.x; o[1] = q.y; o[2] = q.z; o[3] = q.w;
   } else if constexpr (V == 2 && sizeof(T) == 8) {
@@ -81,7 +91,10 @@ __device__ __forceinline__ void ts_vec_ldg(const T* p, T (&o)[V]) {
 
 template <typename T, int V>
 __device__ __forceinline__ void ts_vec_st(T* p, const T (&o)[V]) {
-  if constexpr (V == 4)
+  if constexpr (ts_is_complex<T>::value && V == 2)
+    *reinterpret_cast<float4*>(p) =
+        make_float4(o[0].re, o[0].im, o[1].re, o[1].im);
+  else if constexpr (V == 4)
     *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
   else if constexpr (V == 2 && sizeof(T) == 8)
     *reinterpret_cast<double2*>(p) = make_double2(o[0], o[1]);
@@ -141,7 +154,7 @@ cwell_spmm_compact(const T* __restrict__ cvals, const I* __restrict__ idx,
         }
       } else {
         for (int e = tid; e < nr * TS_CWELL_LANES; e += NT) {
-          s_val[e] = __ldcs(gv + e);
+          s_val[e] = ts_ldcs(gv + e);
           s_idx[e] = __ldcs(gi + e);
         }
       }
@@ -223,7 +236,7 @@ static int launch_cwell_spmm(const T* cvals, const void* idx, const int* srow,
   int v = 1;
   if (sizeof(T) == 4 && k % 4 == 0 && al % 16 == 0)
     v = 4;
-  else if (k % 2 == 0 && al % (2 * sizeof(T)) == 0)
+  else if (sizeof(T) <= 8 && k % 2 == 0 && al % (2 * sizeof(T)) == 0)
     v = 2;
   const long long need = (k + v - 1) / v;
   int tpr = 1;
@@ -236,12 +249,20 @@ static int launch_cwell_spmm(const T* cvals, const void* idx, const int* srow,
       (int)planes, n_rows, (int)k, tpr, piece)
   if (wide) {
     if (v == 1) TS_SPMM_LAUNCH(int, 1);
-    else if (v == 2) TS_SPMM_LAUNCH(int, 2);
-    else if constexpr (sizeof(T) == 4) TS_SPMM_LAUNCH(int, 4);
+    if constexpr (sizeof(T) <= 8) {
+      if (v == 2) TS_SPMM_LAUNCH(int, 2);
+    }
+    if constexpr (sizeof(T) == 4) {
+      if (v == 4) TS_SPMM_LAUNCH(int, 4);
+    }
   } else {
     if (v == 1) TS_SPMM_LAUNCH(unsigned short, 1);
-    else if (v == 2) TS_SPMM_LAUNCH(unsigned short, 2);
-    else if constexpr (sizeof(T) == 4) TS_SPMM_LAUNCH(unsigned short, 4);
+    if constexpr (sizeof(T) <= 8) {
+      if (v == 2) TS_SPMM_LAUNCH(unsigned short, 2);
+    }
+    if constexpr (sizeof(T) == 4) {
+      if (v == 4) TS_SPMM_LAUNCH(unsigned short, 4);
+    }
   }
 #undef TS_SPMM_LAUNCH
   return (int)cudaGetLastError();
@@ -266,6 +287,30 @@ extern "C" int ts_cwell_spmm_f64(const double* cvals, const void* idx,
                                  long long depth, int wide,
                                  cudaStream_t stream) {
   return launch_cwell_spmm<double, TS_SPMM_THREADS, true>(
+      cvals, idx, srow, boff, B, Y, n_blocks, planes, n_rows, k, depth, wide,
+      stream);
+}
+
+extern "C" int ts_cwell_spmm_c64(const ts_c64* cvals, const void* idx,
+                                 const int* srow, const long long* boff,
+                                 const ts_c64* B, ts_c64* Y,
+                                 long long n_blocks, long long planes,
+                                 long long n_rows, long long k,
+                                 long long depth, int wide,
+                                 cudaStream_t stream) {
+  return launch_cwell_spmm<ts_c64, TS_SPMM_THREADS, true>(
+      cvals, idx, srow, boff, B, Y, n_blocks, planes, n_rows, k, depth, wide,
+      stream);
+}
+
+extern "C" int ts_cwell_spmm_c128(const ts_c128* cvals, const void* idx,
+                                  const int* srow, const long long* boff,
+                                  const ts_c128* B, ts_c128* Y,
+                                  long long n_blocks, long long planes,
+                                  long long n_rows, long long k,
+                                  long long depth, int wide,
+                                  cudaStream_t stream) {
+  return launch_cwell_spmm<ts_c128, TS_SPMM_THREADS, true>(
       cvals, idx, srow, boff, B, Y, n_blocks, planes, n_rows, k, depth, wide,
       stream);
 }

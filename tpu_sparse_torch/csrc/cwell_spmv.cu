@@ -1,5 +1,5 @@
 // K4 / K5: general-structure SpMV on the row-compact plan of a CWELL pack,
-// float and double.
+// float and double, and complex64 / complex128 (ts_common.cuh's TsComplex).
 //
 // Replaces tpu_sparse/kernels/pallas_cwell.py: `_cwell_kernel` and its
 // grouped form `_cwell_kernel_gq` (K4, entry `cwell_spmv_pallas`, call in
@@ -43,10 +43,15 @@
 // its stage for the refill. Small stages keep many CTAs on an SM, which the
 // x gathers need: 8 x 2 beat 16 x 2, 4 x 2 and 8 x 4.
 //
-// K5 (double): plain loads. One CTA per row block (grid-stride), its
-// window rows in shared memory, each thread loading its slots from device
-// memory with the evict-first hint (__ldcs). On the 27-point 160^3 pack it
-// was 2-4% faster than the ring in double, and 3-7% slower in float.
+// K5 (double, and both complex builds): plain loads. One CTA per row
+// block (grid-stride), its window rows in shared memory, each thread
+// loading its slots from device memory with the evict-first hint
+// (__ldcs). On the 27-point 160^3 pack it was 2-4% faster than the ring
+// in double, and 3-7% slower in float; the complex builds take it because
+// a complex64 value is 8 bytes as a double is (a complex128 value 16, so
+// a slot streams 18 bytes). A complex
+// product is (ac - bd, ad + bc), each operation rounded on its own; a slot
+// is skipped when both parts of its value are 0.
 //
 // `python3 -m tpu_sparse_torch.kernels.cwell_spmv_probe` instantiates both
 // designs for both types, at several ring sizes, and times them on one card.
@@ -70,6 +75,11 @@ struct TsCwellDesign {
 };
 template <>
 struct TsCwellDesign<double> {
+  static constexpr int chunk = 0, stages = 0;
+};
+// complex64 values are 8 bytes as double's, complex128 16: plain loads
+template <typename R>
+struct TsCwellDesign<TsComplex<R>> {
   static constexpr int chunk = 0, stages = 0;
 };
 
@@ -97,9 +107,9 @@ cwell_spmv_plain(const T* __restrict__ cvals, const I* __restrict__ idx,
     T acc = T(0);
 #pragma unroll 4
     for (int j = 0; j < len; ++j) {
-      const T a = __ldcs(v + (long long)j * TS_CWELL_LANES);
+      const T a = ts_ldcs(v + (long long)j * TS_CWELL_LANES);
       const I c = __ldcs(ix + (long long)j * TS_CWELL_LANES);
-      if (a != T(0)) acc += a * __ldg(x + ts_slot_col(c, s_srow));
+      if (a != T(0)) acc += a * ts_ldg(x + ts_slot_col(c, s_srow));
     }
     const long long row = b * TS_CWELL_LANES + lane;
     if (row < n_rows) y[row] = acc;
@@ -221,7 +231,7 @@ cwell_spmv_ring(const T* __restrict__ cvals, const I* __restrict__ idx,
       for (int j = (int)(r - ps); j < j1; ++j) {
         const T a = sv[j * TS_CWELL_LANES];
         const I ci = si[j * TS_CWELL_LANES];
-        if (a != T(0)) acc += a * __ldg(x + ts_slot_col(ci, sw));
+        if (a != T(0)) acc += a * ts_ldg(x + ts_slot_col(ci, sw));
       }
       r = ps + j1;
     }
@@ -327,4 +337,24 @@ extern "C" int ts_cwell_spmv_f64(const double* cvals, const void* idx,
                                  cudaStream_t stream) {
   return cwell_spmv_entry<double>(cvals, idx, srow, boff, x, y, n_blocks,
                                   planes, n_rows, wide, stream);
+}
+
+extern "C" int ts_cwell_spmv_c64(const ts_c64* cvals, const void* idx,
+                                 const int* srow, const long long* boff,
+                                 const ts_c64* x, ts_c64* y,
+                                 long long n_blocks, long long planes,
+                                 long long n_rows, int wide,
+                                 cudaStream_t stream) {
+  return cwell_spmv_entry<ts_c64>(cvals, idx, srow, boff, x, y, n_blocks,
+                                  planes, n_rows, wide, stream);
+}
+
+extern "C" int ts_cwell_spmv_c128(const ts_c128* cvals, const void* idx,
+                                  const int* srow, const long long* boff,
+                                  const ts_c128* x, ts_c128* y,
+                                  long long n_blocks, long long planes,
+                                  long long n_rows, int wide,
+                                  cudaStream_t stream) {
+  return cwell_spmv_entry<ts_c128>(cvals, idx, srow, boff, x, y, n_blocks,
+                                   planes, n_rows, wide, stream);
 }

@@ -1,4 +1,6 @@
-// Kernel 1: square/rectangular DIA (stencil) SpMV, float and double.
+// Kernel 1: square/rectangular DIA (stencil) SpMV, float and double; the
+// plain mode also in complex64 and complex128 (ts_common.cuh's TsComplex:
+// products (ac - bd, ad + bc), each operation rounded on its own).
 //
 // Replaces tpu_sparse/kernels/pallas_spmv.py: `_dia_kernel` (plain SpMV,
 // entry `dia_spmv_pallas`), `_dia_ext_kernel` / `_dia_ext_kernel_res`
@@ -11,9 +13,10 @@
 //
 // Bound: device-memory bandwidth. Each row streams ndiag matrix values
 // plus one x read and one y write: sizeof(T) * (ndiag + 2) bytes per row
-// (27-point stencil in float: 116 B/row). x is re-read ndiag times, but
-// neighbouring diagonals of one block touch neighbouring rows of x, so
-// those reads hit L1/L2 and only the first touch costs device memory.
+// (27-point stencil in float: 116 B/row; complex64 232, complex128 464).
+// x is re-read ndiag times, but neighbouring diagonals of one block touch
+// neighbouring rows of x, so those reads hit L1/L2 and only the first
+// touch costs device memory.
 //
 // Design: one thread per row in a grid-stride loop; thread i reads
 // data[d, i] for each d, so every diagonal read is coalesced along i. The
@@ -108,6 +111,27 @@ extern "C" int ts_dia_spmv_f64(const double* data, long long ld,
                                cudaStream_t stream) {
   return launch_dia_spmv<double>(data, ld, offsets, ndiag, x, y, n_rows,
                                  n_cols, wl, e, extended, stream);
+}
+
+// Plain mode only: the extended (fused) paths stay real.
+extern "C" int ts_dia_spmv_c64(const ts_c64* data, long long ld,
+                               const int* offsets, int ndiag, const ts_c64* x,
+                               ts_c64* y, long long n_rows, long long n_cols,
+                               long long wl, long long e, int extended,
+                               cudaStream_t stream) {
+  if (extended) return TS_BAD_ARGUMENT;
+  return launch_dia_spmv<ts_c64>(data, ld, offsets, ndiag, x, y, n_rows,
+                                 n_cols, wl, e, 0, stream);
+}
+
+extern "C" int ts_dia_spmv_c128(const ts_c128* data, long long ld,
+                                const int* offsets, int ndiag,
+                                const ts_c128* x, ts_c128* y, long long n_rows,
+                                long long n_cols, long long wl, long long e,
+                                int extended, cudaStream_t stream) {
+  if (extended) return TS_BAD_ARGUMENT;
+  return launch_dia_spmv<ts_c128>(data, ld, offsets, ndiag, x, y, n_rows,
+                                  n_cols, wl, e, 0, stream);
 }
 
 extern "C" const char* ts_error_string(int code) {

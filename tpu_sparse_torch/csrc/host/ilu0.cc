@@ -9,7 +9,11 @@
 // offset and o != -k, and m stored as L's entry. Rows i - k < 0 act as
 // zero rows. The last w factored rows live in a ring (the JAX scan's
 // carry), so the working set is w rows of ndiag values. The values are
-// A's dtype: one template, instantiated for float and double.
+// A's dtype: one template, instantiated for float, double,
+// std::complex<float> and std::complex<double>. The complex pivot rule is
+// the real one (a pivot equal to 0 + 0i counts as 1); a complex quotient
+// is std::complex's (gcc's __divdc3, scaled to avoid overflow), so it may
+// differ from XLA's in the last bits, not more.
 //
 // The same pass computes the level schedule of the two triangular
 // substitutions from the factors' nonzeros: a row's forward level is one
@@ -25,6 +29,7 @@
 // (tpu_sparse_torch/precond/_native.py).
 
 #include <algorithm>
+#include <complex>
 #include <cstdint>
 #include <cstdlib>
 #include <utility>
@@ -125,6 +130,25 @@ void ts_ilu0_f32(int64_t n, int64_t nd, const int64_t* offsets,
                  const float* data, float* out, int32_t* lev_f,
                  int32_t* lev_b, int64_t* n_levels) {
   ilu0<float>(n, nd, offsets, data, out, lev_f, lev_b, n_levels);
+}
+
+// The same for complex128 / complex64 values, interleaved (re, im) pairs
+// of double / float (the layout of std::complex and of numpy's complex
+// arrays).
+void ts_ilu0_c128(int64_t n, int64_t nd, const int64_t* offsets,
+                  const double* data, double* out, int32_t* lev_f,
+                  int32_t* lev_b, int64_t* n_levels) {
+  using C = std::complex<double>;
+  ilu0<C>(n, nd, offsets, reinterpret_cast<const C*>(data),
+          reinterpret_cast<C*>(out), lev_f, lev_b, n_levels);
+}
+
+void ts_ilu0_c64(int64_t n, int64_t nd, const int64_t* offsets,
+                 const float* data, float* out, int32_t* lev_f,
+                 int32_t* lev_b, int64_t* n_levels) {
+  using C = std::complex<float>;
+  ilu0<C>(n, nd, offsets, reinterpret_cast<const C*>(data),
+          reinterpret_cast<C*>(out), lev_f, lev_b, n_levels);
 }
 
 }  // extern "C"

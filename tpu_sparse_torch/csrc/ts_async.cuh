@@ -36,12 +36,17 @@ __device__ __forceinline__ void ts_load_window_rows(const int* srow,
   }
 }
 
-// V consecutive values (V = 4 floats, 2 doubles or 2 floats: one vector
-// load, the address aligned to it; V = 1: one value) by plain loads, from
-// shared memory or from device memory the kernel writes.
+// V consecutive values (V = 4 floats, 2 doubles, 2 floats or 2 complex64
+// values: one vector load, the address aligned to it; V = 1: one value)
+// by plain loads, from shared memory or from device memory the kernel
+// writes.
 template <typename T, int V>
 __device__ __forceinline__ void ts_vec_load(const T* p, T (&o)[V]) {
-  if constexpr (V == 4) {
+  if constexpr (ts_is_complex<T>::value && V == 2) {
+    static_assert(sizeof(T) == 8, "two complex128 values are 32 bytes");
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    o[0] = T(q.x, q.y); o[1] = T(q.z, q.w);
+  } else if constexpr (V == 4) {
     const float4 q = *reinterpret_cast<const float4*>(p);
     o[0] = q.x; o[1] = q.y; o[2] = q.z; o[3] = q.w;
   } else if constexpr (V == 2 && sizeof(T) == 8) {

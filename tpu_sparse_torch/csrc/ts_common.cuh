@@ -59,3 +59,105 @@ __device__ __forceinline__ double ts_block_sum(double v) {
 }
 
 extern "C" const char* ts_error_string(int code);
+
+// ---- the complex scalar ---------------------------------------------------
+
+// A complex value of the layout of torch's complex64 (R = float) and
+// complex128 (R = double): an aligned {re, im} pair. The kernels use only
+// T(0), +, +=, * and != on it. The products are (ac - bd, ad + bc) with each
+// operation rounded on its own (the _rn intrinsics keep nvcc from fusing
+// them into FMAs), so every kernel that sums the same products in the same
+// order gives the same bits (K6/K7's column j equals K4/K5), and there is
+// no NaN/Inf recovery as in C's Annex G or cuda::std::complex: a NaN in x
+// gives NaN, as in the real builds.
+template <typename R>
+struct alignas(2 * sizeof(R)) TsComplex {
+  R re, im;
+  TsComplex() = default;
+  __host__ __device__ constexpr TsComplex(R r, R i = R(0)) : re(r), im(i) {}
+};
+
+using ts_c64 = TsComplex<float>;
+using ts_c128 = TsComplex<double>;
+
+template <typename T>
+struct ts_is_complex {
+  static constexpr bool value = false;
+};
+template <typename R>
+struct ts_is_complex<TsComplex<R>> {
+  static constexpr bool value = true;
+};
+
+__device__ __forceinline__ float ts_add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double ts_add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float ts_sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double ts_sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float ts_mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double ts_mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+template <typename R>
+__device__ __forceinline__ TsComplex<R> operator+(TsComplex<R> a,
+                                                  TsComplex<R> b) {
+  return TsComplex<R>(ts_add_rn(a.re, b.re), ts_add_rn(a.im, b.im));
+}
+
+template <typename R>
+__device__ __forceinline__ TsComplex<R>& operator+=(TsComplex<R>& a,
+                                                    TsComplex<R> b) {
+  a = a + b;
+  return a;
+}
+
+template <typename R>
+__device__ __forceinline__ TsComplex<R> operator*(TsComplex<R> a,
+                                                  TsComplex<R> b) {
+  return TsComplex<R>(
+      ts_sub_rn(ts_mul_rn(a.re, b.re), ts_mul_rn(a.im, b.im)),
+      ts_add_rn(ts_mul_rn(a.re, b.im), ts_mul_rn(a.im, b.re)));
+}
+
+template <typename R>
+__device__ __forceinline__ bool operator!=(TsComplex<R> a, TsComplex<R> b) {
+  return a.re != b.re || a.im != b.im;
+}
+
+// Read-only (__ldg) and streaming (__ldcs) loads of one value; a complex
+// value is one 8- or 16-byte vector load.
+template <typename T>
+__device__ __forceinline__ T ts_ldg(const T* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ ts_c64 ts_ldg(const ts_c64* p) {
+  const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+  return ts_c64(q.x, q.y);
+}
+__device__ __forceinline__ ts_c128 ts_ldg(const ts_c128* p) {
+  const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+  return ts_c128(q.x, q.y);
+}
+
+template <typename T>
+__device__ __forceinline__ T ts_ldcs(const T* p) {
+  return __ldcs(p);
+}
+__device__ __forceinline__ ts_c64 ts_ldcs(const ts_c64* p) {
+  const float2 q = __ldcs(reinterpret_cast<const float2*>(p));
+  return ts_c64(q.x, q.y);
+}
+__device__ __forceinline__ ts_c128 ts_ldcs(const ts_c128* p) {
+  const double2 q = __ldcs(reinterpret_cast<const double2*>(p));
+  return ts_c128(q.x, q.y);
+}

@@ -24,7 +24,10 @@ ms):
   diagonal blocks (``torch.linalg.solve_triangular``). An (n, k)
   right-hand side runs natively: one ``kernels.spmm`` per group (K6/K7)
   and the same triangular solve with k columns. Factors of a float64
-  matrix are float64, those of a float32 matrix float32.
+  matrix are float64, those of a float32 matrix float32; a complex
+  matrix is factored by SuperLU in complex128 and its factors, packs and
+  diagonal blocks take its complex dtype (the level solve then runs the
+  complex builds of K4 / K5 and K6/K7).
 
 The JAX package applies explicit inverses of the diagonal blocks (one
 matmul a level), because the TPU's batched triangular solve was
@@ -219,8 +222,9 @@ def _layout_and_packs(T_coo, row_map, n_pad: int, s: int, ascending: bool,
     ranges = tuple((int(a), int(b)) for a, b in zip(starts, ends))
 
     # dense diagonal blocks in level order (the order of rows inside a
-    # block is kept, so each block stays triangular)
-    diag = np.zeros((B, s, s), dtype=np.float64)
+    # block is kept, so each block stays triangular), in the factor's
+    # dtype (float64 or complex128)
+    diag = np.zeros((B, s, s), dtype=v.dtype)
     rs, cs, vs = slot[r[same]], slot[c[same]], v[same]
     diag[rs // s, rs % s, cs % s] = vs
     all_slots = np.ones(n_pad, bool)
@@ -346,9 +350,10 @@ class SupernodalLU:
             raise ValueError("SupernodalLU requires a square system")
         device = A.device
         dtype = A.dtype
-        if not dtype.is_floating_point:
+        if not (dtype.is_floating_point or dtype.is_complex):
             dtype = torch.float64
-        A_sp = to_scipy_csr(A).astype(np.float64)
+        A_sp = to_scipy_csr(A).astype(np.complex128 if dtype.is_complex
+                                      else np.float64)
         sigma, part_sizes = nested_dissection(A_sp, leaf=leaf)
         Ap = A_sp[sigma][:, sigma].tocsc()
         lu = spl.splu(Ap, permc_spec="NATURAL", diag_pivot_thresh=0.1,
@@ -430,12 +435,20 @@ def supernodal_solve(lu: SupernodalLU, b: torch.Tensor) -> torch.Tensor:
     return lu.solve(b)
 
 
+def _solve_adjoint(lu, g: torch.Tensor) -> torch.Tensor:
+    """A^-H g by the factors' transpose solve: conj(A^-T conj(g)) for a
+    complex g (torch's gradient convention), A^-T g for a real one."""
+    if g.is_complex():
+        return lu.solve_transpose(g.conj()).conj()
+    return lu.solve_transpose(g)
+
+
 class _FactoredSolve(torch.autograd.Function):
     """x = lu.solve(b), plus with ``refine`` one refinement step
-    x += lu.solve(b - A x). Backward: v = lu.solve_transpose(x_bar)
-    (refined on A^T likewise), b_bar = v and, when A's values require
-    grad, A_bar = -v x^T on A's pattern (the plain SpMV's vector-Jacobian
-    product, as ``autodiff.implicit``)."""
+    x += lu.solve(b - A x). Backward: v = A^-H x_bar by the factors'
+    transpose solve (refined on A^H likewise), b_bar = v and, when A's
+    values require grad, A_bar = -v x^H on A's pattern (the plain SpMV's
+    vector-Jacobian product, as ``autodiff.implicit``)."""
 
     @staticmethod
     def forward(ctx, lu, A, refine, a_vals, b):
@@ -455,10 +468,10 @@ class _FactoredSolve(torch.autograd.Function):
 
         (x,) = ctx.saved_tensors
         g = x_bar.contiguous()
-        v = ctx.lu.solve_transpose(g)
+        v = _solve_adjoint(ctx.lu, g)
         if ctx.refine:
             At = _adjoint_matrix(ctx.A, False)
-            v = v + ctx.lu.solve_transpose(g - _apply(At, v))
+            v = v + _solve_adjoint(ctx.lu, g - _apply(At, v))
         grad_a = None
         if ctx.needs_input_grad[3]:
             with torch.enable_grad():

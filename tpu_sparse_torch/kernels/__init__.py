@@ -35,12 +35,32 @@ from tpu_sparse_torch.sparse.containers import (BSR, COO, CSR, DIA,
 from tpu_sparse_torch.sparse.cwell import CWELL, CWELLSeg
 
 
+# Casts of a matrix operand's values to another dtype, counted where they
+# happen: a product of a real container with a complex vector casts the
+# values on every call, so ``solve()`` casts a real operand of a complex b
+# once per solve and no matvec casts again.
+CAST_COUNTS = {"values_casts": 0}
+
+
+def reset_cast_counts() -> None:
+    CAST_COUNTS["values_casts"] = 0
+
+
+def cast_values(A, dtype: torch.dtype):
+    """A container (or a dense matrix) with its values cast to ``dtype``;
+    counted in ``CAST_COUNTS``."""
+    CAST_COUNTS["values_casts"] += 1
+    if isinstance(A, torch.Tensor):
+        return A.to(dtype)
+    return with_values(A, values(A).to(dtype))
+
+
 def _promote(A, x):
     """Cast the matrix values and x to their common dtype."""
     v = values(A)
     dt = torch.promote_types(v.dtype, x.dtype)
     if v.dtype != dt:
-        A = with_values(A, v.to(dt))
+        A = cast_values(A, dt)
     return A, x.to(dt)
 
 

@@ -2,10 +2,11 @@
 
 Counterpart of ``tpu_sparse/kernels/pallas_bell.py``: ``bell_spmm_cuda``
 replaces ``bell_spmm_pallas`` (K8), in float32 (float FMAs, no TF32: the
-TPU kernel multiplied at HIGHEST precision) and float64. The TPU's limits
-are gone: no padding of k to 128, no VMEM cap on B, no ``bs % 8`` rule;
-the kernel takes any block size up to 64 and refuses larger ones, whose
-staged blocks would not fit its shared memory. The kernel stages each
+TPU kernel multiplied at HIGHEST precision), float64, complex64 and
+complex128. The TPU's limits are gone: no padding of k to 128, no VMEM
+cap on B, no ``bs % 8`` rule; the kernel takes any block size up to 64
+and refuses larger ones, whose staged blocks would not fit its shared
+memory. The kernel stages each
 block row's blocks and the B stripes they name in shared memory by
 asynchronous copies, double-buffered.
 
@@ -31,9 +32,11 @@ from tpu_sparse_torch.sparse.bell import BELL
 MAX_BLOCKSIZE = 64  # a double-buffered fp64 block and stripe: ~74 KB
 
 # Launches of K8, by dtype; counted where the kernel launches.
-LAUNCHES = {"bell_spmm_f32": 0, "bell_spmm_f64": 0}
+LAUNCHES = {"bell_spmm_f32": 0, "bell_spmm_f64": 0,
+            "bell_spmm_c64": 0, "bell_spmm_c128": 0}
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex64: "c64", torch.complex128: "c128"}
 
 
 def reset_launch_counts() -> None:
@@ -50,8 +53,9 @@ def _check_operands(A: BELL, B: torch.Tensor) -> str:
         raise ValueError(f"{what}: operands on more than one device")
     if A.blocks.dtype not in _SUFFIX or B.dtype != A.blocks.dtype:
         raise TypeError(
-            f"{what}: the kernel takes float32 or float64 blocks and B of "
-            f"the same dtype, got {A.blocks.dtype} and {B.dtype}")
+            f"{what}: the kernel takes float32, float64, complex64 or "
+            f"complex128 blocks and B of the same dtype, got "
+            f"{A.blocks.dtype} and {B.dtype}")
     if A.indices.dtype != torch.int32:
         raise TypeError(f"{what}: indices must be int32")
     if not all(t.is_contiguous() for t in tensors):
@@ -77,14 +81,17 @@ def _check_operands(A: BELL, B: torch.Tensor) -> str:
 
 
 def bell_spmm_cuda(A: BELL, B: torch.Tensor) -> torch.Tensor:
-    """Y = A @ B by K8 for CUDA operands; B is a contiguous (m, k) block."""
+    """Y = A @ B by K8 for CUDA operands; B is a contiguous (m, k) block.
+    A conjugate view is read as its values."""
     from tpu_sparse_torch.kernels import _build
 
+    B = B.resolve_conj()
+    if A.blocks.is_conj():
+        A = A.with_data(A.blocks.resolve_conj())
     sfx = _check_operands(A, B)
     k = B.shape[1]
     Y = torch.empty((A.shape[0], k), dtype=B.dtype, device=B.device)
-    lib = _build.library()
-    fn = lib.ts_bell_spmm_f32 if sfx == "f32" else lib.ts_bell_spmm_f64
+    fn = getattr(_build.library(), "ts_bell_spmm_" + sfx)
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(A.blocks.data_ptr(), A.indices.data_ptr(), B.data_ptr(),

@@ -6,9 +6,11 @@ replaces ``cwell_spmv_pallas`` (K4, float32) and ``cwell_spmv_pallas_df``
 (K5, float64 as double-f32 pairs on the TPU; here the native fp64 build of
 the same kernel); ``cwell_spmm_cuda`` replaces ``cwell_spmm_pallas_gather``
 (K6) and ``cwell_spmm_pallas`` (K7, the same SpMM through one-hot matrix
-products), in float32 and float64. They take every pack, grouped ones
-included, and return no None: the TPU's fallbacks for packs, operands or
-unrolls its VMEM could not hold are gone.
+products), in float32 and float64. Both also take complex64 and
+complex128 (the SpMV's complex builds in K5's design, plain loads). They
+take every pack, grouped ones included, and return no None: the TPU's
+fallbacks for packs, operands or unrolls its VMEM could not hold are
+gone.
 
 All four stream the pack's row-compact plan (``sparse.cwell_compact``),
 not its planes, and share it: one plan per pack structure, one value
@@ -30,14 +32,17 @@ from tpu_sparse_torch.kernels import reference as ref
 from tpu_sparse_torch.sparse import cwell_compact
 from tpu_sparse_torch.sparse.cwell import CWELL, LW
 
-# Launches of K4 (float32), K5 (float64) and K6/K7 (SpMM, both dtypes);
-# counted where the kernel launches.
+# Launches of K4 (float32, complex64), K5 (float64, complex128) and K6/K7
+# (SpMM, every dtype); counted where the kernel launches.
 LAUNCHES = {"cwell_spmv_f32": 0, "cwell_spmv_f64": 0,
-            "cwell_spmm_f32": 0, "cwell_spmm_f64": 0}
+            "cwell_spmv_c64": 0, "cwell_spmv_c128": 0,
+            "cwell_spmm_f32": 0, "cwell_spmm_f64": 0,
+            "cwell_spmm_c64": 0, "cwell_spmm_c128": 0}
 # Compact-plan builds and value gathers behind K4 - K7.
 PLAN_COUNTS = cwell_compact.COUNTS
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex64: "c64", torch.complex128: "c128"}
 
 
 def reset_launch_counts() -> None:
@@ -59,8 +64,9 @@ def _check_operands(W: CWELL, x: torch.Tensor, what: str = "cwell_spmv_cuda",
         raise ValueError(f"{what}: operands on more than one device")
     if W.vals.dtype not in _SUFFIX or x.dtype != W.vals.dtype:
         raise TypeError(
-            f"{what}: the kernel takes float32 or float64 values and an "
-            f"operand of the same dtype, got {W.vals.dtype} and {x.dtype}")
+            f"{what}: the kernel takes float32, float64, complex64 or "
+            f"complex128 values and an operand of the same dtype, got "
+            f"{W.vals.dtype} and {x.dtype}")
     if W.idx2.dtype != torch.int32 or W.srow.dtype != torch.int32:
         raise TypeError(f"{what}: idx2 and srow must be int32")
     if not all(t.is_contiguous() for t in tensors):
@@ -83,19 +89,20 @@ def _check_operands(W: CWELL, x: torch.Tensor, what: str = "cwell_spmv_cuda",
 
 
 def cwell_spmv_cuda(W: CWELL, x: torch.Tensor) -> torch.Tensor:
-    """y = W @ x by K4 (float32) or K5 (float64) for CUDA operands, on
-    W's row-compact plan (``sparse.cwell_compact``: built once per pack
-    structure, its values gathered once per values tensor). Slots of value
-    0 are skipped, so a NaN or Inf in x reaches only the rows whose
-    nonzeros gather it."""
+    """y = W @ x by K4 (float32, complex64) or K5 (float64, complex128)
+    for CUDA operands, on W's row-compact plan (``sparse.cwell_compact``:
+    built once per pack structure, its values gathered once per values
+    tensor). Slots of value 0 are skipped, so a NaN or Inf in x reaches
+    only the rows whose nonzeros gather it. A conjugate view is read as
+    its values."""
     from tpu_sparse_torch.kernels import _build
 
+    x = x.resolve_conj()
     sfx = _check_operands(W, x)
     plan, cvals = cwell_compact.compact(W)
     n = W.shape[0]
     y = torch.empty(n, dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    fn = lib.ts_cwell_spmv_f32 if sfx == "f32" else lib.ts_cwell_spmv_f64
+    fn = getattr(_build.library(), "ts_cwell_spmv_" + sfx)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(cvals.data_ptr(), plan.idx.data_ptr(), plan.srow.data_ptr(),
@@ -115,19 +122,19 @@ def cwell_spmv(W: CWELL, x: torch.Tensor) -> torch.Tensor:
 
 
 def cwell_spmm_cuda(W: CWELL, B: torch.Tensor) -> torch.Tensor:
-    """Y = W @ B by K6/K7 (one CUDA kernel, float32 or float64) for CUDA
+    """Y = W @ B by K6/K7 (one CUDA kernel, real or complex) for CUDA
     operands, on the row-compact plan K4 / K5 use; B is a contiguous
     (m, k) block. Column j of Y equals ``cwell_spmv_cuda(W, B[:, j])`` bit
     for bit."""
     from tpu_sparse_torch.kernels import _build
 
+    B = B.resolve_conj()
     sfx = _check_operands(W, B, "cwell_spmm_cuda", ndim=2)
     plan, cvals = cwell_compact.compact(W)
     n = W.shape[0]
     k = B.shape[1]
     Y = torch.empty((n, k), dtype=B.dtype, device=B.device)
-    lib = _build.library()
-    fn = lib.ts_cwell_spmm_f32 if sfx == "f32" else lib.ts_cwell_spmm_f64
+    fn = getattr(_build.library(), "ts_cwell_spmm_" + sfx)
     with torch.cuda.device(B.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(cvals.data_ptr(), plan.idx.data_ptr(), plan.srow.data_ptr(),

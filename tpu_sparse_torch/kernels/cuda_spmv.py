@@ -3,7 +3,8 @@
 Counterpart of ``tpu_sparse/kernels/pallas_spmv.py``:
 
 * ``dia_spmv_cuda`` replaces ``dia_spmv_pallas`` (plain SpMV, rows
-  bounds-masked), in float32 and float64;
+  bounds-masked), in float32 and float64, and in complex64 and complex128
+  (the JAX package solves complex systems natively off the TPU);
 * ``ExtendedStencilOperator`` keeps every solver vector in the halo-extended
   layout ``[0..0 | x | 0..0]`` whose margins stay zero under Krylov vector
   ops, so the SpMV needs no pad or slice per call;
@@ -30,9 +31,13 @@ MARGIN_ALIGN = 32
 
 # Launches of kernel 1, by mode and dtype; counted where the kernel launches.
 LAUNCHES = {"dia_spmv_f32": 0, "dia_spmv_f64": 0,
+            "dia_spmv_c64": 0, "dia_spmv_c128": 0,
             "dia_spmv_ext_f32": 0, "dia_spmv_ext_f64": 0}
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex64: "c64", torch.complex128: "c128"}
+# the extended mode's dtypes: the fused paths stay real
+_EXT_SUFFIX = ("f32", "f64")
 
 
 def reset_launch_counts() -> None:
@@ -45,15 +50,18 @@ def _round_up(v: int, m: int) -> int:
 
 
 def _check_operands(data: torch.Tensor, x: torch.Tensor, offsets,
-                    x_len: int, what: str) -> str:
+                    x_len: int, what: str, suffixes=tuple(_SUFFIX.values())
+                    ) -> str:
     if not (data.is_cuda and x.is_cuda):
         raise ValueError(f"{what}: operands must be CUDA tensors")
     if data.device != x.device:
         raise ValueError(f"{what}: data on {data.device}, x on {x.device}")
-    if data.dtype not in _SUFFIX or x.dtype != data.dtype:
+    if _SUFFIX.get(data.dtype) not in suffixes or x.dtype != data.dtype:
+        names = ", ".join(str(d).replace("torch.", "") for d, s in
+                          _SUFFIX.items() if s in suffixes)
         raise TypeError(
-            f"{what}: the kernel takes float32 or float64 data and x of the "
-            f"same dtype, got {data.dtype} and {x.dtype}")
+            f"{what}: the kernel takes {names} data and x of the same "
+            f"dtype, got {data.dtype} and {x.dtype}")
     if len(offsets) > MAX_DIAG:
         raise ValueError(
             f"{what}: {len(offsets)} diagonals exceed the kernel's "
@@ -72,9 +80,7 @@ def _check_operands(data: torch.Tensor, x: torch.Tensor, offsets,
 def _launch(data, offsets, x, y, n_rows, n_cols, wl, e, extended, what):
     from tpu_sparse_torch.kernels import _build
 
-    lib = _build.library()
-    fn = lib.ts_dia_spmv_f32 if data.dtype == torch.float32 \
-        else lib.ts_dia_spmv_f64
+    fn = getattr(_build.library(), "ts_dia_spmv_" + _SUFFIX[data.dtype])
     offs, offs_ptr = _build.int_array(offsets)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -85,13 +91,15 @@ def _launch(data, offsets, x, y, n_rows, n_cols, wl, e, extended, what):
 
 
 def dia_spmv_cuda(A: DIA, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x by kernel 1 (plain mode) for CUDA operands."""
+    """y = A @ x by kernel 1 (plain mode) for CUDA operands. A conjugate
+    view (``t.conj()`` of a complex tensor) is read as its values."""
     n, m = A.shape
-    sfx = _check_operands(A.data, x, A.offsets, m, "dia_spmv_cuda")
-    if A.data.shape[1] < n:
+    data, x = A.data.resolve_conj(), x.resolve_conj()
+    sfx = _check_operands(data, x, A.offsets, m, "dia_spmv_cuda")
+    if data.shape[1] < n:
         raise ValueError("dia_spmv_cuda: data has fewer columns than rows")
     y = torch.empty(n, dtype=x.dtype, device=x.device)
-    _launch(A.data, A.offsets, x, y, n, m, 0, 0, False, "dia_spmv_cuda")
+    _launch(data, A.offsets, x, y, n, m, 0, 0, False, "dia_spmv_cuda")
     LAUNCHES["dia_spmv_" + sfx] += 1
     return y
 
@@ -161,7 +169,7 @@ class ExtendedStencilOperator:
     def apply_cuda(self, x_ext: torch.Tensor) -> torch.Tensor:
         """Kernel 1, extended mode."""
         sfx = _check_operands(self.data, x_ext, self.offsets, self.E,
-                              "ExtendedStencilOperator")
+                              "ExtendedStencilOperator", _EXT_SUFFIX)
         y = torch.empty(self.E, dtype=x_ext.dtype, device=x_ext.device)
         _launch(self.data, self.offsets, x_ext, y, self.n, self.n, self.Wl,
                 self.E, True, "ExtendedStencilOperator")

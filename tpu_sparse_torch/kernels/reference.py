@@ -7,7 +7,8 @@ slot and sums the planes, ``cwell_compact_spmv`` / ``cwell_compact_spmm``
 do the same on a pack's row-compact plan (K4 - K7's layout); the BSR /
 BELL versions contract dense blocks with gathered chunks of x. Each
 ``*_spmm`` is the same function for a dense ``(m, k)`` operand B, column
-by column.
+by column. Every version takes real and complex values alike (the
+complex builds of the card's kernels are held against them).
 
 The CWELL and BELL versions skip every product whose matrix value is 0,
 as the card's kernels do, so a NaN or Inf in x or B reaches only the rows
@@ -26,7 +27,9 @@ from tpu_sparse_torch.sparse.containers import BSR, COO, CSR, DIA
 class _NonzeroProduct(torch.autograd.Function):
     """a * b where a != 0, else 0, with the gradient of a * b: the two are
     one function wherever b is finite, so the adjoint's values gradient
-    (the vjp of the plain SpMV) is JAX's, padding slots included."""
+    (the vjp of the plain SpMV) is JAX's, padding slots included. For
+    complex operands the gradient takes torch's convention (the cotangent
+    times the other factor's conjugate), as autograd's own product does."""
 
     @staticmethod
     def forward(ctx, a, b):
@@ -36,8 +39,10 @@ class _NonzeroProduct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        ga = (g * b).sum_to_size(a.shape) if ctx.needs_input_grad[0] else None
-        gb = (g * a).sum_to_size(b.shape) if ctx.needs_input_grad[1] else None
+        ga = ((g * b.conj()).sum_to_size(a.shape)
+              if ctx.needs_input_grad[0] else None)
+        gb = ((g * a.conj()).sum_to_size(b.shape)
+              if ctx.needs_input_grad[1] else None)
         return ga, gb
 
 

@@ -96,9 +96,15 @@ def _bind_amg(lib: ctypes.CDLL) -> None:
     lib.ts_l1_row_norms.argtypes = [ctypes.c_int64, _i32p, f64p, f64p]
 
 
+# the factor's entry and the C type of its values' parts, by numpy dtype
+_ILU_ENTRIES = {np.dtype(np.float64): ("ts_ilu0_f64", ctypes.c_double),
+                np.dtype(np.float32): ("ts_ilu0_f32", ctypes.c_float),
+                np.dtype(np.complex128): ("ts_ilu0_c128", ctypes.c_double),
+                np.dtype(np.complex64): ("ts_ilu0_c64", ctypes.c_float)}
+
+
 def _bind_ilu(lib: ctypes.CDLL) -> None:
-    for name, fp in (("ts_ilu0_f64", ctypes.c_double),
-                     ("ts_ilu0_f32", ctypes.c_float)):
+    for name, fp in _ILU_ENTRIES.values():
         fn = getattr(lib, name)
         fn.restype = None
         fn.argtypes = [ctypes.c_int64, ctypes.c_int64, _i64p,
@@ -201,15 +207,16 @@ def l1_row_norms(indptr, data) -> np.ndarray:
 
 def ilu0(offsets, data: np.ndarray
          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]:
-    """ILU(0) of a DIA matrix (``data`` (ndiag, n), float32 or float64, in
-    that dtype) on its own pattern. Returns (factored band (ndiag, n): L's
-    multipliers on the negative offsets, U on the rest; forward levels
-    (n,) int32; backward levels (n,) int32; the two level counts).
+    """ILU(0) of a DIA matrix (``data`` (ndiag, n), float32, float64,
+    complex64 or complex128, in that dtype) on its own pattern. Returns
+    (factored band (ndiag, n): L's multipliers on the negative offsets, U
+    on the rest; forward levels (n,) int32; backward levels (n,) int32;
+    the two level counts).
     Raises JAX's ValueError without a stored main diagonal."""
     data = np.ascontiguousarray(data)
-    if data.dtype not in (np.float32, np.float64):
-        raise TypeError(f"ilu0 takes float32 or float64 values, got "
-                        f"{data.dtype}")
+    if data.dtype not in _ILU_ENTRIES:
+        raise TypeError(f"ilu0 takes float32, float64, complex64 or "
+                        f"complex128 values, got {data.dtype}")
     offs = _as(offsets, np.int64)
     nd, n = data.shape
     if offs.size != nd:
@@ -221,9 +228,8 @@ def ilu0(offsets, data: np.ndarray
     lev_f = np.empty(n, np.int32)
     lev_b = np.empty(n, np.int32)
     n_lev = np.zeros(2, np.int64)
-    f64 = data.dtype == np.float64
-    fn, fp = ((lib.ts_ilu0_f64, ctypes.c_double) if f64
-              else (lib.ts_ilu0_f32, ctypes.c_float))
+    name, fp = _ILU_ENTRIES[data.dtype]
+    fn = getattr(lib, name)
     fn(n, nd, _ptr(offs, ctypes.c_int64), _ptr(data, fp), _ptr(out, fp),
        _ptr(lev_f, ctypes.c_int32), _ptr(lev_b, ctypes.c_int32),
        _ptr(n_lev, ctypes.c_int64))

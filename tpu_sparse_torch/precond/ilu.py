@@ -9,12 +9,13 @@ schedules the substitutions by levels instead:
 
 * **factor (host, once per matrix).** ``csrc/host/ilu0.cc`` through
   ``_native.ilu0``: JAX's row-by-row IKJ elimination on A's stored
-  diagonals, in A's dtype (float or double), and in the same pass the
-  level of every row in each substitution, computed from the factors'
-  nonzeros. Stored zeros (a stencil's grid wrap-around entries) chain no
-  rows: the 27-point stencil on an nx^3 grid has 7 (nx - 1) + 1 levels
-  each way (the wavefronts i + 2j + 4k), a 5-point one on nx^2 has
-  2 nx - 1.
+  diagonals, in A's dtype (float, double or their complex types; a
+  complex pivot of 0 counts as 1, as a real one), and in the same pass
+  the level of every row in each substitution, computed from the
+  factors' nonzeros. Stored zeros (a stencil's grid wrap-around
+  entries) chain no rows: the 27-point stencil on an nx^3 grid has
+  7 (nx - 1) + 1 levels each way (the wavefronts i + 2j + 4k), a 5-point
+  one on nx^2 has 2 nx - 1.
 * **level packs (on A's device).** The rows are put in level order once
   per sweep; each level's rows of the strictly triangular part, with
   their columns in that order, pack as one rectangular CWELL by the
@@ -28,9 +29,10 @@ schedules the substitutions by levels instead:
   U's diagonal with JAX's zero -> 1 rule for U.
 * **apply.** Per level, y[l] = (v[l] - N_l y) / d[l]: one
   ``kernels.spmv`` per pack (K4 in float32, K5 in float64) for a vector,
-  one ``kernels.spmm`` (K6/K7) for an (n, k) block; the forward sweep
-  over L's levels, then the backward sweep over U's, v permuted in once
-  and x out once. On CPU tensors the products take the plain versions.
+  one ``kernels.spmm`` (K6/K7) for an (n, k) block (their complex builds
+  for a complex factor); the forward sweep over L's levels, then the
+  backward sweep over U's, v permuted in once and x out once. On CPU
+  tensors the products take the plain versions.
 
 ``.to(torch.float32)`` casts the factors' values (JAX casts a
 ``Partial``'s float leaves for the mixed-precision sweeps); it does not
@@ -52,17 +54,21 @@ _NOT_DIA = ("ilu0 preconditioner requires a DIA (stencil) matrix; for "
             "general SPD patterns use 'fsai' (parallel apply) instead")
 
 
+_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
+
+
 def _check(A) -> None:
     """What the host factor needs: JAX's ValueError for a non-DIA
-    operand, a square matrix, float32 or float64 values (``_native.ilu0``
-    raises JAX's ValueError for a missing main diagonal)."""
+    operand, a square matrix, float32, float64, complex64 or complex128
+    values (``_native.ilu0`` raises JAX's ValueError for a missing main
+    diagonal)."""
     if not isinstance(A, DIA):
         raise ValueError(_NOT_DIA)
     if A.shape[0] != A.shape[1]:
         raise ValueError(f"ILU(0) needs a square matrix, got {A.shape}")
-    if A.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"ILU(0) factors float32 or float64 values, got "
-                        f"{A.dtype}")
+    if A.dtype not in _DTYPES:
+        raise TypeError(f"ILU(0) factors float32, float64, complex64 or "
+                        f"complex128 values, got {A.dtype}")
 
 
 def factor_host(A: DIA):

@@ -12,6 +12,9 @@ Counterpart of ``tpu_sparse/solvers/mixed.py`` (``refined_solve``,
         x += d                      (accepted only if it lowers ||r||)
     until ||r|| <= max(tol*||b||, atol)
 
+(complex128 outer, complex64 inner for a complex system: R12 repaired,
+see ``_inner_dtype``)
+
 followed by one full-precision rescue solve when the sweeps stall. On CUDA
 DIA operands the outer f64 residuals run the fp64 extended kernel and the
 inner f32 sweeps run the method's loop over the f32 extended operator. A
@@ -98,6 +101,15 @@ def _first_dtype(tree) -> torch.dtype:
     return tree_leaves(tree)[0].dtype
 
 
+def _inner_dtype(outer_dtype: torch.dtype) -> torch.dtype:
+    """The inner sweeps' dtype: complex64 for a complex outer system, else
+    float32. The JAX package casts the operator of a complex system to
+    float32 and drops its imaginary part (``solvers/mixed.py:52-53``),
+    which converges only by defect correction (ROADMAP R12); the port keeps
+    the imaginary part."""
+    return torch.complex64 if outer_dtype.is_complex else torch.float32
+
+
 def _make_df_operator(A, outer_dtype):
     """fp64 extended operator for the f64 outer system on CUDA, or None
     (the slot the double-f32 operator held in the JAX package)."""
@@ -136,15 +148,18 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
                   tol: float = 1e-8, atol: float = 0.0,
                   inner_tol: float = 1e-5, maxiter: Optional[int] = None,
                   max_sweeps: int = 6, M=None,
-                  inner_dtype=torch.float32,
+                  inner_dtype: Optional[torch.dtype] = None,
                   inner_maxiter: Optional[int] = None,
                   rescue_maxiter: Optional[int] = None, **inner_kwargs):
-    """Defect-correction refinement around an f32 inner Krylov solve.
+    """Defect-correction refinement around an f32 inner Krylov solve
+    (complex64 for a complex b; ``inner_dtype`` overrides).
 
     Returns (x, info, total_inner_iterations, residual_norm) in b's dtype.
     """
     A_fn = as_matvec(A)
     outer_dtype = _first_dtype(b)
+    if inner_dtype is None:
+        inner_dtype = _inner_dtype(outer_dtype)
     A_rescue = A
     df_op = _make_df_operator(A, outer_dtype)
     if df_op is not None:
@@ -303,7 +318,7 @@ def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
                         X0=None, *, tol: float = 1e-8, atol: float = 0.0,
                         inner_tol: float = 1e-5,
                         maxiter: Optional[int] = None, max_sweeps: int = 6,
-                        M=None, inner_dtype=torch.float32,
+                        M=None, inner_dtype: Optional[torch.dtype] = None,
                         inner_maxiter: Optional[int] = None,
                         rescue_maxiter: Optional[int] = None,
                         **inner_kwargs):
@@ -318,6 +333,8 @@ def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
 
     A_mm = as_matmat(A)
     outer_dtype = B.dtype
+    if inner_dtype is None:
+        inner_dtype = _inner_dtype(outer_dtype)
     A32 = _cast_operator(A, inner_dtype, outer_dtype)
     M32 = _cast_precond(M, inner_dtype)
     maxiter = 10 * B.shape[0] if maxiter is None else int(maxiter)

@@ -191,6 +191,7 @@ def gather_values(plan: CompactPlan, vals: torch.Tensor) -> torch.Tensor:
     padding."""
     with torch.no_grad():
         out = vals.reshape(-1).index_select(0, plan.src.clamp_min(0))
+        out = out.resolve_conj()  # the kernels read memory, not views
         out.masked_fill_(plan.src < 0, 0)
     COUNTS["value_gathers"] += 1
     return out
