@@ -111,7 +111,17 @@ counters set to 0 just before it and read just after:
   complex b (one cast of L); then the complex64 / complex128 builds of
   kernel 1, K4 / K5, K6/K7 and K8 against their plain versions at the
   160^3 shapes, timed beside their bounds and cuSPARSE's complex CSR
-  calls, and the complex solves beside the real ones.
+  calls, and the complex solves beside the real ones;
+* phase (29): bf16. CG (M None, Jacobi) on the bf16 copy of the 160^3
+  Poisson matrix (bf16-exact values) with cg_110M's float32 b, held to
+  the float32 plain extended loop (equal iterations, x within 1e-6);
+  BiCGStab and GMRES(20) on the bf16 convection-diffusion system; cg_sr;
+  CG on the bf16 CWELL; bf16 right-hand sides at tol 2e-2; batched CG
+  with B of 8 columns on the bf16 CWELL and kron BELL; refined_solve with
+  bf16 inner sweeps to 1e-8 in float64; a gradient in b; no values cast;
+  then every bf16 build of kernel 1 (both modes), K4, K6/K7 and K8
+  against its plain version at the 160^3 shapes, timed beside its bound,
+  its plain version and torch's bf16 CSR call where torch takes the pair.
 
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
@@ -910,6 +920,12 @@ def main() -> int:
     complex_phases(dev, b_main, note=note, counts=counts,
                    reset_counts=reset_counts, main_runs=main_runs,
                    times=times, cg_iters=solves, nonsym_iters=nonsym)
+    torch.cuda.empty_cache()
+
+    # ---- (29) bf16 -----------------------------------------------------
+    bf16_phases(dev, b_main, note=note, counts=counts,
+                reset_counts=reset_counts, main_runs=main_runs, times=times,
+                fused_ms=solve_times["cg f32 M=None (fused)"])
     del b_main
 
     # ---- results -----------------------------------------------------------
@@ -954,6 +970,26 @@ def main() -> int:
         "bell_spmm_c64": ("tpu_sparse_torch/csrc/bell_spmm.cu",
                           "tpu_sparse/kernels/pallas_bell.py:34"),
         "bell_spmm_c128": ("tpu_sparse_torch/csrc/bell_spmm.cu",
+                           "tpu_sparse/kernels/pallas_bell.py:34"),
+        # bf16 (phase 29): bf16 values with a float32 or a bf16 operand
+        "dia_spmv_bf16_f32": (src_spmv,
+                              "tpu_sparse/kernels/pallas_spmv.py:51"),
+        "dia_spmv_bf16": (src_spmv, "tpu_sparse/kernels/pallas_spmv.py:51"),
+        "dia_spmv_ext_bf16_f32": (src_spmv,
+                                  "tpu_sparse/kernels/pallas_spmv.py:279"),
+        "dia_spmv_ext_bf16": (src_spmv,
+                              "tpu_sparse/kernels/pallas_spmv.py:279"),
+        "cwell_spmv_bf16_f32": ("tpu_sparse_torch/csrc/cwell_spmv.cu",
+                                "tpu_sparse/kernels/pallas_cwell.py:48"),
+        "cwell_spmv_bf16": ("tpu_sparse_torch/csrc/cwell_spmv.cu",
+                            "tpu_sparse/kernels/pallas_cwell.py:48"),
+        "cwell_spmm_bf16_f32": ("tpu_sparse_torch/csrc/cwell_spmm.cu",
+                                "tpu_sparse/kernels/pallas_cwell.py:639"),
+        "cwell_spmm_bf16": ("tpu_sparse_torch/csrc/cwell_spmm.cu",
+                            "tpu_sparse/kernels/pallas_cwell.py:639"),
+        "bell_spmm_bf16_f32": ("tpu_sparse_torch/csrc/bell_spmm.cu",
+                               "tpu_sparse/kernels/pallas_bell.py:34"),
+        "bell_spmm_bf16": ("tpu_sparse_torch/csrc/bell_spmm.cu",
                            "tpu_sparse/kernels/pallas_bell.py:34"),
     }
     launches = {k: sum(run[k] for run in main_runs.values() if k in run)
@@ -3919,6 +3955,341 @@ def complex_phases(dev, b_main, *, note, counts, reset_counts, main_runs,
                      f"{t_c[0] / t_r[0]:.2f}")
         print(line, flush=True)
     print(f"  phase (28) wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def bf16_phases(dev, b_main, *, note, counts, reset_counts, main_runs,
+                times, fused_ms, nx=MAIN_NX, bell_nx=40, K=8):
+    """Phase (29): bf16. The main-path run, with the launch and cast
+    counters set to 0 just before it: CG on the bf16 copy of
+    L = poisson3d_27pt(nx) (its values 26 and -1 are bf16-exact, so it is
+    the same operator) with cg_110M's float32 b, M None and Jacobi, held
+    to the float32 plain extended loop (``cg_full`` over the float32
+    extended operator: the same iterations, x within 1e-6); BiCGStab and
+    GMRES(20) on the bf16 copy of the convection-diffusion system (not
+    bf16-exact: the true residual only); single-reduction CG (the general
+    path: kernel 1's plain mode); CG on the bf16 CWELL; a bf16 b at tol
+    2e-2 on the DIA (extended and plain modes) and on the CWELL; batched CG
+    with B of K columns, float32 and bf16, on the bf16 CWELL and the bf16
+    kron(poisson3d_27pt(bell_nx), C8) BELL; ``refined_solve`` with bf16
+    inner sweeps and a float64 outer to 1e-8; the gradient in b of the
+    bf16 DIA CG. No values cast (``kernels.CAST_COUNTS``). The counts are
+    read after that run; then each bf16 build against its plain version
+    at the 160^3 shapes (a float32 output within 1e-5 of max|y|, a bf16
+    output within one bf16 ulp of |y| plus 1e-6 of max|y|; with a float32
+    x, kernel 1 both modes and K4 against the float32 build bit for bit),
+    timed (CUDA events, median of 5) beside its bound, its plain version
+    and torch's bf16 CSR call where torch takes the pair, and the bf16 CG
+    timed beside the float32 plain loop and the fused float32 route
+    (``fused_ms``: phase (6)'s (median, min, max))."""
+    import torch
+
+    import tpu_sparse_torch
+    from tpu_sparse_torch import kernels as tk
+    from tpu_sparse_torch.api.solver import SolverResult
+    from tpu_sparse_torch.autodiff.implicit import _ext_loop
+    from tpu_sparse_torch.kernels import cuda_bell, cuda_cwell, cuda_spmv
+    from tpu_sparse_torch.kernels import reference as ref
+    from tpu_sparse_torch.kernels.spmm_probe import kron_bell
+    from tpu_sparse_torch.precond.jacobi import (DiagonalPreconditioner,
+                                                 jacobi_preconditioner)
+    from tpu_sparse_torch.solvers import cg_full
+    from tpu_sparse_torch.solvers.mixed import refined_solve
+    from tpu_sparse_torch.sparse import cwell_compact
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.sparse.convert import to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fmt(t):
+        return f"{t[0]:.4f} ms ({t[1]:.4f}-{t[2]:.4f})"
+
+    def true_rel(apply, b, x):
+        """Largest ||b - A x|| / ||b|| over the columns, in float32 by the
+        plain widened product (no kernel launch)."""
+        with torch.no_grad():
+            b, x = b.float(), x.float()
+            r = torch.linalg.vector_norm(b - apply(x), dim=0)
+            return float((r / torch.linalg.vector_norm(b, dim=0)).max())
+
+    phase(f"(29) main path: bf16: CG / BiCGStab / GMRES(20) / cg_sr on the "
+          f"bf16 copies of the {nx}^3 systems with float32 and bf16 b, the "
+          f"bf16 CWELL and kron BELL with B of {K} columns, refined_solve "
+          f"with bf16 sweeps, a gradient in b")
+    L = gen.poisson3d_27pt(nx, device=dev)
+    n = L.shape[0]
+    A = L.with_data(L.data.to(bf))
+    check(torch.equal(A.data.float(), L.data), "poisson3d_27pt's values "
+          "are not bf16-exact")
+    C = gen.convection_diffusion_3d_27pt(nx, device=dev)
+    C_bf = C.with_data(C.data.to(bf))
+    x8 = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        n).astype(np.float32)).to(dev)
+    b_cd = C @ x8  # phase (8)'s b (set-up: not counted)
+    del C
+    W = csr_to_cwell(to_csr(A))
+    check(W.vals.dtype == bf, "the CWELL of a bf16 DIA is not bf16")
+    bell32, _, _ = kron_bell(dev, bell_nx, np.random.default_rng(SEED))
+    bell = bell32.with_data(bell32.blocks.to(bf))
+    del bell32
+    rng = np.random.default_rng(SEED + 29)
+    Bk = torch.from_numpy(rng.standard_normal((n, K)).astype(
+        np.float32)).to(dev)
+    Bb = torch.from_numpy(rng.standard_normal((bell.shape[0], K)).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    L64 = L.with_data(L.data.double())
+    b64 = b_main.double()
+    # the yardsticks (not counted): the float32 plain extended loop on the
+    # same b, with M None and with the bf16 Jacobi diagonal widened
+    kw6 = dict(tol=1e-6, atol=0.0, maxiter=None)
+    op32 = cuda_spmv.ExtendedStencilOperator(L)
+    dinv = jacobi_preconditioner(A).dinv
+    yard = {M: _ext_loop("cg", kw6, op32, b_main, None, Mx)
+            for M, Mx in ((None, None),
+                          ("jacobi", DiagonalPreconditioner(dinv.float())))}
+    v_ref = _ext_loop("cg", kw6, op32, w, None, None)[0]
+    sync()
+    print(f"  n={n}: bf16 DIA {A.data.numel() * 2 / 1e6:.1f} MB of data "
+          f"(float32 {L.data.numel() * 4 / 1e6:.1f}); bf16 CWELL "
+          f"S={W.srow.shape[1]}; kron BELL n={bell.shape[0]} "
+          f"{bell.blocks.numel()} bf16 block values; float32 plain "
+          f"extended loop: {int(yard[None][2])} it (M None), "
+          f"{int(yard['jacobi'][2])} it (Jacobi)", flush=True)
+
+    # -- the main-path run: every launch from here to the read counts
+    solver = tpu_sparse_torch.SparseSolver()
+    solve = solver.solve
+    reset_counts()
+    tk.reset_cast_counts()
+    out = {}
+
+    def run(label, call, rel, bound):
+        before = counts()
+        t0 = time.perf_counter()
+        x, res = call()
+        sync()
+        wall = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        rr = rel(x)
+        out[label] = (res, x)
+        print(f"  {label}: {res}; true rel res {rr:.2e}; first call "
+              f"{wall * 1e3:.1f} ms wall; launches {grew}", flush=True)
+        check(res.converged, f"{label} did not converge")
+        check(rr <= bound, f"{label}: true relative residual {rr} > "
+              f"{bound}")
+        return x, res
+
+    def on(M_):
+        return lambda x: ref.dia_spmv_wide(M_, x) if x.dim() == 1 \
+            else torch.stack([ref.dia_spmv_wide(M_, x[:, j])
+                              for j in range(x.shape[1])], 1)
+
+    def on_bell(X):
+        return ref.bell_spmm_wide(bell, X)
+
+    for M in (None, "jacobi"):
+        x, res = run(f"cg bf16 values, float32 b, M={M}",
+                     lambda: solve(A, b_main, method="cg", tol=1e-6, M=M),
+                     lambda x: true_rel(on(A), b_main, x), 1e-5)
+        xr, _, itr, _ = yard[M]
+        e = rel_err(x, xr)
+        print(f"    the float32 plain extended loop: {int(itr)} it; x "
+              f"rel err {e:.2e}; bit for bit: {torch.equal(x, xr)}",
+              flush=True)
+        check(res.iterations == int(itr), f"bf16 CG M={M} took "
+              f"{res.iterations} it, the float32 loop {int(itr)}")
+        check(e <= 1e-6, f"bf16 CG M={M}: x off the float32 loop's by {e}")
+    for method, kw in (("bicgstab", {}), ("gmres", dict(restart=20))):
+        run(f"{method} bf16 values on the convection-diffusion system",
+            lambda: solve(C_bf, b_cd, method=method, tol=1e-6,
+                          maxiter=500, **kw),
+            lambda x: true_rel(on(C_bf), b_cd, x), 1e-5)
+    run("cg_sr bf16 values (general path, kernel 1 plain mode)",
+        lambda: solve(A, b_main, method="cg_sr", tol=1e-6, maxiter=500),
+        lambda x: true_rel(on(A), b_main, x), 1e-5)
+    x, res = run("cg bf16 CWELL, float32 b",
+                 lambda: solve(W, b_main, method="cg", tol=1e-6,
+                               maxiter=500),
+                 lambda x: true_rel(on(A), b_main, x), 1e-5)
+    check(abs(res.iterations - out["cg bf16 values, float32 b, M=None"][0]
+              .iterations) <= 2, "bf16 CG on the CWELL strays from the DIA")
+    bh = b_main.to(bf)
+    for label, op_, method in (("DIA", A, "cg"), ("DIA", A, "cg_sr"),
+                               ("CWELL", W, "cg")):
+        run(f"{method} bf16 b on the bf16 {label} (tol 2e-2)",
+            lambda: solve(op_, bh, method=method, tol=2e-2, maxiter=500),
+            lambda x: true_rel(on(A), bh, x), 2e-1)
+    for label, op_, B_, apply in (("CWELL", W, Bk, on(A)),
+                                  ("kron BELL", bell, Bb, on_bell)):
+        run(f"cg batched float32 B {K} on the bf16 {label}",
+            lambda: solve(op_, B_, method="cg", multi_rhs="batch",
+                          tol=1e-6, maxiter=500),
+            lambda X: true_rel(apply, B_, X), 1e-5)
+        run(f"cg batched bf16 B {K} on the bf16 {label} (tol 2e-2)",
+            lambda: solve(op_, B_.to(bf), method="cg", multi_rhs="batch",
+                          tol=2e-2, maxiter=500),
+            lambda X: true_rel(apply, B_, X), 2e-1)
+
+    def refined():
+        x, info, it, res = refined_solve(
+            cg_full, L64, b64, tol=1e-8, inner_dtype=bf, inner_tol=1e-2,
+            inner_maxiter=500, max_sweeps=10)
+        return x, SolverResult(x, int(info) == 0, int(it),
+                               float(res / b64.norm()), "krylov",
+                               "cg_refined")
+
+    run("refined_solve: bf16 inner CG sweeps, float64 outer, tol 1e-8",
+        refined, lambda x: float((b64 - ref.dia_spmv(L64, x)).norm()
+                                 / b64.norm()), 1e-8)
+    bg = b_main.clone().requires_grad_()
+    x, res = solve(A, bg, method="cg", tol=1e-6, precision="full")
+    (w * x).sum().backward()
+    e_g = rel_err(bg.grad, v_ref)
+    print(f"  gradient in b of the bf16 CG ({res.iterations} it): against "
+          f"the float32 plain loop's adjoint solve rel err {e_g:.2e}",
+          flush=True)
+    check(res.converged and e_g <= 1e-6, "the bf16 gradient in b is off")
+    del bg, x
+    sync()
+    main_runs["phase (29)"] = counts()
+    casts = tk.CAST_COUNTS["values_casts"]
+    print(f"  main-path launches in phase (29): {main_runs['phase (29)']}; "
+          f"values casts {casts}", flush=True)
+    keys = ("dia_spmv_bf16", "dia_spmv_bf16_f32", "dia_spmv_ext_bf16",
+            "dia_spmv_ext_bf16_f32", "cwell_spmv_bf16",
+            "cwell_spmv_bf16_f32", "cwell_spmm_bf16", "cwell_spmm_bf16_f32",
+            "bell_spmm_bf16", "bell_spmm_bf16_f32")
+    for k in keys:
+        check(main_runs["phase (29)"][k] > 0,
+              f"phase (29): {k} was not launched on the main path")
+    check(casts == 0, f"phase (29) cast matrix values {casts} times")
+
+    # -- each bf16 build against its plain version at the 160^3 shapes
+    csr = to_csr(A)
+    W32 = W.with_data(W.vals.float())
+    x32 = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        dev)
+    op = cuda_spmv.ExtendedStencilOperator(A)
+
+    def lib_for(csr_):
+        return torch.sparse_csr_tensor(csr_.indptr, csr_.indices, csr_.data,
+                                       size=csr_.shape)
+
+    def kernel_row(key, kernel, plain, lib_call, nbytes, flops, same=None):
+        y1, y0 = kernel(), plain()
+        err = float((y1.float() - y0.float()).abs().max())
+        scale = float(y0.float().abs().max())
+        if y0.dtype == bf:
+            ok = bool(torch.all((y1.float() - y0.float()).abs()
+                                <= 2.0 ** -7 * y0.float().abs()
+                                + 1e-6 * scale))
+        else:
+            ok = err <= 1e-5 * scale
+        check(ok, f"{key} disagrees with its plain version: {err} of "
+              f"{scale}")
+        bits = "" if same is None else \
+            f"; == the float32 build bit for bit: {torch.equal(y1, same())}"
+        del y1, y0
+        t_k = times(kernel, 10)
+        t_p = times(plain, 1)
+        lib_ms, lib_note = None, ""
+        try:
+            e_lib = rel_err(lib_call().float(), plain().float())
+            # torch's bf16 products may sum in bf16: a looser bar
+            check(e_lib <= 1e-1, f"torch's bf16 call beside {key} computes "
+                  "another function")
+            t_l = times(lib_call, 10)
+            lib_ms = t_l[0]
+            lib_note = f"torch bf16 CSR {fmt(t_l)} (rel err {e_lib:.1e})"
+        except (RuntimeError, TypeError, NotImplementedError) as exc:
+            lib_note = f"torch none ({str(exc).splitlines()[0][:120]})"
+        t_bytes = nbytes / 3.35e12 * 1e3
+        t_ops = flops / 67e12 * 1e3
+        bound = max(t_bytes, t_ops)
+        note(key, max_abs_err=err, ms=t_k[0], plain_ms=t_p[0],
+             library_ms=lib_ms, bound_ms=bound,
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+        print(f"  {key}: kernel {fmt(t_k)}; bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {bound / t_k[0]:.2f} of it); plain "
+              f"{fmt(t_p)}; {lib_note}; max abs err {err:.2e} (max|y| "
+              f"{scale:.2e}){bits}", flush=True)
+
+    lib = lib_for(csr)
+    spmv = cuda_spmv.dia_spmv_cuda if cuda else cuda_spmv.dia_spmv
+    nd = len(A.offsets)
+    for x_, sfx in ((x32, "bf16_f32"), (x32.to(bf), "bf16")):
+        s = x_.element_size()
+        kernel_row(f"dia_spmv_{sfx}", lambda: spmv(A, x_),
+                   lambda: ref.dia_spmv_wide(A, x_),
+                   lambda: torch.mv(lib, x_), nd * n * 2 + 2 * n * s,
+                   2 * L.nnz,
+                   (lambda: spmv(L, x_)) if sfx == "bf16_f32" else None)
+        xe = op.extend(x_)
+        ext = op.apply_cuda if cuda else op
+        kernel_row(f"dia_spmv_ext_{sfx}", lambda: ext(xe),
+                   lambda: op.apply_plain(xe),
+                   lambda: op.extend(torch.mv(lib, x_)),
+                   nd * n * 2 + 2 * op.E * s, 2 * L.nnz,
+                   (lambda: op32(op32.extend(x_))) if sfx == "bf16_f32"
+                   else None)
+    plan, cvals = cwell_compact.compact(W)
+    nb, S = W.srow.shape
+    slots = plan.slots * (2 + plan.idx.element_size()) \
+        + plan.boff.numel() * 8 + nb * S * 4
+    k4 = cuda_cwell.cwell_spmv_cuda if cuda else cuda_cwell.cwell_spmv
+    for x_, sfx in ((x32, "bf16_f32"), (x32.to(bf), "bf16")):
+        kernel_row(f"cwell_spmv_{sfx}", lambda: k4(W, x_),
+                   lambda: ref.cwell_compact_spmv(plan, cvals, x_),
+                   lambda: torch.mv(lib, x_),
+                   slots + 2 * n * x_.element_size(), 2 * W.nnz,
+                   (lambda: k4(W32, x_)) if sfx == "bf16_f32" else None)
+    k6 = cuda_cwell.cwell_spmm_cuda if cuda else cuda_cwell.cwell_spmm
+    for B_, sfx in ((Bk, "bf16_f32"), (Bk.to(bf), "bf16")):
+        kernel_row(f"cwell_spmm_{sfx}", lambda: k6(W, B_),
+                   lambda: ref.cwell_compact_spmm(plan, cvals, B_),
+                   lambda: torch.sparse.mm(lib, B_),
+                   slots + 2 * n * K * B_.element_size(), 2 * W.nnz * K)
+        Y = k6(W, B_)
+        same = all(torch.equal(Y[:, j], k4(W, B_[:, j].contiguous()))
+                   for j in range(K))
+        print(f"  cwell_spmm_{sfx}: every column == K4 bit for bit: {same}")
+        if cuda:
+            check(same, f"cwell_spmm_{sfx}: a column differs from K4")
+        del Y
+    del lib, plan, cvals, W32
+    bell_csr = to_csr(bell)
+    lib = lib_for(bell_csr)
+    k8 = cuda_bell.bell_spmm_cuda if cuda else cuda_bell.bell_spmm
+    for B_, sfx in ((Bb, "bf16_f32"), (Bb.to(bf), "bf16")):
+        kernel_row(f"bell_spmm_{sfx}", lambda: k8(bell, B_),
+                   lambda: ref.bell_spmm_wide(bell, B_),
+                   lambda: torch.sparse.mm(lib, B_),
+                   bell.blocks.numel() * 2 + bell.indices.numel() * 4
+                   + 2 * bell.shape[0] * K * B_.element_size(),
+                   2 * bell.blocks.numel() * K)
+    del lib, bell_csr
+
+    # -- the bf16 CG beside the float32 plain loop and the fused route
+    rows = {"bf16 values (extended loop, kernel 1 bf16_f32)":
+            lambda: solve(A, b_main, method="cg", tol=1e-6),
+            "float32 plain extended loop":
+            lambda: _ext_loop("cg", kw6, op32, b_main, None, None)}
+    t_solve = {label: times(call, 1, reps=3, warmup=0)
+               for label, call in rows.items()}
+    for label, t in t_solve.items():
+        print(f"  solve cg {label:48s} {fmt(t)}", flush=True)
+    print(f"  solve cg {'float32 fused route (phase 6)':48s} "
+          f"{fmt(fused_ms)}", flush=True)
+    print(f"  phase (29) wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

@@ -258,3 +258,22 @@ def test_native_loader_builds_per_process_and_forgets_failures(
         (tmp_path / "fresh").glob("host-*/*.so"))
     monkeypatch.delenv("CXX")
     assert _native.l1_row_norms([0, 2], [-1.0, 2.0]).tolist() == [3.0]
+
+
+def test_amg_bf16_operand_sets_up_on_the_host():
+    """A bf16 matrix crosses to the host set-up as float32 (numpy has no
+    bf16) and its levels are packed in bf16, as JAX packs them in the
+    operand's dtype; backend='amg' converges, where it raised TypeError."""
+    import tpu_sparse_torch
+
+    A = jgen.poisson2d(12, dtype=np.float32)
+    At = dia_from_numpy(np.asarray(A.data), A.offsets, A.shape,
+                        device="cpu")
+    At = At.with_data(At.data.to(torch.bfloat16))
+    hier = tamg.amg_setup(At)
+    assert hier.coarse_inv.dtype == torch.bfloat16
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        144).astype(np.float32))
+    for rhs in (b, b.to(torch.bfloat16)):
+        x, res = tpu_sparse_torch.solve(At, rhs, method="amg", tol=1e-2)
+        assert res.converged and x.dtype == rhs.dtype

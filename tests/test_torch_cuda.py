@@ -39,7 +39,13 @@ CPU's host SuperLU; gradients within 1e-10 / 1e-4 of the CPU's. ILU(0):
 the card's factor equal to the CPU's (the same host code), one apply
 (K4 / K5 per level pack) and a block apply (K6/K7) within 1e-12 (f64) /
 1e-5 (f32) of the CPU's plain sweeps; ILU-preconditioned solves on the
-card against the CPU with the slack and x tolerances above.
+card against the CPU with the slack and x tolerances above. bf16 builds
+(kernel 1 both modes, K4, K6/K7, K8): a float32 output within 1e-5 of
+max|y| of the plain version (``reference.dia_spmv_wide`` / the compact
+versions / ``bell_spmm_wide``), a bf16 output within one bf16 ulp of |y|
+element-wise plus 1e-6 of max|y| (the float32 sums round differently
+near ties); on bf16-exact values with a float32 operand equal to the
+float32 build bit for bit; K6/K7 columns equal to K4 bit for bit.
 """
 
 import numpy as np
@@ -100,8 +106,8 @@ def test_dia_spmv_kernel_rectangular_and_refusals(dev):
         cuda_spmv.dia_spmv_cuda(wide, torch.ones(80, device=dev,
                                                  dtype=torch.float64))
     with pytest.raises(TypeError):
-        cuda_spmv.dia_spmv_cuda(A.with_data(A.data.to(torch.bfloat16)),
-                                x.to(torch.bfloat16))
+        cuda_spmv.dia_spmv_cuda(A.with_data(A.data.to(torch.float16)),
+                                x.to(torch.float16))
 
 
 @pytest.mark.parametrize("jacobi", [False, True])
@@ -1657,3 +1663,196 @@ def test_complex_direct_and_gradient_on_card(dev):
         grads.append((vals.grad.cpu(), bw.grad.cpu()))
     assert _rel(grads[0][0], grads[1][0]) <= 1e-8
     assert _rel(grads[0][1], grads[1][1]) <= 1e-8
+
+
+# ---- bf16: kernel 1 (both modes), K4, K6/K7 and K8 on bf16 values with a
+# float32 or a bf16 operand, and bf16 solves on the card -----------------
+
+
+def _bf16_close(y, y0, scale=None):
+    """A bf16 output against its plain version: within one bf16 ulp of
+    |y0| element-wise, plus 1e-6 of max|y0| where sums cancel."""
+    y, y0 = y.float(), y0.float()
+    scale = float(y0.abs().max()) if scale is None else scale
+    return bool(torch.all((y - y0).abs()
+                          <= 2.0 ** -7 * y0.abs() + 1e-6 * scale))
+
+
+def _bf16_exact(t):
+    return t.to(torch.bfloat16).float()
+
+
+def test_bf16_dia_spmv_kernels_match_plain(dev):
+    rng = np.random.default_rng(30)
+    A = gen.poisson3d_27pt(13, 11, 7, dtype=np.float32, device="cpu")
+    A = A.with_data(torch.from_numpy(rng.standard_normal(
+        tuple(A.data.shape)).astype(np.float32)).to(torch.bfloat16)).to(dev)
+    x32 = torch.from_numpy(rng.standard_normal(A.shape[1]).astype(
+        np.float32)).to(dev)
+    op = cuda_spmv.ExtendedStencilOperator(A)
+    A32 = A.with_data(A.data.float())
+    op32 = cuda_spmv.ExtendedStencilOperator(A32)
+    for x, sfx in ((x32, "bf16_f32"), (x32.to(torch.bfloat16), "bf16")):
+        before = dict(cuda_spmv.LAUNCHES)
+        y = cuda_spmv.dia_spmv_cuda(A, x)
+        ye = op.extract(op(op.extend(x)))
+        assert cuda_spmv.LAUNCHES["dia_spmv_" + sfx] == \
+            before["dia_spmv_" + sfx] + 1
+        assert cuda_spmv.LAUNCHES["dia_spmv_ext_" + sfx] == \
+            before["dia_spmv_ext_" + sfx] + 1
+        y0 = ref.dia_spmv_wide(A, x)
+        assert y.dtype == ye.dtype == x.dtype == y0.dtype
+        if sfx == "bf16":
+            assert _bf16_close(y, y0) and _bf16_close(ye, y0)
+        else:
+            assert _rel(y, y0) <= 1e-5 and _rel(ye, y0) <= 1e-5
+            # the data widened in registers: the float32 build's bits
+            assert torch.equal(y, cuda_spmv.dia_spmv_cuda(A32, x))
+            assert torch.equal(ye, op32.extract(op32(op32.extend(x))))
+        assert torch.equal(y, cuda_spmv.dia_spmv_cuda(A, x))
+    with pytest.raises(TypeError, match="bfloat16 / float32"):
+        cuda_spmv.dia_spmv_cuda(A, x32.double())
+    assert cuda_cg.make_fused_operator(A) is None  # JAX's fused CG refuses
+
+
+@pytest.mark.parametrize("n,m,per_row,group,wide", [
+    (3000, 2500, 8, 1, False), (1001, 777, 7, 2, False),
+    (300, 600, 4, 1, True)])
+def test_bf16_cwell_kernels_match_plain(dev, n, m, per_row, group, wide):
+    """K4 and K6/K7 on bf16 values (and K6/K7 on a bf16 B) against the
+    compact plain versions; every K6/K7 column equal to K4 bit for bit;
+    on bf16-exact values the float32 builds' bits. The wide case has a
+    row of 600 nonzeros, so its block stages in pieces and a bf16 Y
+    carries its sums through the float32 workspace."""
+    from tpu_sparse_torch.sparse import cwell_compact
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    C = _random_csr(n, m, per_row, np.float32, 31)
+    if wide:
+        Ad = C.todense()
+        Ad[5] = torch.arange(1, m + 1).float() / m - 0.3
+        C = dense_to_csr(Ad)
+    W32 = csr_to_cwell(C.with_data(_bf16_exact(C.data)).to(dev), group=group)
+    W = W32.with_data(W32.vals.to(torch.bfloat16))
+    plan, cvals = cwell_compact.compact(W)
+    assert plan.wide == wide and cvals.dtype == torch.bfloat16
+    rng = np.random.default_rng(32)
+    x32 = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(dev)
+    before = dict(cuda_cwell.LAUNCHES)
+    for x, sfx in ((x32, "bf16_f32"), (x32.to(torch.bfloat16), "bf16")):
+        y = cuda_cwell.cwell_spmv_cuda(W, x)
+        y0 = ref.cwell_compact_spmv(plan, cvals, x)
+        assert y.dtype == y0.dtype == x.dtype
+        if sfx == "bf16":
+            assert _bf16_close(y, y0)
+        else:
+            assert _rel(y, y0) <= 1e-5
+            assert torch.equal(y, cuda_cwell.cwell_spmv_cuda(W32, x))
+        assert torch.equal(y, cuda_cwell.cwell_spmv_cuda(W, x))
+    for sfx in ("bf16", "bf16_f32"):
+        assert cuda_cwell.LAUNCHES["cwell_spmv_" + sfx] == \
+            before["cwell_spmv_" + sfx] + 2
+    for k in (1, 3, 8):
+        B32 = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).to(dev)
+        Bh = B32.to(torch.bfloat16)
+        for Wk, B in ((W, B32), (W, Bh), (W32, Bh)):
+            Y = cuda_cwell.cwell_spmm_cuda(Wk, B)
+            pk, ck = cwell_compact.compact(Wk)
+            Y0 = ref.cwell_compact_spmm(pk, ck, B)
+            assert Y.dtype == Y0.dtype
+            if Y.dtype == torch.bfloat16:
+                assert _bf16_close(Y, Y0)
+            else:
+                assert _rel(Y, Y0) <= 1e-5
+            for j in range(k):
+                xj = B[:, j].contiguous()
+                if Wk is W32:  # K4 has no float32 / bf16 build: x widened
+                    xj = xj.float()
+                assert torch.equal(Y[:, j], cuda_cwell.cwell_spmv_cuda(Wk,
+                                                                       xj))
+    for sfx in ("bf16", "bf16_f32", "f32_bf16"):
+        assert cuda_cwell.LAUNCHES["cwell_spmm_" + sfx] == \
+            before["cwell_spmm_" + sfx] + 3
+    with pytest.raises(TypeError, match="float64"):
+        cuda_cwell.cwell_spmv_cuda(W, x32.double())
+
+
+@pytest.mark.parametrize("nb,bs,pad,k", [(40, 8, 0, 8), (30, 3, 1, 5),
+                                         (12, 16, 2, 130), (6, 64, 1, 3)])
+def test_bf16_bell_spmm_kernel_matches_plain(dev, nb, bs, pad, k):
+    from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
+    from tpu_sparse_torch.sparse.convert import dense_to_csr
+
+    Ad = _bf16_exact(torch.from_numpy(_block_dense(nb, bs, 0.3, nb + bs)
+                                      .astype(np.float32)))
+    S = csr_to_bsr(dense_to_csr(Ad.to(dev)), bs)
+    A32 = bsr_to_bell(S, ell_width=int(torch.diff(S.indptr.long()).max())
+                      + pad)
+    A = A32.with_data(A32.blocks.to(torch.bfloat16))
+    B32 = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (nb * bs, k)).astype(np.float32)).to(dev)
+    for B, sfx in ((B32, "bf16_f32"), (B32.to(torch.bfloat16), "bf16")):
+        before = cuda_bell.LAUNCHES["bell_spmm_" + sfx]
+        Y = cuda_bell.bell_spmm_cuda(A, B)
+        assert cuda_bell.LAUNCHES["bell_spmm_" + sfx] == before + 1
+        Y0 = ref.bell_spmm_wide(A, B)
+        assert Y.dtype == B.dtype == Y0.dtype
+        if sfx == "bf16":
+            assert _bf16_close(Y, Y0)
+        else:
+            assert _rel(Y, Y0) <= 1e-5
+            assert torch.equal(Y, cuda_bell.bell_spmm_cuda(A32, B))
+        assert torch.equal(Y, cuda_bell.bell_spmm_cuda(A, B))
+    with pytest.raises(TypeError, match="bfloat16 / float32"):
+        cuda_bell.bell_spmm_cuda(A, B32.double())
+    # a single-RHS matvec runs K4's bf16 build on the bf16 CWELL repack
+    from tpu_sparse_torch import kernels
+
+    before = cuda_cwell.LAUNCHES["cwell_spmv_bf16_f32"]
+    y = kernels.spmv(A, B32[:, 0].contiguous())
+    assert cuda_cwell.LAUNCHES["cwell_spmv_bf16_f32"] == before + 1
+    assert _rel(y, ref.bell_spmm_wide(A, B32[:, :1])[:, 0]) <= 1e-5
+
+
+def test_bf16_solves_on_card(dev):
+    """solve() on a bf16 DIA with a float32 b takes the extended route
+    (kernel 1's bf16 extended build; the fused kernels refuse bf16) and,
+    the Poisson values being bf16-exact, takes the float32 loop's
+    iterations with x within 1e-6; a bf16 b, the CWELL pack and (n, 3)
+    right-hand sides run their bf16 builds; no values cast anywhere."""
+    from tpu_sparse_torch import kernels
+    from tpu_sparse_torch.autodiff import implicit
+    from tpu_sparse_torch.sparse import convert as conv
+    from tpu_sparse_torch.sparse.cwell import csr_to_cwell
+
+    A32 = gen.poisson3d_27pt(24, dtype=np.float32, device=dev)
+    A = A32.with_data(A32.data.to(torch.bfloat16))
+    b = torch.from_numpy(np.random.default_rng(33).standard_normal(
+        A.shape[0]).astype(np.float32)).to(dev)
+    kernels.reset_cast_counts()
+    cuda_spmv.reset_launch_counts()
+    x, r = tpu_sparse_torch.solve(A, b, method="cg", tol=1e-6)
+    assert cuda_spmv.LAUNCHES["dia_spmv_ext_bf16_f32"] > 0
+    op32 = cuda_spmv.ExtendedStencilOperator(A32)
+    xr, info, it, _ = implicit._ext_loop("cg", dict(tol=1e-6, atol=0.0,
+                                                    maxiter=None),
+                                         op32, b, None, None)
+    assert r.converged and int(info) == 0 and r.iterations == int(it)
+    assert _rel(x, xr) <= 1e-6
+    for method in ("bicgstab", "gmres"):
+        _, r = tpu_sparse_torch.solve(A, b, method=method, tol=1e-5,
+                                      M="jacobi")
+        assert r.converged
+    xh, rh = tpu_sparse_torch.solve(A, b.to(torch.bfloat16), tol=2e-2)
+    assert xh.dtype == torch.bfloat16 and rh.converged
+    W = csr_to_cwell(conv.to_csr(A))
+    assert W.vals.dtype == torch.bfloat16
+    cuda_cwell.reset_launch_counts()
+    xw, rw = tpu_sparse_torch.solve(W, b, method="cg", tol=1e-5)
+    assert rw.converged and cuda_cwell.LAUNCHES["cwell_spmv_bf16_f32"] > 0
+    B = torch.stack([b, 2 * b, -b], 1)
+    X, rB = tpu_sparse_torch.solve(W, B, method="cg", tol=1e-5)
+    assert rB.converged and cuda_cwell.LAUNCHES["cwell_spmm_bf16_f32"] > 0
+    assert kernels.CAST_COUNTS["values_casts"] == 0

@@ -282,3 +282,35 @@ def test_ldc_direct_matches_jax():
         assert a.shape == b.shape and a.dtype == b.dtype == np.float64
         assert float(np.abs(a - b).max()) <= 1e-8, name
     assert st["pressure_iters_total"] == 0 and st["mass_residual"] < 1e-6
+
+
+@pytest.mark.parametrize("kind", ["banded", "dense", "host_splu"])
+def test_direct_bf16_operand(kind, monkeypatch):
+    """method='direct' on bf16 values: the host loops and SuperLU take the
+    operands as float32 (numpy has no bf16), torch's dense solve runs in
+    float32 (it has no bf16 LU), and x comes back in bf16; ``converged``
+    follows R11's 1e-4 rule for non-float64, as in JAX. It raised
+    TypeError before."""
+    from tpu_sparse_torch.sparse.containers import values, with_values
+
+    n = 64
+    rng = np.random.default_rng(9)
+    if kind == "banded":
+        A = tconv.dia_from_numpy(np.stack([-np.ones(n), 4 * np.ones(n),
+                                           -np.ones(n)]).astype(np.float32),
+                                 (-1, 0, 1), (n, n), device="cpu")
+    else:
+        S = (sp.random(n, n, 0.1, random_state=9, dtype=np.float32)
+             + 8 * sp.identity(n, dtype=np.float32)).tocsr()
+        A = tconv.csr_from_arrays(S.data, S.indices, S.indptr, (n, n),
+                                  device="cpu")
+        if kind == "host_splu":
+            monkeypatch.setattr(td, "_DENSE_DIRECT_LIMIT", 16)
+    A = with_values(A, values(A).to(torch.bfloat16))
+    b = torch.from_numpy(rng.standard_normal(n).astype(
+        np.float32)).to(torch.bfloat16)
+    x, res = tpu_sparse_torch.solve(A, b, method="direct")
+    assert x.dtype == torch.bfloat16 and res.converged is False
+    Ad = A.todense().float()
+    assert float(torch.linalg.vector_norm(b.float() - Ad @ x.float())
+                 / torch.linalg.vector_norm(b.float())) <= 2e-2

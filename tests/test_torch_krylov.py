@@ -119,3 +119,30 @@ def test_cg_refined_matches_jax(name, jacobi):
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-8,
                                atol=1e-8 * float(np.max(np.abs(xj))))
     assert float(rt) <= 1e-10 * float(np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("gmres", dict(solve_method="batched")),
+    ("gmres", dict(solve_method="incremental")), ("fgmres", {})])
+@pytest.mark.parametrize("cols", [None, 2])
+def test_bf16_gmres_least_squares_in_float32(method, kw, cols):
+    """torch has no bf16 QR or triangular solve: a bf16 GMRES / FGMRES
+    cycle solves its least squares in float32 and rounds y to bf16
+    (single and batched), where it raised NotImplementedError."""
+    import tpu_sparse_torch
+
+    A = jgen.poisson2d(8, dtype=np.float32)
+    At = dia_from_numpy(np.asarray(A.data), A.offsets, A.shape,
+                        device="cpu")
+    At = At.with_data(At.data.to(torch.bfloat16))
+    rng = np.random.default_rng(7)
+    shape = (64,) if cols is None else (64, cols)
+    b = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16)
+    x, res = tpu_sparse_torch.solve(At, b, method=method, tol=1e-2,
+                                    maxiter=200, **kw)
+    assert x.dtype == torch.bfloat16 and x.shape == b.shape
+    assert res.converged
+    r = b.float() - torch.from_numpy(np.array(A.todense())) @ x.float()
+    assert float(torch.linalg.vector_norm(r, dim=0).max()
+                 / torch.linalg.vector_norm(b.float(), dim=0).min()) <= 0.1

@@ -236,3 +236,24 @@ def test_as_matmat_applies_each_kind_of_operator():
                     (M, M.dinv[:, None] * V), (None, V)):
         torch.testing.assert_close(as_matmat(op)(V), ref, rtol=1e-13,
                                    atol=1e-13)
+
+
+def test_batch_cg_bf16_columns_equal_single_solves():
+    """A bf16 column dot takes exact products summed in float32, as the
+    single-RHS loop's ``torch.vdot`` does: every column of a batched bf16
+    CG equals its own single solve (products rounded to bf16 first took
+    other iterations)."""
+    import tpu_sparse_torch
+
+    A = jgen.poisson2d(8, dtype=np.float32)
+    At = tconvert.dia_from_numpy(np.asarray(A.data), A.offsets, A.shape,
+                                 device="cpu")
+    At = At.with_data(At.data.to(torch.bfloat16))
+    B = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (64, 3)).astype(np.float32)).to(torch.bfloat16)
+    X, infos, iters, _ = batched.batch_cg(At, B, tol=1e-2)
+    for j in range(3):
+        x, res = tpu_sparse_torch.solve(At, B[:, j].contiguous(),
+                                        method="cg", tol=1e-2)
+        assert torch.equal(X[:, j], x)
+        assert int(iters[j]) == res.iterations

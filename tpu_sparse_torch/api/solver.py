@@ -13,6 +13,9 @@ CUDA fast paths for square DIA systems (M None or Jacobi):
 * float32 ``b`` on CUDA, cg / bicgstab / gmres: ``autodiff.implicit.
   ext_run`` (fused CG kernels, K10 for bicgstab without x0 and M, else the
   method's loop over kernel 1);
+* bf16 data with a float32 or bf16 ``b`` on CUDA, cg / bicgstab / gmres:
+  ``ext_run`` too, where the fused kernels refuse bf16 (as JAX's do) and
+  the method's loop runs over kernel 1's bf16 extended builds;
 * float64 ``b``, ``precision="auto"`` (tol >= 1e-12), every method:
   defect correction (``solvers.mixed.*_refined``), f32 inner sweeps over
   the extended operator and f64 outer residuals by the fp64 kernel on
@@ -60,6 +63,14 @@ runs the complex build of the kernel its container takes (kernel 1, K4 /
 K5, K6/K7, K8). A real matrix with a complex b is cast to b's dtype
 once per solve (``_promote_operand``), so no matvec casts.
 
+bf16 operands solve as the JAX package runs them: a bf16 matrix with a
+float32 b solves in float32 (b promoted to the common dtype) over the
+bf16 builds of the kernels, with no values cast; a bf16 b with bf16
+values solves in bf16; a square bf16 DIA takes the extended route above
+(JAX ``:399-407``); ``precision='auto'`` stays 'full'. A bf16 matrix
+with a float64 or complex b is cast once per solve, as a real one with a
+complex b.
+
 The JAX ``jit``/``lru_cache`` wrappers are plain calls here. Unknown
 names raise the JAX router's ``ValueError``.
 """
@@ -94,6 +105,11 @@ _KRYLOV_METHODS = ("cg", "cg_sr", "fcg", "minres", "bicgstab", "gmres",
                    "fgmres")
 # the methods with extended-layout fast paths (JAX router :401-423)
 _EXT_METHODS = ("cg", "bicgstab", "gmres")
+# (A's data dtype, b's dtype) of the float32 extended route: JAX takes a
+# float32 or bf16 b over float32 or bf16 data (:399-407); a float32 matrix
+# with a bf16 b solves in float32 here (b is promoted first)
+_EXT_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+              (torch.bfloat16, torch.bfloat16))
 _PRECOND_NAMES = ("jacobi", "fsai", "fsai2", "chebyshev", "neumann", "ilu0",
                   "amg")
 
@@ -349,16 +365,19 @@ class SparseSolver:
         return x, result
 
     def _promote_operand(self, A, b):
-        """A matrix operand with real values and a complex b, cast once to
-        b's dtype: cached per matrix content, so a repeat solve casts
-        nothing and its preconditioner and factor caches hit; cast anew in
-        each solve whose values require grad, so the gradient reaches the
-        real values through the cast. Any other operand as it is."""
-        if _matrix_free(A) or not isinstance(b, torch.Tensor) \
-                or not b.is_complex():
+        """A matrix operand with real values and a complex b, or with bf16
+        values and a b that no bf16 build takes (float64 or complex), cast
+        once to b's dtype: cached per matrix content, so a repeat solve
+        casts nothing and its preconditioner and factor caches hit; cast
+        anew in each solve whose values require grad, so the gradient
+        reaches the values through the cast. Any other operand as it is
+        (a bf16 matrix with a float32 or bf16 b runs the bf16 builds)."""
+        if _matrix_free(A) or not isinstance(b, torch.Tensor):
             return A
         v = A if isinstance(A, torch.Tensor) else values(A)
-        if v.is_complex():
+        cast = b.is_complex() or (v.dtype == torch.bfloat16
+                                  and b.dtype == torch.float64)
+        if v.is_complex() or not cast:
             return A
         if torch.is_grad_enabled() and v.requires_grad:
             return cast_values(A, b.dtype)
@@ -553,12 +572,12 @@ class SparseSolver:
         fast = (method in _EXT_METHODS and isinstance(A, DIA)
                 and _extendable_m(M)
                 and isinstance(b, torch.Tensor) and b.is_cuda
-                and A.data.is_cuda and A.data.dtype == b.dtype
-                and extendable(A))
-        if fast and b.dtype == torch.float32:
+                and A.data.is_cuda and extendable(A))
+        pair = (A.data.dtype, b.dtype) if fast else None
+        if pair in _EXT_PAIRS:
             out = implicit.ext_krylov_diff(method, kw, A, b, x0, M)
             return out + (out[3] / _safe_norm(b.detach()),)
-        if fast and b.dtype == torch.float64 and kw["tol"] >= 1e-11:
+        if pair == (torch.float64, torch.float64) and kw["tol"] >= 1e-11:
             out = implicit.ext_krylov_diff_f64(method, kw, A, b, x0, M)
             return out + (out[3] / _safe_norm(b.detach()),)
         out = getattr(implicit, f"{method}_diff")(A, b, x0, M=M, **kw)

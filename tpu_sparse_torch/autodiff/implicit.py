@@ -39,8 +39,11 @@ a gradient (the JAX contract).
 
 The extended runners: ``ext_run`` solves a float32 DIA system in the
 halo-extended layout (fused CG kernels for cg, K10 for bicgstab, else the
-method's loop over kernel 1); ``ext_run_f64`` runs the method's loop over
-the fp64 extended kernel. The JAX float64 runner matvecs in original space
+method's loop over kernel 1), and a bf16 one with a float32 or bf16 b as
+JAX's ``_ext_run`` takes it: the fused kernels refuse bf16 data, so every
+method runs its loop over kernel 1's bf16 extended builds (the adjoint
+too); ``ext_run_f64`` runs the method's loop over the fp64 extended
+kernel. The JAX float64 runner matvecs in original space
 through the double-f32 operator, which needs a hi/lo split per call; the
 card has native fp64, so both dtypes here run the same extended-space loop.
 """
@@ -100,11 +103,12 @@ def _ext_loop(method: str, kw: dict, op: ExtendedStencilOperator, b, x0, M):
 
 
 def ext_run(method: str, kw: dict, A, b, x0, M):
-    """Solve a square float32 DIA system in extended space.
+    """Solve a square float32 (or bf16) DIA system in extended space.
 
     CG with no x0 and M None or diagonal runs the fused CG kernels;
-    BiCGStab with no x0 and no M runs K10; other cases run the method's
-    loop over the extended operator (kernel 1). Returns (x, info, iters,
+    BiCGStab with no x0 and no M runs K10; other cases, and every bf16
+    system (the fused kernels take float32 only), run the method's loop
+    over the extended operator (kernel 1). Returns (x, info, iters,
     res)."""
     fkw = {k: v for k, v in kw.items() if k in _FUSED_KW and v is not None}
     if method == "cg" and x0 is None and (

@@ -57,6 +57,7 @@
 // are no atomics: reruns give the same bits.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "ts_async.cuh"
 
@@ -89,6 +90,23 @@ __device__ __forceinline__ void ts_vec_ldg(const T* p, T (&o)[V]) {
   }
 }
 
+// V consecutive bf16 values of B (one 8-, 4- or 2-byte load), widened.
+template <int V>
+__device__ __forceinline__ void ts_vec_ldg_bf16(const ts_bf16* p,
+                                                float (&o)[V]) {
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  if constexpr (V == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(q));
+    o[0] = __uint_as_float(u.x << 16); o[1] = __uint_as_float(u.x & 0xffff0000u);
+    o[2] = __uint_as_float(u.y << 16); o[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else if constexpr (V == 2) {
+    const unsigned int u = __ldg(reinterpret_cast<const unsigned int*>(q));
+    o[0] = __uint_as_float(u << 16); o[1] = __uint_as_float(u & 0xffff0000u);
+  } else {
+    o[0] = ts_bf16_bits_to_float(__ldg(q));
+  }
+}
+
 template <typename T, int V>
 __device__ __forceinline__ void ts_vec_st(T* p, const T (&o)[V]) {
   if constexpr (ts_is_complex<T>::value && V == 2)
@@ -104,17 +122,60 @@ __device__ __forceinline__ void ts_vec_st(T* p, const T (&o)[V]) {
     p[0] = o[0];
 }
 
+// V float sums rounded once to bf16 and stored (one 8-, 4- or 2-byte
+// store).
+template <int V>
+__device__ __forceinline__ void ts_vec_st_bf16(ts_bf16* p,
+                                               const float (&o)[V]) {
+  unsigned short h[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) h[v] = __bfloat16_as_ushort(__float2bfloat16_rn(o[v]));
+  if constexpr (V == 4)
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(h[0] | ((unsigned int)h[1] << 16),
+                   h[2] | ((unsigned int)h[3] << 16));
+  else if constexpr (V == 2)
+    *reinterpret_cast<unsigned int*>(p) = h[0] | ((unsigned int)h[1] << 16);
+  else
+    *reinterpret_cast<unsigned short*>(p) = h[0];
+}
+
+// V values of B into sums of type A (widened where B is bf16), and V sums
+// out as Y (rounded where Y is bf16).
+template <typename X, typename A, int V>
+__device__ __forceinline__ void ts_vec_ldg_as(const X* p, A (&o)[V]) {
+  if constexpr (std::is_same<X, A>::value)
+    ts_vec_ldg<X, V>(p, o);
+  else
+    ts_vec_ldg_bf16<V>(p, o);
+}
+
+template <typename Y, typename A, int V>
+__device__ __forceinline__ void ts_vec_st_as(Y* p, const A (&o)[V]) {
+  if constexpr (std::is_same<Y, A>::value)
+    ts_vec_st<Y, V>(p, o);
+  else
+    ts_vec_st_bf16<V>(p, o);
+}
+
+// T: the values' type; X: B's; Y: Y's, the common type (a bf16 Y only
+// for bf16 values and a bf16 B). The sums run in A = ts_acc_t<T, X>. A
+// block of more than one piece carries its sums from piece to piece
+// through `carry` (n, k) of A: Y itself where Y is A, else a workspace,
+// so a bf16 Y is rounded once, as K4's y is.
 // NT threads a CTA; BULK: bulk async copies (else plain loads) of the
 // slots; V: columns a thread loads at once; tpr: threads a row (a power of
 // two up to 32); piece: slot rows staged at once.
-template <typename T, typename I, int V, int NT, bool BULK>
+template <typename T, typename X, typename Y, typename I, int V, int NT,
+          bool BULK>
 __global__ void __launch_bounds__(NT)
 cwell_spmm_compact(const T* __restrict__ cvals, const I* __restrict__ idx,
                    const int* __restrict__ srow,
                    const long long* __restrict__ boff,
-                   const T* __restrict__ B, T* __restrict__ Y,
-                   long long n_blocks, int planes, long long n_rows, int k,
-                   int tpr, int piece) {
+                   const X* __restrict__ B, Y* __restrict__ Yo,
+                   ts_acc_t<T, X>* __restrict__ carry, long long n_blocks,
+                   int planes, long long n_rows, int k, int tpr, int piece) {
+  using A = ts_acc_t<T, X>;
   extern __shared__ __align__(128) unsigned char ts_smem[];
   T* s_val = reinterpret_cast<T*>(ts_smem);
   I* s_idx = reinterpret_cast<I*>(s_val + piece * TS_CWELL_LANES);
@@ -139,6 +200,7 @@ cwell_spmm_compact(const T* __restrict__ cvals, const I* __restrict__ idx,
     // pieces of the block's slot rows; an empty block runs one, of none
     for (int p0 = 0; p0 == 0 || p0 < len; p0 += piece) {
       const int nr = min(piece, len - p0);
+      const bool last = p0 + piece >= len;
       __syncthreads();  // the last piece's reads (the barrier's init) done
       if (p0 == 0) ts_load_window_rows<I>(srow, b, planes, s_srow);
       const T* gv = cvals + o0 + (long long)p0 * TS_CWELL_LANES;
@@ -171,54 +233,71 @@ cwell_spmm_compact(const T* __restrict__ cvals, const I* __restrict__ idx,
         for (int r = tid / tpr; r < TS_CWELL_LANES; r += rpass) {
           const long long row = b * TS_CWELL_LANES + r;
           if (row >= n_rows) break;
-          T* yp = Y + row * k + j;
-          T acc[V];
+          A* cp = carry + row * k + j;
+          A acc[V];
           if (p0 == 0) {
 #pragma unroll
-            for (int v = 0; v < V; ++v) acc[v] = T(0);
+            for (int v = 0; v < V; ++v) acc[v] = A(0);
           } else {
-            ts_vec_load<T, V>(yp, acc);  // the sums of the earlier pieces
+            ts_vec_load<A, V>(cp, acc);  // the sums of the earlier pieces
           }
           const T* sv = s_val + r;
           const I* si = s_idx + r;
 #pragma unroll 4
           for (int q = 0; q < nr; ++q) {
-            const T a = sv[q * TS_CWELL_LANES];
-            if (a != T(0)) {
-              T bv[V];
-              ts_vec_ldg<T, V>(
+            const auto a = ts_widen(sv[q * TS_CWELL_LANES]);
+            if (a != decltype(a)(0)) {
+              A bv[V];
+              ts_vec_ldg_as<X, A, V>(
                   B + ts_slot_col(si[q * TS_CWELL_LANES], s_srow) * k + j,
                   bv);
 #pragma unroll
               for (int v = 0; v < V; ++v) acc[v] += a * bv[v];
             }
           }
-          ts_vec_st<T, V>(yp, acc);
+          if (last)
+            ts_vec_st_as<Y, A, V>(Yo + row * k + j, acc);
+          else
+            ts_vec_st<A, V>(cp, acc);
         }
       }
     }
   }
 }
 
-template <typename T, typename I, int V, int NT, bool BULK>
+template <typename T, typename X, typename Y, typename I, int V, int NT,
+          bool BULK>
 static void launch_spmm_instance(int grid, size_t smem, cudaStream_t stream,
                                  const T* cvals, const void* idx,
                                  const int* srow, const long long* boff,
-                                 const T* B, T* Y, long long n_blocks,
-                                 int planes, long long n_rows, int k, int tpr,
+                                 const X* B, Y* Yo, ts_acc_t<T, X>* carry,
+                                 long long n_blocks, int planes,
+                                 long long n_rows, int k, int tpr,
                                  int piece) {
-  cwell_spmm_compact<T, I, V, NT, BULK><<<grid, NT, smem, stream>>>(
-      cvals, static_cast<const I*>(idx), srow, boff, B, Y, n_blocks, planes,
-      n_rows, k, tpr, piece);
+  cwell_spmm_compact<T, X, Y, I, V, NT, BULK><<<grid, NT, smem, stream>>>(
+      cvals, static_cast<const I*>(idx), srow, boff, B, Yo, carry, n_blocks,
+      planes, n_rows, k, tpr, piece);
+}
+
+// Slot rows a piece stages at most (the host mirror is
+// cuda_cwell._spmm_piece_cap).
+template <typename T>
+static long long ts_spmm_piece_cap(long long planes, int wide) {
+  const size_t slot = sizeof(T) + (wide ? sizeof(int) : sizeof(short));
+  const size_t window = wide ? 0 : (size_t)planes * sizeof(int);
+  return (long long)((TS_SPMM_SMEM - window) / (TS_CWELL_LANES * slot));
 }
 
 // One launch of the design NT x BULK; `depth` is the plan's largest L_b.
-template <typename T, int NT, bool BULK>
+// `work`: an (n, k) workspace of the sum type, needed (else refused) where
+// Y's type is not the sum type and a block takes more than one piece.
+template <typename T, typename X, typename Y, int NT, bool BULK>
 static int launch_cwell_spmm(const T* cvals, const void* idx, const int* srow,
-                             const long long* boff, const T* B, T* Y,
-                             long long n_blocks, long long planes,
-                             long long n_rows, long long k, long long depth,
-                             int wide, cudaStream_t stream) {
+                             const long long* boff, const X* B, Y* Yo,
+                             ts_acc_t<T, X>* work, long long n_blocks,
+                             long long planes, long long n_rows, long long k,
+                             long long depth, int wide, cudaStream_t stream) {
+  using A = ts_acc_t<T, X>;
   if (n_blocks < 0 || planes < 0 || planes > 0x7fffffffLL || n_rows < 0 ||
       n_rows > n_blocks * TS_CWELL_LANES || k < 0 || k > 0x7fffffffLL ||
       depth < 0 || (!wide && planes > TS_CWELL_NARROW_PLANES) ||
@@ -227,16 +306,30 @@ static int launch_cwell_spmm(const T* cvals, const void* idx, const int* srow,
   if (n_rows == 0 || k == 0) return 0;
   const size_t slot = sizeof(T) + (wide ? sizeof(int) : sizeof(short));
   const size_t window = wide ? 0 : (size_t)planes * sizeof(int);
-  const long long cap = (long long)((TS_SPMM_SMEM - window) /
-                                    (TS_CWELL_LANES * slot));
+  const long long cap = ts_spmm_piece_cap<T>(planes, wide);
   const int piece = (int)(depth < 1 ? 1 : (depth < cap ? depth : cap));
   const size_t smem = (size_t)piece * TS_CWELL_LANES * slot + window;
-  // columns a thread loads at once: 16 bytes where k and the pointers allow
-  const uintptr_t al = (uintptr_t)B | (uintptr_t)Y;
+  A* carry;
+  if constexpr (std::is_same<Y, A>::value) {
+    carry = Yo;
+  } else {
+    if (depth > piece && work == nullptr) return TS_BAD_ARGUMENT;
+    carry = work;
+  }
+  // columns a thread loads at once: 16 bytes of the widest of B, Y and
+  // the carry where k and the pointers allow
+  constexpr size_t wmax = sizeof(X) > sizeof(Y)
+                              ? (sizeof(X) > sizeof(A) ? sizeof(X) : sizeof(A))
+                              : (sizeof(Y) > sizeof(A) ? sizeof(Y) : sizeof(A));
+  auto aligned = [&](int v) {
+    return (uintptr_t)B % (v * sizeof(X)) == 0 &&
+           (uintptr_t)Yo % (v * sizeof(Y)) == 0 &&
+           (uintptr_t)carry % (v * sizeof(A)) == 0;
+  };
   int v = 1;
-  if (sizeof(T) == 4 && k % 4 == 0 && al % 16 == 0)
+  if (wmax == 4 && k % 4 == 0 && aligned(4))
     v = 4;
-  else if (sizeof(T) <= 8 && k % 2 == 0 && al % (2 * sizeof(T)) == 0)
+  else if (wmax <= 8 && k % 2 == 0 && aligned(2))
     v = 2;
   const long long need = (k + v - 1) / v;
   int tpr = 1;
@@ -244,23 +337,23 @@ static int launch_cwell_spmm(const T* cvals, const void* idx, const int* srow,
   const int grid =
       (int)(n_blocks < TS_SPMM_MAX_GRID ? n_blocks : TS_SPMM_MAX_GRID);
 #define TS_SPMM_LAUNCH(I_, V_)                                              \
-  launch_spmm_instance<T, I_, V_, NT, BULK>(                                \
-      grid, smem, stream, cvals, idx, srow, boff, B, Y, n_blocks,           \
+  launch_spmm_instance<T, X, Y, I_, V_, NT, BULK>(                          \
+      grid, smem, stream, cvals, idx, srow, boff, B, Yo, carry, n_blocks,   \
       (int)planes, n_rows, (int)k, tpr, piece)
   if (wide) {
     if (v == 1) TS_SPMM_LAUNCH(int, 1);
-    if constexpr (sizeof(T) <= 8) {
+    if constexpr (wmax <= 8) {
       if (v == 2) TS_SPMM_LAUNCH(int, 2);
     }
-    if constexpr (sizeof(T) == 4) {
+    if constexpr (wmax == 4) {
       if (v == 4) TS_SPMM_LAUNCH(int, 4);
     }
   } else {
     if (v == 1) TS_SPMM_LAUNCH(unsigned short, 1);
-    if constexpr (sizeof(T) <= 8) {
+    if constexpr (wmax <= 8) {
       if (v == 2) TS_SPMM_LAUNCH(unsigned short, 2);
     }
-    if constexpr (sizeof(T) == 4) {
+    if constexpr (wmax == 4) {
       if (v == 4) TS_SPMM_LAUNCH(unsigned short, 4);
     }
   }
@@ -274,9 +367,9 @@ extern "C" int ts_cwell_spmm_f32(const float* cvals, const void* idx,
                                  long long planes, long long n_rows,
                                  long long k, long long depth, int wide,
                                  cudaStream_t stream) {
-  return launch_cwell_spmm<float, TS_SPMM_THREADS, true>(
-      cvals, idx, srow, boff, B, Y, n_blocks, planes, n_rows, k, depth, wide,
-      stream);
+  return launch_cwell_spmm<float, float, float, TS_SPMM_THREADS, true>(
+      cvals, idx, srow, boff, B, Y, nullptr, n_blocks, planes, n_rows, k,
+      depth, wide, stream);
 }
 
 extern "C" int ts_cwell_spmm_f64(const double* cvals, const void* idx,
@@ -286,9 +379,9 @@ extern "C" int ts_cwell_spmm_f64(const double* cvals, const void* idx,
                                  long long n_rows, long long k,
                                  long long depth, int wide,
                                  cudaStream_t stream) {
-  return launch_cwell_spmm<double, TS_SPMM_THREADS, true>(
-      cvals, idx, srow, boff, B, Y, n_blocks, planes, n_rows, k, depth, wide,
-      stream);
+  return launch_cwell_spmm<double, double, double, TS_SPMM_THREADS, true>(
+      cvals, idx, srow, boff, B, Y, nullptr, n_blocks, planes, n_rows, k,
+      depth, wide, stream);
 }
 
 extern "C" int ts_cwell_spmm_c64(const ts_c64* cvals, const void* idx,
@@ -298,9 +391,9 @@ extern "C" int ts_cwell_spmm_c64(const ts_c64* cvals, const void* idx,
                                  long long n_rows, long long k,
                                  long long depth, int wide,
                                  cudaStream_t stream) {
-  return launch_cwell_spmm<ts_c64, TS_SPMM_THREADS, true>(
-      cvals, idx, srow, boff, B, Y, n_blocks, planes, n_rows, k, depth, wide,
-      stream);
+  return launch_cwell_spmm<ts_c64, ts_c64, ts_c64, TS_SPMM_THREADS, true>(
+      cvals, idx, srow, boff, B, Y, nullptr, n_blocks, planes, n_rows, k,
+      depth, wide, stream);
 }
 
 extern "C" int ts_cwell_spmm_c128(const ts_c128* cvals, const void* idx,
@@ -310,7 +403,46 @@ extern "C" int ts_cwell_spmm_c128(const ts_c128* cvals, const void* idx,
                                   long long n_rows, long long k,
                                   long long depth, int wide,
                                   cudaStream_t stream) {
-  return launch_cwell_spmm<ts_c128, TS_SPMM_THREADS, true>(
-      cvals, idx, srow, boff, B, Y, n_blocks, planes, n_rows, k, depth, wide,
-      stream);
+  return launch_cwell_spmm<ts_c128, ts_c128, ts_c128, TS_SPMM_THREADS, true>(
+      cvals, idx, srow, boff, B, Y, nullptr, n_blocks, planes, n_rows, k,
+      depth, wide, stream);
+}
+
+// bf16 builds: bf16 values with a bf16 B (Y bf16, carried through the
+// float workspace `work` across pieces) or a float B (Y float), and float
+// values with a bf16 B (Y float); the sums run in float.
+extern "C" int ts_cwell_spmm_bf16(const ts_bf16* cvals, const void* idx,
+                                  const int* srow, const long long* boff,
+                                  const ts_bf16* B, ts_bf16* Y, float* work,
+                                  long long n_blocks, long long planes,
+                                  long long n_rows, long long k,
+                                  long long depth, int wide,
+                                  cudaStream_t stream) {
+  return launch_cwell_spmm<ts_bf16, ts_bf16, ts_bf16, TS_SPMM_THREADS, true>(
+      cvals, idx, srow, boff, B, Y, work, n_blocks, planes, n_rows, k, depth,
+      wide, stream);
+}
+
+extern "C" int ts_cwell_spmm_bf16_f32(const ts_bf16* cvals, const void* idx,
+                                      const int* srow, const long long* boff,
+                                      const float* B, float* Y, float* work,
+                                      long long n_blocks, long long planes,
+                                      long long n_rows, long long k,
+                                      long long depth, int wide,
+                                      cudaStream_t stream) {
+  return launch_cwell_spmm<ts_bf16, float, float, TS_SPMM_THREADS, true>(
+      cvals, idx, srow, boff, B, Y, work, n_blocks, planes, n_rows, k, depth,
+      wide, stream);
+}
+
+extern "C" int ts_cwell_spmm_f32_bf16(const float* cvals, const void* idx,
+                                      const int* srow, const long long* boff,
+                                      const ts_bf16* B, float* Y, float* work,
+                                      long long n_blocks, long long planes,
+                                      long long n_rows, long long k,
+                                      long long depth, int wide,
+                                      cudaStream_t stream) {
+  return launch_cwell_spmm<float, ts_bf16, float, TS_SPMM_THREADS, true>(
+      cvals, idx, srow, boff, B, Y, work, n_blocks, planes, n_rows, k, depth,
+      wide, stream);
 }

@@ -1,5 +1,6 @@
 // K4 / K5: general-structure SpMV on the row-compact plan of a CWELL pack,
-// float and double, and complex64 / complex128 (ts_common.cuh's TsComplex).
+// float and double, and complex64 / complex128 (ts_common.cuh's TsComplex);
+// K4 also on bf16 values, with a float x (float y) or a bf16 x (bf16 y).
 //
 // Replaces tpu_sparse/kernels/pallas_cwell.py: `_cwell_kernel` and its
 // grouped form `_cwell_kernel_gq` (K4, entry `cwell_spmv_pallas`, call in
@@ -18,10 +19,14 @@
 //
 // y[b*128 + l] = sum over the row's slots of cvals * x[col], in slot order
 // in the value type; slots of value 0 are skipped, so a NaN in x reaches
-// only the rows whose nonzeros gather it.
+// only the rows whose nonzeros gather it. bf16 values stream at 2 bytes a
+// slot and are widened to float in registers; x is gathered in its own
+// type and widened, the sum runs in float and a bf16 y is rounded once:
+// the JAX kernel's f32 gather and accumulate (pallas_cwell.py:262-290),
+// and on bf16-exact values the float build's result bit for bit.
 //
 // Bound: device-memory bandwidth. Each slot streams its value and its
-// 2-byte index once (6 / 10 bytes a slot in float / double, where the
+// 2-byte index once (4 / 6 / 10 bytes a slot in bf16 / float / double, where the
 // plane pack streamed 8 / 12 and a third of its slots were padding), each
 // block its window rows; x (16 MB in float at n = 160^3) is gathered and
 // stays in the 50 MB L2; y is written once.
@@ -29,8 +34,8 @@
 // Two designs, one for each kernel; both walk the same slots in the same
 // order, so they agree bit for bit.
 //
-// K4 (float): a persistent grid of as many 128-thread CTAs as fit on the
-// SMs. CTA c takes the row blocks whose slots start in its share of the
+// K4 (float, and bf16 values): a persistent grid of as many 128-thread
+// CTAs as fit on the SMs. CTA c takes the row blocks whose slots start in its share of the
 // slot rows (a binary search over boff), so its slots are one contiguous
 // range, and streams that range in pieces of CHUNK = 8 slot rows through a
 // ring of STAGES = 2 stages in shared memory: thread 0 fills a stage with
@@ -41,7 +46,8 @@
 // writes y, and the CTA loads the next block's window rows into shared
 // memory (double buffered). A __syncthreads at the end of each piece frees
 // its stage for the refill. Small stages keep many CTAs on an SM, which the
-// x gathers need: 8 x 2 beat 16 x 2, 4 x 2 and 8 x 4.
+// x gathers need: 8 x 2 beat 16 x 2, 4 x 2 and 8 x 4 in float; with bf16
+// values (4-byte slots) 16 x 2 is the fastest (TsCwellDesign).
 //
 // K5 (double, and both complex builds): plain loads. One CTA per row
 // block (grid-stride), its window rows in shared memory, each thread
@@ -68,10 +74,16 @@
 #define TS_CWELL_MAX_GRID (1 << 20)
 
 // The design each kernel ships: the ring's slot rows a stage and stages
-// (K4), or 0 x 0 for plain loads (K5).
+// (K4), or 0 x 0 for plain loads (K5). bf16 values take pieces of 16 slot
+// rows: a slot is 4 bytes, not 6, and on the 160^3 pack 16 x 2 beat 8 x 2,
+// 8 x 4, 4 x 2 and plain loads (cwell_spmv_probe).
 template <typename T>
 struct TsCwellDesign {
   static constexpr int chunk = 8, stages = 2;
+};
+template <>
+struct TsCwellDesign<ts_bf16> {
+  static constexpr int chunk = 16, stages = 2;
 };
 template <>
 struct TsCwellDesign<double> {
@@ -85,13 +97,15 @@ struct TsCwellDesign<TsComplex<R>> {
 
 // ---- plain loads (K5) -----------------------------------------------------
 
-template <typename T, typename I>
+// T: the values' type; X: x's and y's type.
+template <typename T, typename X, typename I>
 __global__ void __launch_bounds__(TS_CWELL_LANES)
 cwell_spmv_plain(const T* __restrict__ cvals, const I* __restrict__ idx,
                  const int* __restrict__ srow,
-                 const long long* __restrict__ boff, const T* __restrict__ x,
-                 T* __restrict__ y, long long n_blocks, int planes,
+                 const long long* __restrict__ boff, const X* __restrict__ x,
+                 X* __restrict__ y, long long n_blocks, int planes,
                  long long n_rows) {
+  using A = ts_acc_t<T, X>;
   __shared__ int s_srow[TS_CWELL_NARROW_PLANES];
   const int lane = threadIdx.x;
   for (long long b = blockIdx.x; b < n_blocks; b += gridDim.x) {
@@ -104,15 +118,16 @@ cwell_spmv_plain(const T* __restrict__ cvals, const I* __restrict__ idx,
     const int len = (int)((__ldg(boff + b + 1) - o0) / TS_CWELL_LANES);
     const T* v = cvals + o0 + lane;
     const I* ix = idx + o0 + lane;
-    T acc = T(0);
+    A acc = A(0);
 #pragma unroll 4
     for (int j = 0; j < len; ++j) {
-      const T a = ts_ldcs(v + (long long)j * TS_CWELL_LANES);
+      const auto a = ts_widen(ts_ldcs(v + (long long)j * TS_CWELL_LANES));
       const I c = __ldcs(ix + (long long)j * TS_CWELL_LANES);
-      if (a != T(0)) acc += a * ts_ldg(x + ts_slot_col(c, s_srow));
+      if (a != decltype(a)(0))
+        acc += a * ts_widen(ts_ldg(x + ts_slot_col(c, s_srow)));
     }
     const long long row = b * TS_CWELL_LANES + lane;
-    if (row < n_rows) y[row] = acc;
+    if (row < n_rows) y[row] = ts_narrow<X>(acc);
   }
 }
 
@@ -142,13 +157,14 @@ constexpr size_t ts_ring_smem_bytes(long long planes) {
          (sizeof(I) == 2 ? 2 * planes * sizeof(int) : 0);
 }
 
-template <typename T, typename I, int CHUNK, int STAGES>
+template <typename T, typename X, typename I, int CHUNK, int STAGES>
 __global__ void __launch_bounds__(TS_CWELL_LANES)
 cwell_spmv_ring(const T* __restrict__ cvals, const I* __restrict__ idx,
                 const int* __restrict__ srow,
-                const long long* __restrict__ boff, const T* __restrict__ x,
-                T* __restrict__ y, long long n_blocks, int planes,
+                const long long* __restrict__ boff, const X* __restrict__ x,
+                X* __restrict__ y, long long n_blocks, int planes,
                 long long n_rows) {
+  using A = ts_acc_t<T, X>;
   constexpr int PIECE = CHUNK * TS_CWELL_LANES;  // slots a stage
   extern __shared__ __align__(128) unsigned char ts_smem[];
   T* s_val = reinterpret_cast<T*>(ts_smem);
@@ -200,7 +216,7 @@ cwell_spmv_ring(const T* __restrict__ cvals, const I* __restrict__ idx,
   if (lane == 0)
     for (long long p = 0; p < STAGES - 1 && p < pieces; ++p) fill_stage(p);
   long long bend = b < b1 ? __ldg(boff + b + 1) / TS_CWELL_LANES : r1;
-  T acc = T(0);
+  A acc = A(0);
   for (long long p = 0; p < pieces; ++p) {
     if (lane == 0 && p + STAGES - 1 < pieces) fill_stage(p + STAGES - 1);
     const int st = (int)(p % STAGES);
@@ -214,8 +230,8 @@ cwell_spmv_ring(const T* __restrict__ cvals, const I* __restrict__ idx,
       if (r == bend) {  // block b ends here, at the same row for every thread
         do {
           const long long row = b * TS_CWELL_LANES + lane;
-          if (row < n_rows) y[row] = acc;
-          acc = T(0);
+          if (row < n_rows) y[row] = ts_narrow<X>(acc);
+          acc = A(0);
           ++b;
           bend = __ldg(boff + b + 1) / TS_CWELL_LANES;
         } while (r == bend);
@@ -229,9 +245,10 @@ cwell_spmv_ring(const T* __restrict__ cvals, const I* __restrict__ idx,
       const int j1 = (int)(min(pe, bend) - ps);
 #pragma unroll 4
       for (int j = (int)(r - ps); j < j1; ++j) {
-        const T a = sv[j * TS_CWELL_LANES];
+        const auto a = ts_widen(sv[j * TS_CWELL_LANES]);
         const I ci = si[j * TS_CWELL_LANES];
-        if (a != T(0)) acc += a * ts_ldg(x + ts_slot_col(ci, sw));
+        if (a != decltype(a)(0))
+          acc += a * ts_widen(ts_ldg(x + ts_slot_col(ci, sw)));
       }
       r = ps + j1;
     }
@@ -240,15 +257,15 @@ cwell_spmv_ring(const T* __restrict__ cvals, const I* __restrict__ idx,
   // the last block's sum, then the empty blocks after it
   for (; b < b1; ++b) {
     const long long row = b * TS_CWELL_LANES + lane;
-    if (row < n_rows) y[row] = acc;
-    acc = T(0);
+    if (row < n_rows) y[row] = ts_narrow<X>(acc);
+    acc = A(0);
   }
 }
 
 // The ring's CTAs that fit on the current device at `smem` bytes of
 // dynamic shared memory: asked once per (device, size) and kept, under a
 // lock, per instance of the kernel.
-template <typename T, typename I, int CHUNK, int STAGES>
+template <typename T, typename X, typename I, int CHUNK, int STAGES>
 static int ts_ring_ctas(size_t smem, long long* ctas) {
   static std::mutex lock;
   static std::map<std::pair<int, size_t>, long long> known;
@@ -258,7 +275,7 @@ static int ts_ring_ctas(size_t smem, long long* ctas) {
   std::lock_guard<std::mutex> hold(lock);
   auto it = known.find({dev, smem});
   if (it == known.end()) {
-    auto kernel = cwell_spmv_ring<T, I, CHUNK, STAGES>;
+    auto kernel = cwell_spmv_ring<T, X, I, CHUNK, STAGES>;
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
@@ -273,9 +290,9 @@ static int ts_ring_ctas(size_t smem, long long* ctas) {
 }
 
 // One launch of the design CHUNK x STAGES (0 x 0: plain loads).
-template <typename T, typename I, int CHUNK, int STAGES>
+template <typename T, typename X, typename I, int CHUNK, int STAGES>
 static int launch_cwell_spmv(const T* cvals, const I* idx, const int* srow,
-                             const long long* boff, const T* x, T* y,
+                             const long long* boff, const X* x, X* y,
                              long long n_blocks, long long planes,
                              long long n_rows, cudaStream_t stream) {
   if (n_blocks < 0 || planes < 0 || n_rows < 0 ||
@@ -287,7 +304,7 @@ static int launch_cwell_spmv(const T* cvals, const I* idx, const int* srow,
   if constexpr (CHUNK == 0) {
     const long long grid =
         n_blocks < TS_CWELL_MAX_GRID ? n_blocks : TS_CWELL_MAX_GRID;
-    cwell_spmv_plain<T, I><<<(int)grid, TS_CWELL_LANES, 0, stream>>>(
+    cwell_spmv_plain<T, X, I><<<(int)grid, TS_CWELL_LANES, 0, stream>>>(
         cvals, idx, srow, boff, x, y, n_blocks, (int)planes, n_rows);
   } else {
     static_assert(ts_ring_smem_bytes<T, I, CHUNK, STAGES>(
@@ -295,27 +312,27 @@ static int launch_cwell_spmv(const T* cvals, const I* idx, const int* srow,
                   "the ring must fit the default dynamic shared memory");
     const size_t smem = ts_ring_smem_bytes<T, I, CHUNK, STAGES>(planes);
     long long ctas = 0;
-    const int rc = ts_ring_ctas<T, I, CHUNK, STAGES>(smem, &ctas);
+    const int rc = ts_ring_ctas<T, X, I, CHUNK, STAGES>(smem, &ctas);
     if (rc != 0) return rc;
     const long long grid = ctas < n_blocks ? ctas : n_blocks;
-    cwell_spmv_ring<T, I, CHUNK, STAGES>
+    cwell_spmv_ring<T, X, I, CHUNK, STAGES>
         <<<(int)grid, TS_CWELL_LANES, smem, stream>>>(
             cvals, idx, srow, boff, x, y, n_blocks, (int)planes, n_rows);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename X = T>
 static int cwell_spmv_entry(const T* cvals, const void* idx, const int* srow,
-                            const long long* boff, const T* x, T* y,
+                            const long long* boff, const X* x, X* y,
                             long long n_blocks, long long planes,
                             long long n_rows, int wide, cudaStream_t stream) {
   constexpr int C = TsCwellDesign<T>::chunk, S = TsCwellDesign<T>::stages;
   if (wide)
-    return launch_cwell_spmv<T, int, C, S>(
+    return launch_cwell_spmv<T, X, int, C, S>(
         cvals, static_cast<const int*>(idx), srow, boff, x, y, n_blocks,
         planes, n_rows, stream);
-  return launch_cwell_spmv<T, unsigned short, C, S>(
+  return launch_cwell_spmv<T, X, unsigned short, C, S>(
       cvals, static_cast<const unsigned short*>(idx), srow, boff, x, y,
       n_blocks, planes, n_rows, stream);
 }
@@ -357,4 +374,27 @@ extern "C" int ts_cwell_spmv_c128(const ts_c128* cvals, const void* idx,
                                   cudaStream_t stream) {
   return cwell_spmv_entry<ts_c128>(cvals, idx, srow, boff, x, y, n_blocks,
                                    planes, n_rows, wide, stream);
+}
+
+// bf16 values (K4's ring): with a bf16 x (y bf16) and with a float x (y
+// float); the sum runs in float either way.
+extern "C" int ts_cwell_spmv_bf16(const ts_bf16* cvals, const void* idx,
+                                  const int* srow, const long long* boff,
+                                  const ts_bf16* x, ts_bf16* y,
+                                  long long n_blocks, long long planes,
+                                  long long n_rows, int wide,
+                                  cudaStream_t stream) {
+  return cwell_spmv_entry<ts_bf16>(cvals, idx, srow, boff, x, y, n_blocks,
+                                   planes, n_rows, wide, stream);
+}
+
+extern "C" int ts_cwell_spmv_bf16_f32(const ts_bf16* cvals, const void* idx,
+                                      const int* srow, const long long* boff,
+                                      const float* x, float* y,
+                                      long long n_blocks, long long planes,
+                                      long long n_rows, int wide,
+                                      cudaStream_t stream) {
+  return cwell_spmv_entry<ts_bf16, float>(cvals, idx, srow, boff, x, y,
+                                          n_blocks, planes, n_rows, wide,
+                                          stream);
 }

@@ -1,6 +1,7 @@
 // Kernel 1: square/rectangular DIA (stencil) SpMV, float and double; the
 // plain mode also in complex64 and complex128 (ts_common.cuh's TsComplex:
-// products (ac - bd, ad + bc), each operation rounded on its own).
+// products (ac - bd, ad + bc), each operation rounded on its own); both
+// modes also on bf16 data, with a float x (float y) or a bf16 x (bf16 y).
 //
 // Replaces tpu_sparse/kernels/pallas_spmv.py: `_dia_kernel` (plain SpMV,
 // entry `dia_spmv_pallas`), `_dia_ext_kernel` / `_dia_ext_kernel_res`
@@ -11,9 +12,19 @@
 //
 // y[i] = sum_d data[d, i] * x[i + offsets[d]]
 //
+// bf16 data streams at 2 bytes a value and is widened to float in
+// registers (exact), the products and the sum run in float, and a bf16 y is
+// rounded once. With a float x this is what the JAX kernel computes after
+// casting the data to float (pallas_spmv.py:183-191, `dia_spmv_pallas`;
+// the extended mode's body casts each data row to x's dtype), with no
+// float copy of the data: on bf16-exact values it is the float build's
+// result bit for bit. With a bf16 x the TPU kernel summed in bf16; here the
+// sum stays in float and only y is rounded.
+//
 // Bound: device-memory bandwidth. Each row streams ndiag matrix values
 // plus one x read and one y write: sizeof(T) * (ndiag + 2) bytes per row
-// (27-point stencil in float: 116 B/row; complex64 232, complex128 464).
+// (27-point stencil in float: 116 B/row; complex64 232, complex128 464;
+// bf16 data with a float x 62, with a bf16 x 58).
 // x is re-read ndiag times, but neighbouring diagonals of one block touch
 // neighbouring rows of x, so those reads hit L1/L2 and only the first
 // touch costs device memory.
@@ -30,31 +41,35 @@
 
 #include "ts_common.cuh"
 
-template <typename T>
+// V: the data's type; X: x's and y's type.
+template <typename V, typename X>
 __global__ void __launch_bounds__(TS_BLOCK)
-dia_spmv_plain_kernel(const T* __restrict__ data, long long ld, TsOffsets offs,
-                      int ndiag, const T* __restrict__ x, T* __restrict__ y,
+dia_spmv_plain_kernel(const V* __restrict__ data, long long ld, TsOffsets offs,
+                      int ndiag, const X* __restrict__ x, X* __restrict__ y,
                       long long n_rows, long long n_cols) {
+  using A = ts_acc_t<V, X>;
   __shared__ int s_off[TS_MAX_DIAG];
   ts_load_offsets(offs, ndiag, s_off);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < n_rows; i += stride) {
-    T acc = T(0);
+    A acc = A(0);
     for (int d = 0; d < ndiag; ++d) {
       const long long j = i + s_off[d];
-      if (j >= 0 && j < n_cols) acc += data[d * ld + i] * x[j];
+      if (j >= 0 && j < n_cols)
+        acc += ts_widen(data[d * ld + i]) * ts_widen(x[j]);
     }
-    y[i] = acc;
+    y[i] = ts_narrow<X>(acc);
   }
 }
 
-template <typename T>
+template <typename V, typename X>
 __global__ void __launch_bounds__(TS_BLOCK)
-dia_spmv_ext_kernel(const T* __restrict__ data, long long ld, TsOffsets offs,
-                    int ndiag, const T* __restrict__ x_ext,
-                    T* __restrict__ y_ext, long long n, long long wl,
+dia_spmv_ext_kernel(const V* __restrict__ data, long long ld, TsOffsets offs,
+                    int ndiag, const X* __restrict__ x_ext,
+                    X* __restrict__ y_ext, long long n, long long wl,
                     long long e) {
+  using A = ts_acc_t<V, X>;
   __shared__ int s_off[TS_MAX_DIAG];
   ts_load_offsets(offs, ndiag, s_off);
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -62,18 +77,19 @@ dia_spmv_ext_kernel(const T* __restrict__ data, long long ld, TsOffsets offs,
        t += stride) {
     const long long i = t - wl;
     if (i < 0 || i >= n) {
-      y_ext[t] = T(0);
+      y_ext[t] = ts_zero<X>();
       continue;
     }
-    T acc = T(0);
-    for (int d = 0; d < ndiag; ++d) acc += data[d * ld + i] * x_ext[t + s_off[d]];
-    y_ext[t] = acc;
+    A acc = A(0);
+    for (int d = 0; d < ndiag; ++d)
+      acc += ts_widen(data[d * ld + i]) * ts_widen(x_ext[t + s_off[d]]);
+    y_ext[t] = ts_narrow<X>(acc);
   }
 }
 
-template <typename T>
-static int launch_dia_spmv(const T* data, long long ld, const int* offsets,
-                           int ndiag, const T* x, T* y, long long n_rows,
+template <typename V, typename X>
+static int launch_dia_spmv(const V* data, long long ld, const int* offsets,
+                           int ndiag, const X* x, X* y, long long n_rows,
                            long long n_cols, long long wl, long long e,
                            int extended, cudaStream_t stream) {
   TsOffsets offs;
@@ -85,11 +101,11 @@ static int launch_dia_spmv(const T* data, long long ld, const int* offsets,
       if (offs.o[d] > wl || -offs.o[d] > wl) return TS_BAD_ARGUMENT;
     }
     if (e == 0) return 0;
-    dia_spmv_ext_kernel<T><<<ts_grid_for(e), TS_BLOCK, 0, stream>>>(
+    dia_spmv_ext_kernel<V, X><<<ts_grid_for(e), TS_BLOCK, 0, stream>>>(
         data, ld, offs, ndiag, x, y, n_rows, wl, e);
   } else {
     if (n_rows == 0) return 0;
-    dia_spmv_plain_kernel<T><<<ts_grid_for(n_rows), TS_BLOCK, 0, stream>>>(
+    dia_spmv_plain_kernel<V, X><<<ts_grid_for(n_rows), TS_BLOCK, 0, stream>>>(
         data, ld, offs, ndiag, x, y, n_rows, n_cols);
   }
   return (int)cudaGetLastError();
@@ -100,7 +116,7 @@ extern "C" int ts_dia_spmv_f32(const float* data, long long ld,
                                float* y, long long n_rows, long long n_cols,
                                long long wl, long long e, int extended,
                                cudaStream_t stream) {
-  return launch_dia_spmv<float>(data, ld, offsets, ndiag, x, y, n_rows, n_cols,
+  return launch_dia_spmv<float, float>(data, ld, offsets, ndiag, x, y, n_rows, n_cols,
                                 wl, e, extended, stream);
 }
 
@@ -109,7 +125,7 @@ extern "C" int ts_dia_spmv_f64(const double* data, long long ld,
                                double* y, long long n_rows, long long n_cols,
                                long long wl, long long e, int extended,
                                cudaStream_t stream) {
-  return launch_dia_spmv<double>(data, ld, offsets, ndiag, x, y, n_rows,
+  return launch_dia_spmv<double, double>(data, ld, offsets, ndiag, x, y, n_rows,
                                  n_cols, wl, e, extended, stream);
 }
 
@@ -120,7 +136,7 @@ extern "C" int ts_dia_spmv_c64(const ts_c64* data, long long ld,
                                long long wl, long long e, int extended,
                                cudaStream_t stream) {
   if (extended) return TS_BAD_ARGUMENT;
-  return launch_dia_spmv<ts_c64>(data, ld, offsets, ndiag, x, y, n_rows,
+  return launch_dia_spmv<ts_c64, ts_c64>(data, ld, offsets, ndiag, x, y, n_rows,
                                  n_cols, wl, e, 0, stream);
 }
 
@@ -130,8 +146,31 @@ extern "C" int ts_dia_spmv_c128(const ts_c128* data, long long ld,
                                 long long n_cols, long long wl, long long e,
                                 int extended, cudaStream_t stream) {
   if (extended) return TS_BAD_ARGUMENT;
-  return launch_dia_spmv<ts_c128>(data, ld, offsets, ndiag, x, y, n_rows,
+  return launch_dia_spmv<ts_c128, ts_c128>(data, ld, offsets, ndiag, x, y, n_rows,
                                   n_cols, wl, e, 0, stream);
+}
+
+// bf16 data, both modes: with a bf16 x (y bf16) and with a float x (y
+// float); the sum runs in float either way.
+extern "C" int ts_dia_spmv_bf16(const ts_bf16* data, long long ld,
+                                const int* offsets, int ndiag,
+                                const ts_bf16* x, ts_bf16* y, long long n_rows,
+                                long long n_cols, long long wl, long long e,
+                                int extended, cudaStream_t stream) {
+  return launch_dia_spmv<ts_bf16, ts_bf16>(data, ld, offsets, ndiag, x, y,
+                                           n_rows, n_cols, wl, e, extended,
+                                           stream);
+}
+
+extern "C" int ts_dia_spmv_bf16_f32(const ts_bf16* data, long long ld,
+                                    const int* offsets, int ndiag,
+                                    const float* x, float* y, long long n_rows,
+                                    long long n_cols, long long wl,
+                                    long long e, int extended,
+                                    cudaStream_t stream) {
+  return launch_dia_spmv<ts_bf16, float>(data, ld, offsets, ndiag, x, y,
+                                         n_rows, n_cols, wl, e, extended,
+                                         stream);
 }
 
 extern "C" const char* ts_error_string(int code) {

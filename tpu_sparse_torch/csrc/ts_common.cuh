@@ -5,6 +5,7 @@
 // than TS_MAX_GRID values and a fixed-order sum over it is cheap.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define TS_MAX_DIAG 64
@@ -160,4 +161,79 @@ __device__ __forceinline__ ts_c64 ts_ldcs(const ts_c64* p) {
 __device__ __forceinline__ ts_c128 ts_ldcs(const ts_c128* p) {
   const double2 q = __ldcs(reinterpret_cast<const double2*>(p));
   return ts_c128(q.x, q.y);
+}
+
+// ---- bf16 -------------------------------------------------------------------
+
+// torch's bfloat16 is __nv_bfloat16's layout: the high 16 bits of a float.
+// A bf16 value is loaded as its 16 bits and widened in registers (exact:
+// the bits shifted into a float's high half), and the kernels compute on
+// the widened value; a bf16 output is rounded once, to nearest even. So a
+// bf16 build on bf16-exact values gives the float build's sums.
+
+using ts_bf16 = __nv_bfloat16;
+
+template <typename T>
+struct ts_is_bf16 {
+  static constexpr bool value = false;
+};
+template <>
+struct ts_is_bf16<ts_bf16> {
+  static constexpr bool value = true;
+};
+
+__device__ __forceinline__ float ts_bf16_bits_to_float(unsigned short u) {
+  return __uint_as_float(static_cast<unsigned int>(u) << 16);
+}
+
+__device__ __forceinline__ ts_bf16 ts_ldg(const ts_bf16* p) {
+  return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ ts_bf16 ts_ldcs(const ts_bf16* p) {
+  return __ushort_as_bfloat16(
+      __ldcs(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// The type a value computes in: float for bf16, the type itself otherwise.
+template <typename T>
+struct ts_wide {
+  using type = T;
+};
+template <>
+struct ts_wide<ts_bf16> {
+  using type = float;
+};
+template <typename T>
+using ts_wide_t = typename ts_wide<T>::type;
+
+template <typename T>
+__device__ __forceinline__ T ts_widen(T v) {
+  return v;
+}
+__device__ __forceinline__ float ts_widen(ts_bf16 v) {
+  return ts_bf16_bits_to_float(__bfloat16_as_ushort(v));
+}
+
+// The sum of a product of values V and operands X, in the type the two
+// compute in: X's widened type (the builds pair bf16 with float or bf16,
+// and every other type with itself).
+template <typename V, typename X>
+using ts_acc_t = ts_wide_t<X>;
+
+// An accumulator written out as Y: rounded once to nearest even for bf16.
+template <typename Y, typename A>
+__device__ __forceinline__ Y ts_narrow(A v) {
+  if constexpr (ts_is_bf16<Y>::value)
+    return __float2bfloat16_rn(v);
+  else
+    return static_cast<Y>(v);
+}
+
+// 0 of a value type (bf16 has no constexpr constructor from an int).
+template <typename T>
+__device__ __forceinline__ T ts_zero() {
+  if constexpr (ts_is_bf16<T>::value)
+    return __ushort_as_bfloat16((unsigned short)0);
+  else
+    return T(0);
 }

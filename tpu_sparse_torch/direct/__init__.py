@@ -85,9 +85,11 @@ class HostLU:
         self.lu = spl.splu(S.astype(self.work).tocsc())
 
     def _solve(self, b: torch.Tensor, trans: str) -> torch.Tensor:
-        bb = b.detach().cpu().numpy()
-        out = self.lu.solve(bb.astype(self.work), trans=trans)
-        return torch.from_numpy(out.astype(bb.dtype)).to(b.device)
+        bb = b.detach().cpu()
+        if bb.dtype == torch.bfloat16:  # numpy has no bf16: float32, exact
+            bb = bb.float()
+        out = self.lu.solve(bb.numpy().astype(self.work), trans=trans)
+        return torch.from_numpy(out).to(b.device, b.dtype)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         return self._solve(b, "N")

@@ -65,11 +65,25 @@ def _dia_band(A: DIA, w: int) -> torch.Tensor:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A tensor as a host array; numpy has no bf16, so a bf16 tensor
+    crosses as float32 (exact) and the host loops run in float32."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _back(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
+def _back(a: np.ndarray, like: torch.Tensor,
+          dtype: "torch.dtype | None" = None) -> torch.Tensor:
+    """A host array on ``like``'s device, cast to ``dtype`` (a bf16 result
+    comes back from the host as float32)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(like.device, dtype or t.dtype)
+
+
+def _lu_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype torch's dense solves run a ``dt`` system in: float32 for
+    bf16, which ``torch.linalg.solve`` does not take (on the CPU or on
+    CUDA); the result is rounded back to ``dt``."""
+    return torch.float32 if dt == torch.bfloat16 else dt
 
 
 def _rhs_dtype(A, b: torch.Tensor) -> torch.dtype:
@@ -100,7 +114,7 @@ def thomas_solve(A: DIA, b: torch.Tensor) -> torch.Tensor:
     for i in range(n - 1, -1, -1):
         x_next = ds[i] - cs[i] * x_next
         x[i] = x_next
-    return _back(x, b)
+    return _back(x, b, dt)
 
 
 def _shift(v: torch.Tensor, k: int) -> torch.Tensor:
@@ -182,7 +196,8 @@ def block_pcr_solve(A: DIA, b: torch.Tensor,
     s = int(block_size) if block_size is not None else max(w, 8)
     if s < w:
         raise ValueError("block size must cover the bandwidth")
-    dt = _rhs_dtype(A, b)
+    out = _rhs_dtype(A, b)
+    dt = _lu_dtype(out)
     D, L, U, m, N = _band_blocks(A.with_data(A.data.to(dt)), s)
     kk = 1 if b.dim() == 1 else b.shape[1]
     r = b.to(dt).new_zeros((N, kk))
@@ -201,7 +216,7 @@ def block_pcr_solve(A: DIA, b: torch.Tensor,
             L = -(L @ DL_m)
             U = -(U @ DU_p)
         x = torch.linalg.solve(D, r).reshape(N, kk)[:n]
-    return x.reshape(b.shape)
+    return x.reshape(b.shape).to(out)
 
 
 def banded_lu_factor(A: DIA) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -238,7 +253,8 @@ def banded_lu_factor(A: DIA) -> Tuple[torch.Tensor, torch.Tensor, int]:
     L_rows = np.zeros((n, w), dt)
     for k in range(1, w + 1):
         L_rows[k:, k - 1] = Ls[:n - k, k - 1]
-    return _back(L_rows, A.data), _back(Us, A.data), w
+    return _back(L_rows, A.data, A.data.dtype), \
+        _back(Us, A.data, A.data.dtype), w
 
 
 def banded_lu_solve(A: DIA, b: torch.Tensor) -> torch.Tensor:
@@ -258,12 +274,13 @@ def banded_lu_solve(A: DIA, b: torch.Tensor) -> torch.Tensor:
     xpad = np.zeros((n + w,) + tail, bb.dtype)
     for i in range(n - 1, -1, -1):
         xpad[i] = (ypad[w + i] - U[i, 1:] @ xpad[i + 1:i + 1 + w]) / U[i, 0]
-    return _back(xpad[:n], b)
+    return _back(xpad[:n], b, dt)
 
 
 def dense_solve(A, b: torch.Tensor) -> torch.Tensor:
     """Dense LU solve (``torch.linalg.solve``, partial pivoting) of a
     container or dense matrix, in the common dtype of A and b."""
     Ad = A.todense() if hasattr(A, "todense") else torch.as_tensor(A)
-    dt = torch.promote_types(Ad.dtype, b.dtype)
-    return torch.linalg.solve(Ad.to(dt), b.to(dt))
+    out = torch.promote_types(Ad.dtype, b.dtype)
+    dt = _lu_dtype(out)
+    return torch.linalg.solve(Ad.to(dt), b.to(dt)).to(out)

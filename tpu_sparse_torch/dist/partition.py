@@ -86,7 +86,7 @@ def pad_csr_identity(A, n_pad: int):
     dtype = A.dtype if isinstance(A, torch.Tensor) else values(A).dtype
     return csr_from_arrays(A_sp.data.astype(numpy_dtype(dtype), copy=False),
                            A_sp.indices, A_sp.indptr, (n_pad, n_pad),
-                           device=A.device)
+                           device=A.device, dtype=dtype)
 
 
 class ShardedDIA:

@@ -12,6 +12,13 @@ products. The DIA, BSR, CSR, COO and dense SpMM and the CSR/COO/dense SpMV
 are plain PyTorch on every device, as the JAX package left them to XLA
 (it has no DIA SpMM kernel). No flag and no fallback selects between paths.
 
+Mixed dtypes: a matrix and an operand of different dtypes are cast to
+their common dtype (the values cast counted in ``CAST_COUNTS``), except
+bf16 values with a float32 or bf16 operand, which the kernels' bf16
+builds (and their plain versions) take as they are, and float32 CWELL
+values with a bf16 B (K6/K7). ``solve()`` casts a bf16 or real operand
+of a float64 or complex b once per solve, so no matvec casts.
+
 ``as_matvec`` / ``as_matmat`` turn an operator into a function of a vector
 / of an (n, k) block. The JAX package batches its multi-RHS solvers with
 ``vmap`` and routes a batched matvec to its SpMM (``batch_safe_matvec``);
@@ -55,9 +62,21 @@ def cast_values(A, dtype: torch.dtype):
     return with_values(A, values(A).to(dtype))
 
 
-def _promote(A, x):
-    """Cast the matrix values and x to their common dtype."""
+# (values dtype, operand dtype) pairs that the kernels' bf16 builds take as
+# they are: bf16 values stream at 2 bytes and are widened in registers, so
+# no values cast. K6/K7 also take float32 values with a bf16 B.
+_BF16_PAIRS = frozenset({(torch.bfloat16, torch.bfloat16),
+                         (torch.bfloat16, torch.float32)})
+_CWELL_SPMM_PAIRS = _BF16_PAIRS | {(torch.float32, torch.bfloat16)}
+
+
+def _promote(A, x, pairs=_BF16_PAIRS):
+    """Cast the matrix values and x to their common dtype, except for a
+    pair in ``pairs``, which the kernel (and its plain version) takes as it
+    is."""
     v = values(A)
+    if (v.dtype, x.dtype) in pairs:
+        return A, x
     dt = torch.promote_types(v.dtype, x.dtype)
     if v.dtype != dt:
         A = cast_values(A, dt)
@@ -127,7 +146,7 @@ def spmm(A, B: torch.Tensor) -> torch.Tensor:
     if isinstance(A, CWELL):
         from tpu_sparse_torch.kernels.cuda_cwell import cwell_spmm
 
-        A, B = _promote(A, B)
+        A, B = _promote(A, B, _CWELL_SPMM_PAIRS)
         return cwell_spmm(A, B.contiguous())
     if isinstance(A, CWELLSeg):
         return _cwellseg_apply(A, B, spmm)

@@ -120,6 +120,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "ts_dia_spmv_f64": [P, L, P, I, P, P, L, L, L, L, I, P],
         "ts_dia_spmv_c64": [P, L, P, I, P, P, L, L, L, L, I, P],
         "ts_dia_spmv_c128": [P, L, P, I, P, P, L, L, L, L, I, P],
+        "ts_dia_spmv_bf16": [P, L, P, I, P, P, L, L, L, L, I, P],
+        "ts_dia_spmv_bf16_f32": [P, L, P, I, P, P, L, L, L, L, I, P],
         # data, ld, offsets, ndiag, n, wl, r, dinv, p_prev, p_new, ap, scal,
         # pap_part, grid, stream
         "ts_dia_cg_spmv_dot": [P, L, P, I, L, L, P, P, P, P, P, P, P, I, P],
@@ -143,17 +145,26 @@ def _declare(lib: ctypes.CDLL) -> None:
         "ts_cwell_spmv_f64": [P, P, P, P, P, P, L, L, L, I, P],
         "ts_cwell_spmv_c64": [P, P, P, P, P, P, L, L, L, I, P],
         "ts_cwell_spmv_c128": [P, P, P, P, P, P, L, L, L, I, P],
+        "ts_cwell_spmv_bf16": [P, P, P, P, P, P, L, L, L, I, P],
+        "ts_cwell_spmv_bf16_f32": [P, P, P, P, P, P, L, L, L, I, P],
         # cvals, idx, srow, boff, B, Y, n_blocks, planes, n_rows, k, depth,
         # wide, stream
         "ts_cwell_spmm_f32": [P, P, P, P, P, P, L, L, L, L, L, I, P],
         "ts_cwell_spmm_f64": [P, P, P, P, P, P, L, L, L, L, L, I, P],
         "ts_cwell_spmm_c64": [P, P, P, P, P, P, L, L, L, L, L, I, P],
         "ts_cwell_spmm_c128": [P, P, P, P, P, P, L, L, L, L, L, I, P],
+        # cvals, idx, srow, boff, B, Y, work, n_blocks, planes, n_rows, k,
+        # depth, wide, stream
+        "ts_cwell_spmm_bf16": [P, P, P, P, P, P, P, L, L, L, L, L, I, P],
+        "ts_cwell_spmm_bf16_f32": [P, P, P, P, P, P, P, L, L, L, L, L, I, P],
+        "ts_cwell_spmm_f32_bf16": [P, P, P, P, P, P, P, L, L, L, L, L, I, P],
         # blocks, indices, B, Y, n_block_rows, L, bs, n_cols, k, stream
         "ts_bell_spmm_f32": [P, P, P, P, L, L, L, L, L, P],
         "ts_bell_spmm_f64": [P, P, P, P, L, L, L, L, L, P],
         "ts_bell_spmm_c64": [P, P, P, P, L, L, L, L, L, P],
         "ts_bell_spmm_c128": [P, P, P, P, L, L, L, L, L, P],
+        "ts_bell_spmm_bf16": [P, P, P, P, L, L, L, L, L, P],
+        "ts_bell_spmm_bf16_f32": [P, P, P, P, L, L, L, L, L, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

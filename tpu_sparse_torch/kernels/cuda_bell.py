@@ -3,7 +3,9 @@
 Counterpart of ``tpu_sparse/kernels/pallas_bell.py``: ``bell_spmm_cuda``
 replaces ``bell_spmm_pallas`` (K8), in float32 (float FMAs, no TF32: the
 TPU kernel multiplied at HIGHEST precision), float64, complex64 and
-complex128. The TPU's limits are gone: no padding of k to 128, no VMEM
+complex128, and on bf16 blocks with a bf16 B or a float32 B: the sums run
+in float32 and Y, in B's dtype as the JAX kernel writes it, is rounded
+once. The TPU's limits are gone: no padding of k to 128, no VMEM
 cap on B, no ``bs % 8`` rule; the kernel takes any block size up to 64
 and refuses larger ones, whose staged blocks would not fit its shared
 memory. The kernel stages each
@@ -27,16 +29,23 @@ from __future__ import annotations
 import torch
 
 from tpu_sparse_torch.kernels import reference as ref
+from tpu_sparse_torch.kernels.cuda_spmv import dtype_pairs
 from tpu_sparse_torch.sparse.bell import BELL
 
 MAX_BLOCKSIZE = 64  # a double-buffered fp64 block and stripe: ~74 KB
 
 # Launches of K8, by dtype; counted where the kernel launches.
 LAUNCHES = {"bell_spmm_f32": 0, "bell_spmm_f64": 0,
-            "bell_spmm_c64": 0, "bell_spmm_c128": 0}
+            "bell_spmm_c64": 0, "bell_spmm_c128": 0,
+            "bell_spmm_bf16": 0, "bell_spmm_bf16_f32": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
-           torch.complex64: "c64", torch.complex128: "c128"}
+           torch.complex64: "c64", torch.complex128: "c128",
+           torch.bfloat16: "bf16"}
+# the builds, by (blocks dtype, B dtype): each dtype with itself, and bf16
+# blocks with a float32 B
+_BUILDS = {**{(d, d): s for d, s in _SUFFIX.items()},
+           (torch.bfloat16, torch.float32): "bf16_f32"}
 
 
 def reset_launch_counts() -> None:
@@ -51,11 +60,12 @@ def _check_operands(A: BELL, B: torch.Tensor) -> str:
         raise ValueError(f"{what}: operands must be CUDA tensors")
     if any(t.device != B.device for t in tensors):
         raise ValueError(f"{what}: operands on more than one device")
-    if A.blocks.dtype not in _SUFFIX or B.dtype != A.blocks.dtype:
+    sfx = _BUILDS.get((A.blocks.dtype, B.dtype))
+    if sfx is None:
         raise TypeError(
-            f"{what}: the kernel takes float32, float64, complex64 or "
-            f"complex128 blocks and B of the same dtype, got "
-            f"{A.blocks.dtype} and {B.dtype}")
+            f"{what}: the kernel takes blocks / B dtypes "
+            f"{dtype_pairs(_BUILDS)}; got {A.blocks.dtype} blocks and a "
+            f"{B.dtype} B")
     if A.indices.dtype != torch.int32:
         raise TypeError(f"{what}: indices must be int32")
     if not all(t.is_contiguous() for t in tensors):
@@ -77,7 +87,7 @@ def _check_operands(A: BELL, B: torch.Tensor) -> str:
     if B.dim() != 2 or B.shape[0] != m:
         raise ValueError(f"{what}: B must have shape ({m}, k), got "
                          f"{tuple(B.shape)}")
-    return _SUFFIX[B.dtype]
+    return sfx
 
 
 def bell_spmm_cuda(A: BELL, B: torch.Tensor) -> torch.Tensor:

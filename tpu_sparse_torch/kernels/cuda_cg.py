@@ -52,8 +52,12 @@ def supports_fused_cg(op) -> bool:
 def make_fused_operator(A) -> "ExtendedStencilOperator | None":
     """Extended operator for the fused CG kernels, or None when the matrix
     does not qualify (square, at least one diagonal, float32, bandwidth
-    below n). The JAX ``precond`` argument sized a VMEM budget and has no
-    counterpart here."""
+    below n): bf16 data is refused, as JAX's fused kernels refuse it
+    (``pallas_cg.py:275``), and takes the extended loop. The JAX
+    ``precond`` argument sized a VMEM budget and has no counterpart
+    here."""
+    if A.data.dtype != torch.float32:
+        return None
     return make_extended_operator(A)
 
 

@@ -4,10 +4,15 @@ Counterpart of ``tpu_sparse/kernels/pallas_spmv.py``:
 
 * ``dia_spmv_cuda`` replaces ``dia_spmv_pallas`` (plain SpMV, rows
   bounds-masked), in float32 and float64, and in complex64 and complex128
-  (the JAX package solves complex systems natively off the TPU);
+  (the JAX package solves complex systems natively off the TPU), and on
+  bf16 data with a float32 x (y float32) or a bf16 x (y bf16): the data
+  streams at 2 bytes a value and is widened in registers, the sum runs in
+  float32 (JAX casts bf16 data to x's float32 and runs its float32 kernel;
+  with a bf16 x the TPU kernel summed in bf16);
 * ``ExtendedStencilOperator`` keeps every solver vector in the halo-extended
   layout ``[0..0 | x | 0..0]`` whose margins stay zero under Krylov vector
-  ops, so the SpMV needs no pad or slice per call;
+  ops, so the SpMV needs no pad or slice per call; float32, float64 and
+  bf16 data (the bf16 builds as above);
 * ``ExtendedStencilOperatorF64`` takes the place of the double-f32
   ``ExtendedStencilOperatorDF``: the card has native fp64, so it is the
   float64 build of the same kernel, with the same ``matvec64``.
@@ -32,12 +37,19 @@ MARGIN_ALIGN = 32
 # Launches of kernel 1, by mode and dtype; counted where the kernel launches.
 LAUNCHES = {"dia_spmv_f32": 0, "dia_spmv_f64": 0,
             "dia_spmv_c64": 0, "dia_spmv_c128": 0,
-            "dia_spmv_ext_f32": 0, "dia_spmv_ext_f64": 0}
+            "dia_spmv_bf16": 0, "dia_spmv_bf16_f32": 0,
+            "dia_spmv_ext_f32": 0, "dia_spmv_ext_f64": 0,
+            "dia_spmv_ext_bf16": 0, "dia_spmv_ext_bf16_f32": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
-           torch.complex64: "c64", torch.complex128: "c128"}
-# the extended mode's dtypes: the fused paths stay real
-_EXT_SUFFIX = ("f32", "f64")
+           torch.complex64: "c64", torch.complex128: "c128",
+           torch.bfloat16: "bf16"}
+# the builds, by (data dtype, x dtype): each dtype with itself, and bf16
+# data with a float32 x
+_BUILDS = {**{(d, d): s for d, s in _SUFFIX.items()},
+           (torch.bfloat16, torch.float32): "bf16_f32"}
+# the extended mode's builds: real (the fused paths never see complex)
+_EXT_SUFFIX = ("f32", "f64", "bf16", "bf16_f32")
 
 
 def reset_launch_counts() -> None:
@@ -49,19 +61,27 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def dtype_pairs(builds: dict, suffixes=None) -> str:
+    """The (values dtype, operand dtype) pairs of ``builds`` whose suffix is
+    in ``suffixes`` (all by default), for error messages."""
+    name = lambda d: str(d).replace("torch.", "")  # noqa: E731
+    return ", ".join(f"{name(d)} / {name(x)}" for (d, x), s in builds.items()
+                     if suffixes is None or s in suffixes)
+
+
 def _check_operands(data: torch.Tensor, x: torch.Tensor, offsets,
-                    x_len: int, what: str, suffixes=tuple(_SUFFIX.values())
+                    x_len: int, what: str, suffixes=tuple(_BUILDS.values())
                     ) -> str:
     if not (data.is_cuda and x.is_cuda):
         raise ValueError(f"{what}: operands must be CUDA tensors")
     if data.device != x.device:
         raise ValueError(f"{what}: data on {data.device}, x on {x.device}")
-    if _SUFFIX.get(data.dtype) not in suffixes or x.dtype != data.dtype:
-        names = ", ".join(str(d).replace("torch.", "") for d, s in
-                          _SUFFIX.items() if s in suffixes)
+    sfx = _BUILDS.get((data.dtype, x.dtype))
+    if sfx not in suffixes:
         raise TypeError(
-            f"{what}: the kernel takes {names} data and x of the same "
-            f"dtype, got {data.dtype} and {x.dtype}")
+            f"{what}: the kernel takes data / x dtypes "
+            f"{dtype_pairs(_BUILDS, suffixes)}; got {data.dtype} data and "
+            f"a {x.dtype} x")
     if len(offsets) > MAX_DIAG:
         raise ValueError(
             f"{what}: {len(offsets)} diagonals exceed the kernel's "
@@ -74,13 +94,14 @@ def _check_operands(data: torch.Tensor, x: torch.Tensor, offsets,
     if x.dim() != 1 or x.shape[0] != x_len:
         raise ValueError(f"{what}: x must have length {x_len}, got "
                          f"{tuple(x.shape)}")
-    return _SUFFIX[data.dtype]
+    return sfx
 
 
-def _launch(data, offsets, x, y, n_rows, n_cols, wl, e, extended, what):
+def _launch(sfx, data, offsets, x, y, n_rows, n_cols, wl, e, extended,
+            what):
     from tpu_sparse_torch.kernels import _build
 
-    fn = getattr(_build.library(), "ts_dia_spmv_" + _SUFFIX[data.dtype])
+    fn = getattr(_build.library(), "ts_dia_spmv_" + sfx)
     offs, offs_ptr = _build.int_array(offsets)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -91,15 +112,16 @@ def _launch(data, offsets, x, y, n_rows, n_cols, wl, e, extended, what):
 
 
 def dia_spmv_cuda(A: DIA, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x by kernel 1 (plain mode) for CUDA operands. A conjugate
-    view (``t.conj()`` of a complex tensor) is read as its values."""
+    """y = A @ x by kernel 1 (plain mode) for CUDA operands; y has x's
+    dtype. A conjugate view (``t.conj()`` of a complex tensor) is read as
+    its values."""
     n, m = A.shape
     data, x = A.data.resolve_conj(), x.resolve_conj()
     sfx = _check_operands(data, x, A.offsets, m, "dia_spmv_cuda")
     if data.shape[1] < n:
         raise ValueError("dia_spmv_cuda: data has fewer columns than rows")
     y = torch.empty(n, dtype=x.dtype, device=x.device)
-    _launch(data, A.offsets, x, y, n, m, 0, 0, False, "dia_spmv_cuda")
+    _launch(sfx, data, A.offsets, x, y, n, m, 0, 0, False, "dia_spmv_cuda")
     LAUNCHES["dia_spmv_" + sfx] += 1
     return y
 
@@ -156,23 +178,25 @@ class ExtendedStencilOperator:
 
     def apply_plain(self, x_ext: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch version of the extended kernel (diagonals
-        accumulated in offsets order, margins written zero)."""
+        accumulated in offsets order, margins written zero; bf16 data and
+        x widened to float32 and y rounded once, as the bf16 builds do)."""
         Wl, n = self.Wl, self.n
+        data, x = ref.widen(self.data), ref.widen(x_ext)
         acc = None
         for d, o in enumerate(self.offsets):
-            term = self.data[d] * x_ext[Wl + o:Wl + o + n]
+            term = data[d] * x[Wl + o:Wl + o + n]
             acc = term if acc is None else acc + term
         y = x_ext.new_zeros(self.E, dtype=acc.dtype)
         y[Wl:Wl + n] = acc
-        return y
+        return y.to(torch.promote_types(self.dtype, x_ext.dtype))
 
     def apply_cuda(self, x_ext: torch.Tensor) -> torch.Tensor:
         """Kernel 1, extended mode."""
         sfx = _check_operands(self.data, x_ext, self.offsets, self.E,
                               "ExtendedStencilOperator", _EXT_SUFFIX)
         y = torch.empty(self.E, dtype=x_ext.dtype, device=x_ext.device)
-        _launch(self.data, self.offsets, x_ext, y, self.n, self.n, self.Wl,
-                self.E, True, "ExtendedStencilOperator")
+        _launch(sfx, self.data, self.offsets, x_ext, y, self.n, self.n,
+                self.Wl, self.E, True, "ExtendedStencilOperator")
         LAUNCHES["dia_spmv_ext_" + sfx] += 1
         return y
 
@@ -209,9 +233,11 @@ def extendable(A: DIA) -> bool:
 
 
 def make_extended_operator(A: DIA) -> "ExtendedStencilOperator | None":
-    """Extended float32 operator, or None when the matrix does not fit the
-    layout (rectangular, no diagonals, bandwidth >= n, not float32)."""
-    if not extendable(A) or A.data.dtype != torch.float32:
+    """Extended float32 or bf16 operator (JAX ``make_extended_operator``
+    takes both), or None when the matrix does not fit the layout
+    (rectangular, no diagonals, bandwidth >= n, neither dtype)."""
+    if not extendable(A) or A.data.dtype not in (torch.float32,
+                                                 torch.bfloat16):
         return None
     return ExtendedStencilOperator(A)
 

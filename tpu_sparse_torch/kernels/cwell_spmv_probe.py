@@ -3,19 +3,20 @@
     python3 -m tpu_sparse_torch.kernels.cwell_spmv_probe [nx]
 
 The kernel source holds two designs, a ring of bulk async copies (K4's,
-8 slot rows x 2 stages) and plain loads (K5's). This probe instantiates
-both for float and double, the ring also at 16 x 2, 4 x 2 and 8 x 4, in
-one extra library: a generated file that includes ``cwell_spmv.cu``,
-compiled with the package's nvcc flags. It prints their ptxas lines,
-packs ``poisson3d_27pt(nx)`` (default 160) taken as a general CSR on the
-card, builds its row-compact plan, checks every design and the shipped
-entry (``cuda_cwell.cwell_spmv_cuda``) in float32 and float64 against
-``reference.cwell_compact_spmv`` and the plane reference (1e-5 / 1e-13 of
-max|y|; reruns bit-identical) and times them in turns (each visited
-twice, in opposite orders) with CUDA events, beside the cuSPARSE CSR
-matvec of the same matrix and the bound (the plan's bytes over 3.35
-TB/s). Then it profiles one BiCGStab solve on the CWELL pack of
-``convection_diffusion_3d_27pt(nx)``: the device's busy share and its
+8 slot rows x 2 stages; 16 x 2 for bf16 values) and plain loads (K5's).
+This probe instantiates both for float, double and bf16 values (with a
+float x), the ring at 8 x 2, 16 x 2, 4 x 2 and 8 x 4, in one extra
+library: a generated file that includes ``cwell_spmv.cu``, compiled with
+the package's nvcc flags. It prints their ptxas lines, packs
+``poisson3d_27pt(nx)`` (default 160) taken as a general CSR on the card,
+builds its row-compact plan, checks every design and the shipped entry
+(``cuda_cwell.cwell_spmv_cuda``) in float32, float64 and bf16 values
+against ``reference.cwell_compact_spmv`` and the plane reference (1e-5 /
+1e-13 / 1e-5 of max|y|; reruns bit-identical) and times them in turns
+(each visited twice, in opposite orders) with CUDA events, beside the
+cuSPARSE CSR matvec of the same matrix and the bound (the plan's bytes
+over 3.35 TB/s). Then it profiles one BiCGStab solve on the CWELL pack
+of ``convection_diffusion_3d_27pt(nx)``: the device's busy share and its
 time by kernel. Needs nvcc and a CUDA device; it changes nothing in the
 package.
 """
@@ -31,7 +32,9 @@ from pathlib import Path
 # design: (slot rows a stage, stages); (0, 0) is plain loads
 DESIGNS = {"ring 8x2": (8, 2), "ring 16x2": (16, 2), "ring 4x2": (4, 2),
            "ring 8x4": (8, 4), "plain loads": (0, 0)}
-_TYPES = {"f32": "float", "f64": "double"}
+# values' and x's C types
+_TYPES = {"f32": ("float", "float"), "f64": ("double", "double"),
+          "bf16": ("ts_bf16", "float")}
 
 
 def _symbol(chunk: int, stages: int, sfx: str) -> str:
@@ -46,15 +49,15 @@ def build_designs(work: Path) -> "tuple[ctypes.CDLL, list]":
     src = work / "cwell_spmv_probe.cu"
     lines = ['#include "cwell_spmv.cu"']
     for chunk, stages in DESIGNS.values():
-        for sfx, T in _TYPES.items():
+        for sfx, (T, X) in _TYPES.items():
             lines.append(
                 f'extern "C" int {_symbol(chunk, stages, sfx)}(const void* v,'
                 f" const void* ix, const int* srow, const long long* boff, "
                 f"const void* x, void* y, long long nb, long long planes, "
                 f"long long n, cudaStream_t s) {{ return launch_cwell_spmv<"
-                f"{T}, unsigned short, {chunk}, {stages}>((const {T}*)v, "
-                f"(const unsigned short*)ix, srow, boff, (const {T}*)x, "
-                f"({T}*)y, nb, planes, n, s); }}")
+                f"{T}, {X}, unsigned short, {chunk}, {stages}>((const {T}*)"
+                f"v, (const unsigned short*)ix, srow, boff, (const {X}*)x, "
+                f"({X}*)y, nb, planes, n, s); }}")
     src.write_text("\n".join(lines) + "\n")
     lib = work / "cwell_spmv_probe.so"
     proc = subprocess.run(
@@ -107,7 +110,8 @@ def main(argv) -> int:
         W = csr_to_cwell(A)
         n, m = W.shape
         cwell_compact.reset_counts()
-        packs = {"f32": W, "f64": W.with_data(W.vals.double())}
+        packs = {"f32": W, "f64": W.with_data(W.vals.double()),
+                 "bf16": W.with_data(W.vals.bfloat16())}
         compacts = {k: cwell_compact.compact(P) for k, P in packs.items()}
         plan = compacts["f32"][0]
         assert not plan.wide
@@ -120,13 +124,13 @@ def main(argv) -> int:
               f"{dict(cwell_compact.COUNTS)}")
         for key, P in packs.items():
             plan, cv = compacts[key]
-            dt = P.vals.dtype
+            dt = torch.float32 if key == "bf16" else P.vals.dtype
             size = P.vals.element_size()
             x = torch.from_numpy(np.random.default_rng(5).standard_normal(
                 m)).to(dev, dt)
             y_ref = ref.cwell_compact_spmv(plan, cv, x)
             y_pack = ref.cwell_spmv(P, x)
-            tol = 1e-5 if key == "f32" else 1e-13
+            tol = 1e-13 if key == "f64" else 1e-5
             scale = float(y_ref.abs().max())
             check = float((y_ref - y_pack).abs().max())
             print(f"{key}: compact reference vs plane reference max abs "
@@ -163,7 +167,7 @@ def main(argv) -> int:
                        for y in outs.values())
             nbytes = (plan.slots * (size + plan.idx.element_size())
                       + plan.boff.numel() * 8 + W.srow.numel() * 4
-                      + (n + m) * size)
+                      + (n + m) * x.element_size())
             bound = nbytes / 3.35e12 * 1e3
             times = {name: [] for name in calls}
             for name in list(calls) + list(reversed(calls)):

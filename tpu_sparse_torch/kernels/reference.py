@@ -10,6 +10,18 @@ BELL versions contract dense blocks with gathered chunks of x. Each
 by column. Every version takes real and complex values alike (the
 complex builds of the card's kernels are held against them).
 
+bf16: the CPU route (``dia_spmv``, ``cwell_spmv``, ``bell_spmm``, ...)
+computes in the common dtype of the values and the operand, as the JAX
+package's XLA path does, so a bf16 matrix with a bf16 operand sums in
+bf16 on the CPU; ``cwell_spmv`` / ``cwell_spmm`` widen bf16 values to a
+float32 operand's dtype before the gather, as JAX's kernel K4 does (its
+XLA reference casts the gathered operand to bf16 instead: ROADMAP R15).
+The plain versions of the card's bf16 builds are ``dia_spmv_wide``,
+``bell_spmm_wide`` and the compact versions (``cwell_compact_spmv`` /
+``cwell_compact_spmm``): bf16 values and operand widened to float32, the
+products and sums in float32, the result rounded once to the common
+dtype.
+
 The CWELL and BELL versions skip every product whose matrix value is 0,
 as the card's kernels do, so a NaN or Inf in x or B reaches only the rows
 whose nonzeros gather it. JAX's references (``mode="fill"``) multiply
@@ -22,6 +34,18 @@ from __future__ import annotations
 import torch
 
 from tpu_sparse_torch.sparse.containers import BSR, COO, CSR, DIA
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor as float32 (exact), any other tensor as it is: the
+    type the card's bf16 builds compute in."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _wide_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """The common dtype of a and b, float32 in place of bf16."""
+    dt = torch.promote_types(a, b)
+    return torch.float32 if dt == torch.bfloat16 else dt
 
 
 class _NonzeroProduct(torch.autograd.Function):
@@ -80,15 +104,26 @@ def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def dia_spmv_wide(A: DIA, x: torch.Tensor) -> torch.Tensor:
+    """``dia_spmv`` as kernel 1's bf16 builds compute it: bf16 data and x
+    widened to float32, the sum in float32, y rounded once to the common
+    dtype."""
+    out = torch.promote_types(A.data.dtype, x.dtype)
+    return dia_spmv(DIA(widen(A.data), A.offsets, A.shape),
+                    widen(x)).to(out)
+
+
 def cwell_spmv(A, x: torch.Tensor) -> torch.Tensor:
     """y[row] = sum over planes of vals * x[srow * 128 + idx2], where a
     column at or past m gathers 0 (JAX ``mode="fill"``) and a slot of
-    value 0 adds 0 whatever x holds. Computed in the values' dtype."""
+    value 0 adds 0 whatever x holds. Computed in the common dtype of the
+    values and x."""
     n, m = A.shape
+    dt = torch.promote_types(A.vals.dtype, x.dtype)
     gc = A.srow[:, :, None].long() * 128 + A.idx2
     x_fill = torch.cat([x, x.new_zeros(1)])  # x_fill[m] = 0
     xg = x_fill[torch.where((gc >= 0) & (gc < m), gc, m)]
-    y = torch.sum(_nonzero_product(A.vals, xg.to(A.vals.dtype)), dim=1)
+    y = torch.sum(_nonzero_product(A.vals.to(dt), xg.to(dt)), dim=1)
     return y.reshape(-1)[:n]
 
 
@@ -97,7 +132,11 @@ def cwell_compact_spmv(plan, cvals: torch.Tensor,
     """y = W @ x from W's row-compact plan (``sparse.cwell_compact``) and
     compact values: each row's slots summed one slot row at a time, in
     slot order (K4 / K5's order). Slots of value 0 add nothing, whatever x
-    holds at their column. Computed in the values' dtype."""
+    holds at their column. Computed in the common dtype of the values and
+    x, a bf16 one widened to float32 and y rounded once (K4's bf16
+    builds)."""
+    out = torch.promote_types(cvals.dtype, x.dtype)
+    cvals = cvals.to(_wide_dtype(cvals.dtype, x.dtype))
     n, m = plan.shape
     nb = plan.n_blocks
     lens = torch.diff(plan.boff) // 128
@@ -115,7 +154,7 @@ def cwell_compact_spmv(plan, cvals: torch.Tensor,
     y = cvals.new_zeros((nb, 128))
     for j in range(depth):
         y += v[:, j] * x_fill[c[:, j]]
-    return y.reshape(-1)[:n]
+    return y.reshape(-1)[:n].to(out)
 
 
 def cwell_compact_spmm(plan, cvals: torch.Tensor,
@@ -123,8 +162,11 @@ def cwell_compact_spmm(plan, cvals: torch.Tensor,
     """Y = W @ B for a dense (m, k) B from W's row-compact plan and compact
     values (K6 / K7's layout): each row's slots summed one slot row at a
     time, in slot order, as ``cwell_compact_spmv`` sums each column. Slots
-    of value 0 add nothing. Computed in the values' dtype; the gathered
+    of value 0 add nothing. Computed as ``cwell_compact_spmv`` computes (a
+    bf16 value or B widened to float32, Y rounded once); the gathered
     operand holds one slot row: (n_blocks * 128, k)."""
+    out = torch.promote_types(cvals.dtype, B.dtype)
+    cvals = cvals.to(_wide_dtype(cvals.dtype, B.dtype))
     n, m = plan.shape
     nb, k = plan.n_blocks, B.shape[1]
     lens = torch.diff(plan.boff) // 128
@@ -142,7 +184,7 @@ def cwell_compact_spmm(plan, cvals: torch.Tensor,
     y = cvals.new_zeros((nb, 128, k))
     for j in range(depth):
         y += v[:, j, :, None] * B_fill[c[:, j]]
-    return y.reshape(-1, k)[:n]
+    return y.reshape(-1, k)[:n].to(out)
 
 
 def cwell_spmm(A, B: torch.Tensor) -> torch.Tensor:
@@ -150,14 +192,16 @@ def cwell_spmm(A, B: torch.Tensor) -> torch.Tensor:
     ``cwell_spmv``: a column at or past m gathers a row of zeros, a slot of
     value 0 adds 0. The planes are summed one at a time, in order, so the
     gathered operand never holds more than one plane: (n_blocks * 128,
-    k)."""
+    k). Computed in the common dtype of the values and B."""
     n, m = A.shape
     k = B.shape[1]
-    B_fill = torch.cat([B, B.new_zeros((1, k))]).to(A.vals.dtype)
-    y = A.vals.new_zeros((A.vals.shape[0], A.vals.shape[2], k))
-    for s in range(A.vals.shape[1]):
+    dt = torch.promote_types(A.vals.dtype, B.dtype)
+    vals = A.vals.to(dt)
+    B_fill = torch.cat([B, B.new_zeros((1, k))]).to(dt)
+    y = vals.new_zeros((vals.shape[0], vals.shape[2], k))
+    for s in range(vals.shape[1]):
         gc = A.srow[:, s, None].long() * 128 + A.idx2[:, s]  # (nb, 128)
-        y += _nonzero_product(A.vals[:, s, :, None], B_fill[
+        y += _nonzero_product(vals[:, s, :, None], B_fill[
             torch.where((gc >= 0) & (gc < m), gc, m)])
     return y.reshape(-1, k)[:n]
 
@@ -224,3 +268,10 @@ def bell_spmm(A, B: torch.Tensor) -> torch.Tensor:
         y += _nonzero_product(A.blocks[:, :, :, c, None],  # (nbr, L, bs, 1)
                               gathered[:, :, None, c, :]).sum(1)
     return y.reshape(A.shape[0], k)
+
+
+def bell_spmm_wide(A, B: torch.Tensor) -> torch.Tensor:
+    """``bell_spmm`` as K8's bf16 builds compute it: bf16 blocks and B
+    widened to float32, the sums in float32, Y rounded once to B's
+    dtype."""
+    return bell_spmm(A.with_data(widen(A.blocks)), widen(B)).to(B.dtype)

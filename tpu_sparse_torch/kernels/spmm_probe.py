@@ -13,7 +13,9 @@ the first design on the plane pack, at k = 8, 32, 128 in float32 and k = 4
 in float64. K8 on kron(poisson3d_27pt(bell_nx), C8) (default 40) as a BELL
 of 8 x 8 blocks: one stage of 24 to 96 KB (bs = 8 unrolled; the shipped
 entry takes 96 KB in float32, 64 KB in float64), two stages, any bs, and
-the first design, at k = 8, 32 in float32 and k = 4 in float64. Every design
+the first design, at k = 8, 32 in float32 and k = 4 in float64; and on
+bf16 blocks with a float32 B at k = 8, one stage of 32 to 96 KB beside the
+shipped entry and the float32 blocks. Every design
 is checked against its plain version (``reference.cwell_compact_spmm`` /
 ``reference.bell_spmm``; 1e-5 / 1e-12 of max|Y|), reruns are
 bit-identical, the designs' agreement with the shipped one is printed
@@ -49,6 +51,11 @@ BELL_DESIGNS = {"1 x 96 KB": (1, 8, 98304),
                 "1 x 48 KB, any bs": (1, 0, 49152),
                 "first design": None}
 _TYPES = {"f32": "float", "f64": "double"}
+# K8 on bf16 blocks with a float32 B: one stage of these target bytes
+# (bs = 8 unrolled)
+BF16_BELL_STAGES = {"bf16 1 x 96 KB": 98304, "bf16 1 x 80 KB": 81920,
+                    "bf16 1 x 64 KB": 65536, "bf16 1 x 48 KB": 49152,
+                    "bf16 1 x 32 KB": 32768}
 
 
 def _cwell_symbol(design, sfx):
@@ -85,14 +92,15 @@ def build_designs(work: Path) -> "tuple[ctypes.CDLL, list]":
                     f"const int* srow, const long long* boff, const void* B, "
                     f"void* Y, long long nb, long long planes, long long n, "
                     f"long long k, long long depth, int wide, cudaStream_t s)"
-                    f" {{ return launch_cwell_spmm<{T}, {d[0]}, "
+                    f" {{ return launch_cwell_spmm<{T}, {T}, {T}, {d[0]}, "
                     f"{'true' if d[1] else 'false'}>((const {T}*)cv, ix, "
-                    f"srow, boff, (const {T}*)B, ({T}*)Y, nb, planes, n, k, "
-                    f"depth, wide, s); }}")
+                    f"srow, boff, (const {T}*)B, ({T}*)Y, nullptr, nb, "
+                    f"planes, n, k, depth, wide, s); }}")
         for d in BELL_DESIGNS.values():
             name = _bell_symbol(d, sfx)
             call = ("launch_bell_spmm_v1<{T}>" if d is None else
-                    "launch_bell_spmm<{T}, {d[0]}, {d[1]}>").format(T=T, d=d)
+                    "launch_bell_spmm<{T}, {T}, {T}, {d[0]}, {d[1]}>").format(
+                        T=T, d=d)
             extra = "" if d is None else f", {d[2]}"
             lines.append(
                 f'extern "C" int {name}(const void* blk, const int* idx, '
@@ -100,6 +108,14 @@ def build_designs(work: Path) -> "tuple[ctypes.CDLL, list]":
                 f"long long bs, long long m, long long k, cudaStream_t s) "
                 f"{{ return {call}((const {T}*)blk, idx, (const {T}*)B, "
                 f"({T}*)Y, nbr, L, bs, m, k, s{extra}); }}")
+    for stage in BF16_BELL_STAGES.values():
+        lines.append(
+            f'extern "C" int probe_bell_bf16_{stage}(const void* blk, '
+            f"const int* idx, const void* B, void* Y, long long nbr, "
+            f"long long L, long long bs, long long m, long long k, "
+            f"cudaStream_t s) {{ return launch_bell_spmm<ts_bf16, float, "
+            f"float, 1, 8>((const ts_bf16*)blk, idx, (const float*)B, "
+            f"(float*)Y, nbr, L, bs, m, k, s, {stage}); }}")
     src.write_text("\n".join(lines) + "\n")
     lib = work / "spmm_probe.so"
     proc = subprocess.run(
@@ -125,6 +141,10 @@ def build_designs(work: Path) -> "tuple[ctypes.CDLL, list]":
             fn = getattr(loaded, _bell_symbol(d, sfx))
             fn.argtypes = [P] * 4 + [L] * 5 + [P]
             fn.restype = ctypes.c_int
+    for stage in BF16_BELL_STAGES.values():
+        fn = getattr(loaded, f"probe_bell_bf16_{stage}")
+        fn.argtypes = [P] * 4 + [L] * 5 + [P]
+        fn.restype = ctypes.c_int
     return loaded, info
 
 
@@ -347,6 +367,46 @@ def main(argv) -> int:
             print(f"  {'cuSPARSE torch.sparse.mm':28s} {fmt(t_lib, bound)}",
                   flush=True)
             del csr, B, Ab
+
+        # ---- K8 on bf16 blocks, float32 B: the stage size -----------------
+        Ab = bell.with_data(bell.blocks.to(torch.bfloat16))
+        k = 8
+        B = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (Ab.shape[1], k)).astype(np.float32)).to(dev)
+
+        def bf16_design(stage):
+            fn = getattr(lib, f"probe_bell_bf16_{stage}")
+
+            def call():
+                Y = torch.empty((Ab.shape[0], k), dtype=torch.float32,
+                                device=dev)
+                rc = fn(Ab.blocks.data_ptr(), Ab.indices.data_ptr(),
+                        B.data_ptr(), Y.data_ptr(), Ab.n_block_rows,
+                        Ab.ell_width, Ab.blocksize, Ab.shape[1], k, stream())
+                if rc != 0:
+                    raise RuntimeError(f"launch failed: {rc}")
+                return Y
+            return call
+
+        calls = {name: bf16_design(st)
+                 for name, st in BF16_BELL_STAGES.items()}
+        calls["shipped (cuda_bell)"] = lambda: cuda_bell.bell_spmm_cuda(Ab, B)
+        Ab32 = Ab.with_data(Ab.blocks.float())  # the same values
+        calls["float32 blocks, shipped"] = \
+            lambda: cuda_bell.bell_spmm_cuda(Ab32, B)
+        Y0 = ref.bell_spmm_wide(Ab, B)
+        outs = {name: (c(), c()) for name, c in calls.items()}
+        torch.cuda.synchronize()
+        agree = _agree(outs, "shipped (cuda_bell)", Y0, 1e-5)
+        del outs, Y0
+        nbytes = (Ab.blocks.numel() * 2 + Ab.indices.numel() * 4
+                  + (Ab.shape[0] + Ab.shape[1]) * k * 4)
+        bound = nbytes / 3.35e12 * 1e3
+        times = _time_in_turns(calls, cuda_times_ms)
+        print(f"K8 bf16 blocks, float32 B, k={k}: bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB); {agree}")
+        for name, t in times.items():
+            print(f"  {name:28s} {fmt(t, bound)}", flush=True)
     return 0
 
 

@@ -228,13 +228,15 @@ def _pack_level_op(S_sp: sp.csr_matrix, dtype: torch.dtype,
     data = S_sp.data.astype(np_dt, copy=False)
     if device.type != "cuda":
         return csr_from_arrays(data, S_sp.indices, S_sp.indptr, S_sp.shape,
-                               device=device)
+                               device=device, dtype=dtype)
     if max(S_sp.shape) <= _DENSE_LEVEL_MAX:
-        return torch.from_numpy(S_sp.toarray().astype(np_dt)).to(device)
+        return torch.from_numpy(S_sp.toarray().astype(np_dt)).to(device,
+                                                                  dtype)
     from tpu_sparse_torch.sparse.optimize import to_gpu_operator
 
     return to_gpu_operator(csr_from_arrays(data, S_sp.indices, S_sp.indptr,
-                                           S_sp.shape, device=device),
+                                           S_sp.shape, device=device,
+                                           dtype=dtype),
                            min_cwell_fill=0.04)
 
 

@@ -107,9 +107,9 @@ def fsai_setup(A, *, pattern_power: int = 1,
     Gts = Gs.T.tocsr()
     Gts.sort_indices()
     G = csr_from_arrays(Gs.data, Gs.indices, Gs.indptr, (n, n),
-                        device=device)
+                        device=device, dtype=dtype)
     Gt = csr_from_arrays(Gts.data, Gts.indices, Gts.indptr, (n, n),
-                         device=device)
+                         device=device, dtype=dtype)
     return G, Gt
 
 

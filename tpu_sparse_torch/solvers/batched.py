@@ -31,8 +31,9 @@ import torch
 
 from tpu_sparse_torch.kernels import as_matmat
 from tpu_sparse_torch.solvers.fcg import _fcg_loop
-from tpu_sparse_torch.solvers.krylov import (EXIT_CHECK, _apply_givens,
-                                             _bicgstab_loop, _cg_loop,
+from tpu_sparse_torch.solvers.krylov import (EXIT_CHECK, _WIDE,
+                                             _apply_givens, _bicgstab_loop,
+                                             _cg_loop,
                                              _final_check_relax, _real_dtype,
                                              _upper_triangular_solve)
 from tpu_sparse_torch.solvers.minres import _minres_loop
@@ -40,7 +41,14 @@ from tpu_sparse_torch.solvers.pipelined import _cg_sr_loop
 
 
 def cols_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """<a[:, j], b[:, j]> for every column j (conjugate-linear in a)."""
+    """<a[:, j], b[:, j]> for every column j (conjugate-linear in a). A
+    bf16 column dot takes exact products and sums them in float32, then
+    rounds once, as ``torch.vdot`` (the single-RHS loops' dot) and the JAX
+    dot of the ``vmap``-ed ``batch_cg`` do; products rounded to bf16 first
+    took other iterations than the single solves."""
+    if a.dtype in _WIDE:
+        wide = _WIDE[a.dtype]
+        return torch.sum(a.to(wide) * b.to(wide), dim=0).to(a.dtype)
     return torch.sum(a.conj() * b, dim=0)
 
 
@@ -264,8 +272,10 @@ def _lstsq_rows(H: torch.Tensor, beta: torch.Tensor, restart: int):
         G = G + torch.eye(restart, dtype=G.dtype, device=G.device) * (
             eps * trace)[:, None, None]
         return gj_solve_batched(G, _bmv(Hh, rhs)[:, :, None])[:, :, 0]
-    Q, R = torch.linalg.qr(Hm, mode="reduced")
-    return _upper_triangular_solve(R, _bmv(Q.conj().transpose(1, 2), rhs))
+    wide = _WIDE.get(H.dtype, H.dtype)  # torch has no bf16 QR
+    Q, R = torch.linalg.qr(Hm.to(wide), mode="reduced")
+    return _upper_triangular_solve(
+        R, _bmv(Q.conj().transpose(1, 2), rhs.to(wide))).to(H.dtype)
 
 
 def _new_basis_rows(unit_residual: torch.Tensor, restart: int):

@@ -369,14 +369,25 @@ def _gauss_jordan_solve(G: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return aug[:, m]
 
 
+# The dtype a bf16 (or float16) computation runs in where torch has no
+# build for it: torch has no bf16 QR or triangular solve, on the CPU or on
+# CUDA, so a cycle in those dtypes solves its small (restart + 1) x restart
+# least-squares problem in float32 and rounds y to its own dtype.
+_WIDE = {torch.bfloat16: torch.float32, torch.float16: torch.float32}
+
+
 def _upper_triangular_solve(R: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Back-substitution for upper-triangular R; leading dimensions batch.
     A zero pivot divides by 1, as the JAX package's loop does; one
-    triangular solve instead of its loop over the rows."""
+    triangular solve instead of its loop over the rows (in float32 for a
+    bf16 R, rounded back)."""
+    dtype = R.dtype
+    wide = _WIDE.get(dtype, dtype)
+    R, c = R.to(wide), c.to(wide)
     d = torch.diagonal(R, dim1=-2, dim2=-1)
     R = R + torch.diag_embed((d == 0).to(R.dtype))
     return torch.linalg.solve_triangular(R, c.unsqueeze(-1),
-                                         upper=True).squeeze(-1)
+                                         upper=True).squeeze(-1).to(dtype)
 
 
 def _lstsq_normal(H: torch.Tensor, beta: torch.Tensor, restart: int):
@@ -395,11 +406,12 @@ def _lstsq_normal(H: torch.Tensor, beta: torch.Tensor, restart: int):
 def _lstsq_qr(H: torch.Tensor, beta: torch.Tensor, restart: int):
     """Backward-stable lstsq by Householder QR, for 32-bit cycles (the
     normal equations square cond(H), which f32 cannot carry)."""
-    Hm = H.T
+    dtype = H.dtype
+    Hm = H.T.to(_WIDE.get(dtype, dtype))
     rhs = torch.zeros(restart + 1, dtype=Hm.dtype, device=Hm.device)
     rhs[0] = beta
     Q, R = torch.linalg.qr(Hm, mode="reduced")
-    return _upper_triangular_solve(R, Q.conj().T @ rhs)
+    return _upper_triangular_solve(R, Q.conj().T @ rhs).to(dtype)
 
 
 def _new_basis(unit_residual: torch.Tensor, restart: int) -> torch.Tensor:

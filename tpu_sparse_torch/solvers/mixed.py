@@ -13,7 +13,9 @@ Counterpart of ``tpu_sparse/solvers/mixed.py`` (``refined_solve``,
     until ||r|| <= max(tol*||b||, atol)
 
 (complex128 outer, complex64 inner for a complex system: R12 repaired,
-see ``_inner_dtype``)
+see ``_inner_dtype``; ``inner_dtype=torch.bfloat16`` sweeps in bf16, as
+the JAX ``refined_solve`` takes it: on the card a DIA's inner sweeps run
+kernel 1's bf16 extended build, a CWELL's K4's bf16 build)
 
 followed by one full-precision rescue solve when the sweeps stall. On CUDA
 DIA operands the outer f64 residuals run the fp64 extended kernel and the

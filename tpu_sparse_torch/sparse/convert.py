@@ -23,64 +23,99 @@ from tpu_sparse_torch.sparse.cwell import CWELL
 
 
 def _np(a) -> np.ndarray:
+    """An array-like as a host array; a bf16 tensor crosses as float32
+    (numpy has no bf16; the widening is exact)."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        a = a.detach().cpu()
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
     return np.asarray(a)
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
-    """The numpy dtype of a torch dtype (float32 -> float32, ...)."""
+    """The numpy dtype that carries a torch dtype on the host (float32 ->
+    float32, ...; bf16 -> float32, cast back by torch on the way in)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.float32)
     return np.dtype(str(dtype).replace("torch.", ""))
 
 
+def _host_array(a) -> "tuple[np.ndarray, torch.dtype | None]":
+    """(a copy of an array-like as a numpy array torch takes, the torch
+    dtype it stands for when that is not its own). A bf16 array (numpy's
+    ``bfloat16`` extension dtype, as ``np.asarray`` of a JAX bf16 array
+    gives) is widened to float32, exactly, and stands for bf16: torch
+    cannot wrap that dtype. The extension module is never imported here;
+    callers without it pass float32 arrays of bf16-exact values and
+    ``dtype=torch.bfloat16``."""
+    arr = np.array(a, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return arr.astype(np.float32), torch.bfloat16
+    return arr, None
+
+
 def _tensor(a, device, dtype=None) -> torch.Tensor:
-    """A tensor on ``device``: an array-like is copied, a tensor moved."""
-    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-        np.array(a, copy=True))
-    return t.to(device=device, dtype=dtype)
+    """A tensor on ``device``, cast to ``dtype`` when given: an array-like
+    is copied, a tensor moved."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    arr, own = _host_array(a)
+    return torch.from_numpy(arr).to(device=device, dtype=dtype or own)
 
 
-def dia_from_offsets(offsets, diag_data, shape, device="cuda") -> DIA:
+def dia_from_offsets(offsets, diag_data, shape, device="cuda",
+                     dtype=None) -> DIA:
     """DIA from offsets and an (ndiag, n) array on ``device`` (the card
-    unless the caller asks for the CPU); numpy input is wrapped without a
-    copy when it stays on the CPU."""
-    if isinstance(diag_data, np.ndarray) and diag_data.flags.writeable:
-        data = torch.from_numpy(diag_data)
+    unless the caller asks for the CPU), cast to ``dtype`` when given;
+    numpy input is wrapped without a copy when it stays on the CPU in its
+    own dtype."""
+    if isinstance(diag_data, np.ndarray) and diag_data.flags.writeable \
+            and diag_data.dtype.name != "bfloat16":
+        data = torch.from_numpy(diag_data).to(device, dtype)
+    elif isinstance(diag_data, torch.Tensor):
+        data = diag_data.detach().clone().to(device, dtype)
     else:
-        data = torch.as_tensor(_np(diag_data).copy())
-    return DIA(data.to(device), tuple(int(o) for o in offsets), shape)
+        data = _tensor(diag_data, device, dtype)
+    return DIA(data, tuple(int(o) for o in offsets), shape)
 
 
-def dia_from_numpy(data, offsets, shape, device="cuda") -> DIA:
+def dia_from_numpy(data, offsets, shape, device="cuda", dtype=None) -> DIA:
     """Copy an (ndiag, n) array-like and its offsets into a DIA on
-    ``device`` (the card unless the caller asks for the CPU)."""
-    t = torch.from_numpy(np.array(data, copy=True)).to(device)
-    return DIA(t, tuple(int(o) for o in offsets), tuple(int(s) for s in shape))
+    ``device`` (the card unless the caller asks for the CPU), cast to
+    ``dtype`` when given (bf16 crosses as float32 arrays of bf16-exact
+    values, cast by torch)."""
+    return DIA(_tensor(data, device, dtype), tuple(int(o) for o in offsets),
+               tuple(int(s) for s in shape))
 
 
 def cwell_from_numpy(vals, idx2, srow, shape, *, nnz, fill, group,
-                     device="cuda") -> CWELL:
+                     device="cuda", dtype=None) -> CWELL:
     """Copy a CWELL pack's arrays (for example a JAX pack's, as numpy) into
-    a CWELL on ``device`` (the card unless the caller asks for the CPU)."""
-    return CWELL(_tensor(vals, device), _tensor(idx2, device, torch.int32),
+    a CWELL on ``device`` (the card unless the caller asks for the CPU),
+    its values cast to ``dtype`` when given."""
+    return CWELL(_tensor(vals, device, dtype),
+                 _tensor(idx2, device, torch.int32),
                  _tensor(srow, device, torch.int32),
                  tuple(int(s) for s in shape), nnz=nnz, fill=fill,
                  group=group)
 
 
-def bsr_from_arrays(data, indices, indptr, shape, device="cuda") -> BSR:
+def bsr_from_arrays(data, indices, indptr, shape, device="cuda",
+                    dtype=None) -> BSR:
     """Copy BSR arrays (for example a JAX BSR's, as numpy) into a BSR on
-    ``device`` (the card unless the caller asks for the CPU)."""
-    return BSR(_tensor(data, device), _tensor(indices, device, torch.int32),
+    ``device`` (the card unless the caller asks for the CPU), its values
+    cast to ``dtype`` when given."""
+    return BSR(_tensor(data, device, dtype),
+               _tensor(indices, device, torch.int32),
                _tensor(indptr, device, torch.int32),
                tuple(int(s) for s in shape))
 
 
-def bell_from_numpy(blocks, indices, shape, device="cuda") -> BELL:
+def bell_from_numpy(blocks, indices, shape, device="cuda",
+                    dtype=None) -> BELL:
     """Copy a BELL's blocks and block-column ids (for example a JAX
     BELL's, as numpy) into a BELL on ``device`` (the card unless the
-    caller asks for the CPU)."""
-    return BELL(_tensor(blocks, device),
+    caller asks for the CPU), its blocks cast to ``dtype`` when given."""
+    return BELL(_tensor(blocks, device, dtype),
                 _tensor(indices, device, torch.int32),
                 tuple(int(s) for s in shape))
 
@@ -119,10 +154,13 @@ def dense_to_csr(A, tol: float = 0.0) -> CSR:
                A.shape)
 
 
-def csr_from_arrays(data, indices, indptr, shape, device="cuda") -> CSR:
+def csr_from_arrays(data, indices, indptr, shape, device="cuda",
+                    dtype=None) -> CSR:
     """CSR from array-likes, on ``device`` (the card unless the caller asks
-    for the CPU); indices and indptr become int32."""
-    return CSR(_tensor(data, device), _tensor(indices, device, torch.int32),
+    for the CPU), its values cast to ``dtype`` when given; indices and
+    indptr become int32."""
+    return CSR(_tensor(data, device, dtype),
+               _tensor(indices, device, torch.int32),
                _tensor(indptr, device, torch.int32), shape)
 
 
