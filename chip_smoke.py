@@ -123,6 +123,12 @@ counters set to 0 just before it and read just after:
   against its plain version at the 160^3 shapes, timed beside its bound,
   its plain version and torch's bf16 CSR call where torch takes the pair.
 
+Phase (2) holds kernel 1's plain mode to its first design (v1,
+``csrc/dia_spmv_v1.cuh``) bit for bit on its cases, as phases (6), (28)
+and (29) do on the main-path, complex and bf16 operands; phase (6) times
+v1 and the shipped plain mode in turns in every build at the 160^3 shapes
+(f64 also at 64^3 and at the LDC's 256^2 5-point shape).
+
 It checks every kernel again at the shapes the main paths gave it, and
 times every kernel and solve beside its plain version with CUDA events
 (solves: median and min-max of 5), beside each kernel's bound (bytes over
@@ -189,6 +195,50 @@ def rel_err(y, y0) -> float:
     return float((y - y0).abs().max() / y0.abs().max().clamp_min(1e-300))
 
 
+def same_bits(a, b) -> bool:
+    """a and b hold the same bits (NaNs compare by their bits)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    it = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(it), b.contiguous().view(it))
+
+
+def kernel1_turns(cases, times) -> None:
+    """Kernel 1's plain mode: the first design (v1) and the shipped one, bit
+    for bit, then timed in turns (v1, shipped, shipped, v1; each visit
+    ``times(fn)``, a list of ms) on each (label, A, x), beside the bound
+    (data, x and y bytes over 3.35 TB/s). These launches are comparisons,
+    not main-path runs."""
+    from tpu_sparse_torch.kernels import cuda_spmv
+
+    for label, A, x in cases:
+        y = cuda_spmv.dia_spmv_cuda(A, x)
+        y1 = cuda_spmv.dia_spmv_v1_cuda(A, x)
+        check(same_bits(y, y1),
+              f"kernel 1 ({label}) differs from v1 in some bit")
+        del y, y1
+        calls = {"v1": lambda A=A, x=x: cuda_spmv.dia_spmv_v1_cuda(A, x),
+                 "shipped": lambda A=A, x=x: cuda_spmv.dia_spmv_cuda(A, x)}
+        t = {"v1": [], "shipped": []}
+        for name in ("v1", "shipped", "shipped", "v1"):
+            t[name] += times(calls[name])
+        n, m = A.shape
+        nbytes = (A.data.element_size() * len(A.offsets) * n
+                  + x.element_size() * (n + m))
+        bound = nbytes / 3.35e12 * 1e3
+        med = {k: float(np.median(v)) for k, v in t.items()}
+        print(f"  {label:40s} v1 {med['v1']:.4f} ms ({bound / med['v1']:.2f}"
+              f" of bound; {min(t['v1']):.4f}-{max(t['v1']):.4f}), shipped "
+              f"{med['shipped']:.4f} ms ({bound / med['shipped']:.2f}; "
+              f"{min(t['shipped']):.4f}-{max(t['shipped']):.4f}), "
+              f"{med['shipped'] / med['v1']:.3f} of v1; bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB); == v1 bit for bit", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -204,7 +254,8 @@ def main() -> int:
                                                  jacobi_preconditioner)
     from tpu_sparse_torch.solvers import bicgstab_full, cg_full, gmres_full
     from tpu_sparse_torch.sparse import generators as gen
-    from tpu_sparse_torch.utils.timing import cuda_time_ms, cuda_times_ms
+    from tpu_sparse_torch.utils.timing import (cuda_flushed_times_ms,
+                                               cuda_time_ms, cuda_times_ms)
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -240,11 +291,13 @@ def main() -> int:
 
     def check_kernel1(label, A, x):
         """Kernel 1 in plain and extended mode against ``reference.dia_spmv``:
-        max abs error <= bound * max|y|, extended margins exactly 0.
+        max abs error <= bound * max|y|, extended margins exactly 0; the
+        plain mode equal to the first design (v1) bit for bit.
         Returns (extended operator, extended x, abs err plain, abs err ext).
         """
         y0 = ref.dia_spmv(A, x)
         y1 = cuda_spmv.dia_spmv_cuda(A, x)
+        v1_same = same_bits(y1, cuda_spmv.dia_spmv_v1_cuda(A, x))
         op = cuda_spmv.ExtendedStencilOperator(A)
         xe = op.extend(x)
         ye = op(xe)
@@ -256,7 +309,9 @@ def main() -> int:
         name = str(x.dtype).replace("torch.", "")
         print(f"  {label:36s} {name}: rel err plain "
               f"{e_plain / max(scale, 1e-300):.2e} ext "
-              f"{e_ext / max(scale, 1e-300):.2e}, margins {margin}")
+              f"{e_ext / max(scale, 1e-300):.2e}, margins {margin}; plain "
+              f"== v1 bit for bit: {v1_same}")
+        check(v1_same, f"kernel 1 differs from v1 on {label} {name}")
         b_ = bound[x.dtype] * scale
         check(e_plain <= b_ and e_ext <= b_,
               f"kernel 1 disagrees on {label} {name}")
@@ -420,6 +475,41 @@ def main() -> int:
     note_kernel1(f"f64_{MAIN_NX}cubed", A64L,
                  torch.from_numpy(rng.standard_normal(n)).to(dev),
                  f"poisson3d_27pt({MAIN_NX}) float64")
+
+    # kernel 1's plain mode, v1 and the shipped design in turns, every
+    # build at the main-path shapes and f64 at the LDC's (256^2, 5-point)
+    # device time of each call alone, the L2 flushed before it: at 64^3
+    # and below, back-to-back calls time the host's enqueue rate
+    print("  kernel 1 plain mode, the first design (v1) and the shipped one "
+          "in turns (median device ms of 2 x 20 calls each, L2 flushed "
+          "before each):")
+    flush6 = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def times6(fn):
+        return cuda_flushed_times_ms(fn, flush6)
+
+    rng6 = np.random.default_rng(SEED + 6)
+    A_ldc = gen.poisson2d(256, dtype=np.float64).to(dev)
+    cases6 = [(f"f32 poisson3d_27pt({MAIN_NX})", A, x),
+              (f"f64 poisson3d_27pt({F64_NX})", A64, x64),
+              (f"f64 poisson3d_27pt({MAIN_NX})", A64L, x64L_true),
+              ("f64 poisson2d(256) (the LDC's shape)", A_ldc,
+               torch.from_numpy(rng6.standard_normal(256 ** 2)).to(dev))]
+    A_bf = A.with_data(A.data.to(torch.bfloat16))
+    cases6 += [(f"bf16_f32 poisson3d_27pt({MAIN_NX})", A_bf, x),
+               (f"bf16 poisson3d_27pt({MAIN_NX})", A_bf,
+                x.to(torch.bfloat16))]
+    kernel1_turns(cases6, times6)
+    D6 = torch.from_numpy(np.exp(1j * rng6.uniform(0, 2 * np.pi, n))).to(dev)
+    for dt, key in ((torch.complex64, "c64"), (torch.complex128, "c128")):
+        A_c = unitary_similarity(A if dt == torch.complex64 else A64L, D6)
+        x_c = torch.from_numpy(rng6.standard_normal(n)
+                               + 1j * rng6.standard_normal(n)).to(dev, dt)
+        kernel1_turns([(f"{key} D^H A D at {MAIN_NX}^3", A_c, x_c)],
+                      times6)
+        del A_c, x_c
+    del cases6, A_bf, A_ldc, D6, flush6
+    torch.cuda.empty_cache()
 
     # kernels 2 and 3 on a mid-solve state, each against its plain version
     bx = op.extend(b)
@@ -3877,6 +3967,11 @@ def complex_phases(dev, b_main, *, note, counts, reset_counts, main_runs,
                    if cuda else cuda_spmv.dia_spmv(A_, xk),
                    lambda: ref.dia_spmv(A_, xk), lambda: torch.mv(lib, xk),
                    A_.data.numel() * size + 2 * n * size, 8 * L.nnz, dt)
+        if cuda:
+            same = same_bits(cuda_spmv.dia_spmv_cuda(A_, xk),
+                             cuda_spmv.dia_spmv_v1_cuda(A_, xk))
+            print(f"  {key}: == the first design (v1) bit for bit: {same}")
+            check(same, f"{key} differs from v1")
         del lib
     for key, W_, dt in (("cwell_spmv_c64", W_h, c64),
                         ("cwell_spmv_c128", W_z, c128)):
@@ -4233,6 +4328,11 @@ def bf16_phases(dev, b_main, *, note, counts, reset_counts, main_runs,
                    lambda: torch.mv(lib, x_), nd * n * 2 + 2 * n * s,
                    2 * L.nnz,
                    (lambda: spmv(L, x_)) if sfx == "bf16_f32" else None)
+        if cuda:
+            same = same_bits(spmv(A, x_), cuda_spmv.dia_spmv_v1_cuda(A, x_))
+            print(f"  dia_spmv_{sfx}: == the first design (v1) bit for bit: "
+                  f"{same}")
+            check(same, f"dia_spmv_{sfx} differs from v1")
         xe = op.extend(x_)
         ext = op.apply_cuda if cuda else op
         kernel_row(f"dia_spmv_ext_{sfx}", lambda: ext(xe),

@@ -110,6 +110,164 @@ def test_dia_spmv_kernel_rectangular_and_refusals(dev):
                                 x.to(torch.float16))
 
 
+# ---- kernel 1's plain mode against the first design (v1), every build -----
+
+_KERNEL1_BUILDS = {"f32": (torch.float32, torch.float32),
+                   "f64": (torch.float64, torch.float64),
+                   "c64": (torch.complex64, torch.complex64),
+                   "c128": (torch.complex128, torch.complex128),
+                   "bf16": (torch.bfloat16, torch.bfloat16),
+                   "bf16_f32": (torch.bfloat16, torch.float32)}
+# rows enough for two CTAs a SM at 8 rows a thread on 132 SMs, so the
+# shipped designs' R-row paths run; not a multiple of any R
+_KERNEL1_N = 786_435
+
+
+def _bits(t):
+    """t's bit pattern as integers (NaNs compare by their bits)."""
+    t = torch.view_as_real(t) if t.is_complex() else t
+    return t.contiguous().view({2: torch.int16, 4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+def _kernel1_case(case, sfx, dev):
+    """(A, x) of a kernel-1 edge case in build ``sfx``, on the card."""
+    rng = np.random.default_rng(100 * _KERNEL1_CASES.index(case)
+                                + list(_KERNEL1_BUILDS).index(sfx))
+    vdt, xdt = _KERNEL1_BUILDS[sfx]
+    n, m, ld = _KERNEL1_N, _KERNEL1_N, _KERNEL1_N
+    offsets = (-700, -1, 0, 1, 700)
+    if case == "below one tile":
+        n = m = ld = 37
+        offsets = (-3, 0, 1, 5)
+    elif case == "rectangular, more rows":
+        m = 500_001
+    elif case == "rectangular, more columns":
+        m = 1_000_003
+    elif case == "ld > n":
+        ld = _KERNEL1_N + 5   # a multiple of 8
+    elif case == "ndiag 1":
+        offsets = (7,)
+    elif case == "ndiag 64":
+        n = m = ld = 300_003
+        offsets = tuple(range(-40, 24))
+    elif case == "a diagonal outside":
+        offsets = (-(n + 3), -2, 0, 3, m + 10)
+
+    def rand(shape):
+        v = torch.from_numpy(rng.standard_normal(shape))
+        if vdt.is_complex:
+            v = v + 1j * torch.from_numpy(rng.standard_normal(shape))
+        return v
+
+    flat = rand(len(offsets) * ld + 1).to(dev, vdt)
+    if case == "unaligned data":  # one value past an aligned start
+        data = flat[1:].view(len(offsets), ld)
+    else:
+        data = flat[:-1].view(len(offsets), ld)
+    x = rand(m).to(dev, xdt)
+    if case == "non-finite x":
+        x[[0, 5, m // 2, m - 1]] = torch.tensor(
+            [float("nan"), float("inf"), float("-inf"), float("nan")],
+            dtype=torch.float64).to(dev, xdt)
+    if case == "non-finite data out of range":
+        rows = torch.arange(n, device=dev)
+        for d, o in enumerate(offsets):
+            out = (rows + o < 0) | (rows + o >= m)
+            data[d, :n][out] = float("nan") if d % 2 else float("inf")
+    from tpu_sparse_torch.sparse.containers import DIA
+
+    return DIA(data, offsets, (n, m)), x
+
+
+_KERNEL1_CASES = ["below one tile", "n not a multiple of R",
+                  "rectangular, more rows", "rectangular, more columns",
+                  "ld > n", "unaligned data", "ndiag 1", "ndiag 64",
+                  "a diagonal outside", "non-finite x",
+                  "non-finite data out of range"]
+
+
+@pytest.mark.parametrize("sfx", list(_KERNEL1_BUILDS))
+@pytest.mark.parametrize("case", _KERNEL1_CASES)
+def test_kernel1_plain_equals_v1_and_plain(dev, case, sfx):
+    """The shipped plain mode equals the first design (v1) bit for bit and meets
+    the plain version's limits; one counted launch."""
+    A, x = _kernel1_case(case, sfx, dev)
+    if case == "unaligned data":  # c128: one value is 16 bytes
+        assert A.data.data_ptr() % 16 != 0 or sfx == "c128"
+    before = cuda_spmv.LAUNCHES["dia_spmv_" + sfx]
+    y = cuda_spmv.dia_spmv_cuda(A, x)
+    assert cuda_spmv.LAUNCHES["dia_spmv_" + sfx] == before + 1
+    y_v1 = cuda_spmv.dia_spmv_v1_cuda(A, x)
+    assert cuda_spmv.LAUNCHES["dia_spmv_" + sfx] == before + 1
+    torch.cuda.synchronize()
+    assert y.shape == (A.shape[0],) and y.dtype == x.dtype
+    assert torch.equal(_bits(y), _bits(y_v1))
+    Ap = A.with_data(A.data[:, :A.shape[0]])
+    y0 = (ref.dia_spmv_wide if sfx.startswith("bf16") else
+          ref.dia_spmv)(Ap, x)
+    bad = ~torch.isfinite(y0)
+    assert torch.equal(bad, ~torch.isfinite(y))
+    if case == "non-finite data out of range":
+        assert not bool(bad.any())
+    y, y0 = y[~bad], y0[~bad]
+    if sfx == "bf16":
+        assert _bf16_close(y, y0)
+    else:
+        tol = {"f64": 1e-13, "c128": 1e-12}.get(sfx, 1e-5)
+        assert float((y - y0).abs().max()) <= \
+            tol * float(y0.abs().max())
+
+
+@pytest.mark.parametrize("sfx", list(_KERNEL1_BUILDS))
+def test_kernel1_geometry_host_entry_equals_mirror(dev, sfx):
+    """The C host entry's launch geometry equals cuda_spmv.plain_geometry
+    on the main-path shapes and the edge cases."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    offsets_27 = [dz * 25600 + dy * 160 + dx for dz in (-1, 0, 1)
+                  for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    shapes = [(offsets_27, 160 ** 3, 160 ** 3, 160 ** 3),
+              ([-256, -1, 0, 1, 256], 65536, 65536, 65536),
+              ([-3, 0, 1, 5], 37, 37, 37), ([7], 786_435, 786_435, 786_440),
+              ([-900, 0, 2000], 786_432, 500_001, 786_432), ([], 10, 10, 10)]
+    for offsets, n, m, ld in shapes:
+        for ptr in (1 << 20, (1 << 20) + 2, (1 << 20) + 8):
+            assert cuda_spmv.plain_geometry_cuda(
+                sfx, offsets, n, m, ld, ptr, sms) == \
+                cuda_spmv.plain_geometry(sfx, offsets, n, m, ld, ptr, sms)
+
+
+def test_kernel1_probe_designs_equal_v1(dev):
+    """Every design the kernel-1 probe instantiates equals v1 bit for bit
+    on a 27-point stencil and a ragged 5-point one, in f32 and bf16_f32."""
+    import tempfile
+    from pathlib import Path
+
+    from tpu_sparse_torch.kernels import _build, dia_spmv_probe
+
+    stream = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, _ = dia_spmv_probe.build_designs(Path(tmp))
+        for sfx in ("f32", "bf16_f32"):
+            for A in (gen.poisson3d_27pt(40, device="cpu"),
+                      gen.poisson2d(700, dtype=np.float32, device="cpu")):
+                vdt = torch.bfloat16 if sfx == "bf16_f32" else torch.float32
+                A = A.with_data(A.data.to(vdt)).to(dev)
+                n = A.shape[0]
+                x = torch.from_numpy(np.random.default_rng(3)
+                                     .standard_normal(n)).to(dev,
+                                                             torch.float32)
+                y_v1 = cuda_spmv.dia_spmv_v1_cuda(A, x)
+                offs, offs_ptr = _build.int_array(A.offsets)
+                for spec in dia_spmv_probe.designs(sfx).values():
+                    y = torch.empty_like(y_v1)
+                    fn = getattr(lib, dia_spmv_probe.symbol(spec, sfx))
+                    assert fn(A.data.data_ptr(), A.data.shape[1], offs_ptr,
+                              len(A.offsets), x.data_ptr(), y.data_ptr(), n,
+                              n, stream) == 0
+                    assert torch.equal(y, y_v1), spec
+
+
 @pytest.mark.parametrize("jacobi", [False, True])
 def test_fused_cg_kernels_match_plain_loop(dev, jacobi):
     A = gen.poisson2d(64, dtype=np.float32, device="cpu")

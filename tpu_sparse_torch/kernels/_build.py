@@ -122,6 +122,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         "ts_dia_spmv_c128": [P, L, P, I, P, P, L, L, L, L, I, P],
         "ts_dia_spmv_bf16": [P, L, P, I, P, P, L, L, L, L, I, P],
         "ts_dia_spmv_bf16_f32": [P, L, P, I, P, P, L, L, L, L, I, P],
+        # the first plain-mode design (v1): data, ld, offsets, ndiag, x, y,
+        # n_rows, n_cols, stream
+        **{f"ts_dia_spmv_v1_{s}": [P, L, P, I, P, P, L, L, P]
+           for s in ("f32", "f64", "c64", "c128", "bf16", "bf16_f32")},
+        # offsets, ndiag, n_rows, n_cols, ld, data address, build, sms, out
+        "ts_dia_spmv_geometry": [P, I, L, L, L, ctypes.c_ulonglong, I, I, P],
         # data, ld, offsets, ndiag, n, wl, r, dinv, p_prev, p_new, ap, scal,
         # pap_part, grid, stream
         "ts_dia_cg_spmv_dot": [P, L, P, I, L, L, P, P, P, P, P, P, P, I, P],

@@ -51,6 +51,20 @@ _BUILDS = {**{(d, d): s for d, s in _SUFFIX.items()},
 # the extended mode's builds: real (the fused paths never see complex)
 _EXT_SUFFIX = ("f32", "f64", "bf16", "bf16_f32")
 
+# The plain mode's shipped design per build, as csrc/dia_spmv.cu's
+# TsDiaShipped sets it: (design, rows a thread). "strided": a CTA owns
+# BLOCK * R rows, thread t the rows t, t + BLOCK, ...; "vector": thread t
+# owns R consecutive rows, each diagonal's read as one vector load.
+PLAIN_DESIGNS = {"f32": ("vector", 2), "f64": ("strided", 1),
+                 "c64": ("strided", 1), "c128": ("strided", 1),
+                 "bf16": ("vector", 2), "bf16_f32": ("vector", 2)}
+BLOCK = 256       # TS_BLOCK
+_DESIGN_IDS = {"strided": 0, "vector": 1}
+_BUILD_IDS = {"f32": 0, "f64": 1, "c64": 2, "c128": 3, "bf16": 4,
+              "bf16_f32": 5}
+_VALUE_BYTES = {"f32": 4, "f64": 8, "c64": 8, "c128": 16, "bf16": 2,
+                "bf16_f32": 2}
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
@@ -109,6 +123,79 @@ def _launch(sfx, data, offsets, x, y, n_rows, n_cols, wl, e, extended,
                 x.data_ptr(), y.data_ptr(), n_rows, n_cols, wl, e,
                 int(extended), stream)
     _build.check(rc, what)
+
+
+def interior(offsets, n_rows: int, n_cols: int) -> "tuple[int, int]":
+    """The rows [lo, hi) whose every column ``i + o`` lies in [0, n_cols):
+    the rows the plain mode sums without tests (all rows when there are
+    no diagonals)."""
+    if not offsets:
+        return 0, n_rows
+    lo = min(max(-min(offsets), 0), n_rows)
+    return lo, max(min(n_rows, n_cols - max(offsets)), lo)
+
+
+def vector_fits(sfx: str, rows: int, data_ptr: int, ld: int) -> bool:
+    """Whether the vector design can read data's rows ``rows`` at a time
+    as one vector of ``min(rows * value bytes, 16)``-byte pieces: the
+    pointer and the row length (``ld`` values) aligned to it."""
+    vec = min(rows * _VALUE_BYTES[sfx], 16)
+    return data_ptr % vec == 0 and ld * _VALUE_BYTES[sfx] % vec == 0
+
+
+def plain_geometry(sfx: str, offsets, n_rows: int, n_cols: int, ld: int,
+                   data_ptr: int, sms: int) -> dict:
+    """The plain mode's launch for one call, as the host entry decides it
+    (``ts_dia_spmv_geometry``): the interior, rows a thread, design and
+    CTAs. The shipped design's R when its loads fit and the grid keeps two
+    CTAs a SM; else one row a thread on the strided design (the scalar
+    path)."""
+    design, rows = PLAIN_DESIGNS[sfx]
+    lo, hi = interior(offsets, n_rows, n_cols)
+    fits = design != "vector" or vector_fits(sfx, rows, data_ptr, ld)
+    if not fits or -(-n_rows // (BLOCK * rows)) < 2 * sms:
+        design, rows = "strided", 1
+    return dict(lo=lo, hi=hi, grid=-(-n_rows // (BLOCK * rows)), rows=rows,
+                design=design)
+
+
+def plain_geometry_cuda(sfx: str, offsets, n_rows: int, n_cols: int,
+                        ld: int, data_ptr: int, sms: int) -> dict:
+    """``plain_geometry`` as the kernel library's host entry computes it
+    (needs the built library, not a device)."""
+    import ctypes
+
+    from tpu_sparse_torch.kernels import _build
+
+    out = (ctypes.c_longlong * 5)()
+    offs, offs_ptr = _build.int_array(offsets)
+    _build.check(_build.library().ts_dia_spmv_geometry(
+        offs_ptr, len(offsets), n_rows, n_cols, ld, data_ptr,
+        _BUILD_IDS[sfx], sms, ctypes.addressof(out)), "ts_dia_spmv_geometry")
+    design = {v: k for k, v in _DESIGN_IDS.items()}[out[4]]
+    return dict(lo=out[0], hi=out[1], grid=out[2], rows=out[3],
+                design=design)
+
+
+def dia_spmv_v1_cuda(A: DIA, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x by kernel 1's first plain-mode design (v1,
+    ``csrc/dia_spmv_v1.cuh``): the bit-for-bit reference of the shipped
+    design in the card tests and the smoke run. No solver calls it, and
+    ``LAUNCHES`` does not count it."""
+    from tpu_sparse_torch.kernels import _build
+
+    n, m = A.shape
+    data, x = A.data.resolve_conj(), x.resolve_conj()
+    sfx = _check_operands(data, x, A.offsets, m, "dia_spmv_v1_cuda")
+    y = torch.empty(n, dtype=x.dtype, device=x.device)
+    fn = getattr(_build.library(), "ts_dia_spmv_v1_" + sfx)
+    offs, offs_ptr = _build.int_array(A.offsets)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(data.data_ptr(), data.shape[1], offs_ptr, len(A.offsets),
+                x.data_ptr(), y.data_ptr(), n, m, stream)
+    _build.check(rc, "dia_spmv_v1_cuda")
+    return y
 
 
 def dia_spmv_cuda(A: DIA, x: torch.Tensor) -> torch.Tensor:
