@@ -122,6 +122,18 @@ counters set to 0 just before it and read just after:
   then every bf16 build of kernel 1 (both modes), K4, K6/K7 and K8
   against its plain version at the 160^3 shapes, timed beside its bound,
   its plain version and torch's bf16 CSR call where torch takes the pair.
+* phase (30): the tooling and the rest of the public API
+  (``tooling_phases``). The benchmark harness at the north star's width
+  (``poisson3d_27pt(160)`` in float64, as the JAX harness builds it: CG
+  on the krylov backend, K3; AMG-PCG, K4 / K5 on its levels) with its
+  markdown report and CSV, the report naming the card and its power
+  limit; ``run.main(["--benchmark", "--quick"])``; the Poisson demo at
+  nx = 160 (the fused CG, kernels 2-3); the inverse conductivity demo on
+  the card (float64, K3) against the same run on the CPU; checkpoints of
+  phase (4)'s x and an LDC state loaded back onto the card bit for bit;
+  ``per_iter_time`` of kernel 1's float32 plain mode beside phase (6)'s
+  device time; ``trace()`` of one fused CG solve, its Chrome trace
+  holding the ``dia_cg`` kernels.
 
 Phase (2) holds kernel 1's plain mode to its first design (v1,
 ``csrc/dia_spmv_v1.cuh``) bit for bit on its cases, as phases (6), (28)
@@ -429,6 +441,7 @@ def main() -> int:
         check(grew["dia_spmv_ext_f32"] > 0,
               "kernel 1 did not carry the true-residual check")
         solves[M] = res.iterations
+    x_cg = x  # phase (4)'s solution, checkpointed in phase (30)
 
     # ---- (5) f64 paths -----------------------------------------------------
     phase(f"(5) f64 paths on poisson3d_27pt({F64_NX}, float64)")
@@ -1016,7 +1029,14 @@ def main() -> int:
     bf16_phases(dev, b_main, note=note, counts=counts,
                 reset_counts=reset_counts, main_runs=main_runs, times=times,
                 fused_ms=solve_times["cg f32 M=None (fused)"])
-    del b_main
+    torch.cuda.empty_cache()
+
+    # ---- (30) the tooling and the rest of the public API -----------------
+    tooling_phases(dev, b_main, x_cg, counts=counts,
+                   reset_counts=reset_counts, main_runs=main_runs,
+                   cg_iters=solves[None],
+                   kernel1_ms=results["dia_spmv_f32"]["ms"])
+    del b_main, x_cg
 
     # ---- results -----------------------------------------------------------
     src_spmv = "tpu_sparse_torch/csrc/dia_spmv.cu"
@@ -4390,6 +4410,230 @@ def bf16_phases(dev, b_main, *, note, counts, reset_counts, main_runs,
     print(f"  solve cg {'float32 fused route (phase 6)':48s} "
           f"{fmt(fused_ms)}", flush=True)
     print(f"  phase (29) wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def _report_rows(path: str) -> list:
+    """The data rows of a harness report's per-matrix tables, as lists of
+    cells."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            cells = [c.strip() for c in line.strip().strip("|").split("|")]
+            if line.startswith("| ") and len(cells) == 8 \
+                    and cells[0].isdigit():
+                rows.append(cells)
+    return rows
+
+
+def tooling_phases(dev, b_main, x_main, *, counts, reset_counts, main_runs,
+                   cg_iters, kernel1_ms, nx=MAIN_NX, runs=3,
+                   inverse_args=(), ldc_nx=64):
+    """Phase (30): the tooling and the rest of the public API on the card,
+    with the launch counters set to 0 just before it and read at its end
+    (every launch of the phase is a main-path launch: none compares a
+    kernel with its plain version).
+
+    1. ``bench.harness.run_all_benchmarks`` on poisson3d_27pt(nx) in
+       float64 (the JAX harness's ``_create_matrix``), krylov / cg and amg,
+       tol 1e-8, ``runs`` timed solves after one warm-up: every cell
+       converges with no error; the markdown report and CSV go to a
+       temporary directory and the report names the card and its power
+       limit.
+    2. ``run.main(["--benchmark", "--quick"])`` from a temporary working
+       directory: its four cells converge.
+    3. The Poisson demo at nx (``poisson3d_demo.run``, what ``main``
+       runs): converged, true relative residual <= 1e-5, kernels 2 and 3
+       launched; its iterations beside phase (4)'s (``cg_iters``; another
+       x_true draw).
+    4. ``inverse_poisson.main`` on the card (n = 64, 200 steps unless
+       ``inverse_args`` says otherwise): final error below 0.4 and within
+       1e-6 of the same run on the CPU.
+    5. ``save_pytree`` / ``load_pytree`` of phase (4)'s x (``x_main``) and
+       the (u, v, p) of an LDC run at ``ldc_nx``, loaded onto the card:
+       bit for bit.
+    6. ``per_iter_time`` of kernel 1's float32 plain mode on a nx^3
+       Poisson matrix (its values scaled by 1/26, so 50 chained products
+       stay finite) within 15% of phase (6)'s device ms of the same
+       call (``kernel1_ms``); ``trace()`` of one fused CG solve on
+       (poisson3d_27pt(nx), ``b_main``) writes a Chrome trace holding
+       ``dia_cg`` kernel events.
+    """
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    import tpu_sparse_torch
+    from tpu_sparse_torch import run as trun
+    from tpu_sparse_torch.apps import inverse_poisson, poisson3d_demo
+    from tpu_sparse_torch.apps import ldc as tldc
+    from tpu_sparse_torch.bench import harness
+    from tpu_sparse_torch.kernels import cuda_spmv
+    from tpu_sparse_torch.sparse import generators as gen
+    from tpu_sparse_torch.utils import checkpoint, timing
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    on_cpu = [] if cuda else ["--cpu"]
+    phase(f"(30) main path: the tooling: the benchmark harness at {nx}^3 "
+          "(float64, krylov/cg and amg), run.py --benchmark --quick, the "
+          f"Poisson demo at nx={nx}, the inverse demo (card against CPU), "
+          "checkpoints, per_iter_time and trace()")
+    reset_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    try:
+        # -- 1. the harness at the north star's width
+        t0 = time.perf_counter()
+        cfg = harness.BenchmarkConfig(
+            sizes=[nx ** 3], matrix_types=("poisson3d_27pt",),
+            backends=("krylov", "amg"), methods=("cg",), tol=1e-8,
+            runs=runs, warmup=1, verbose=False, device=dev.type)
+        cells = harness.run_all_benchmarks(cfg)
+        for r in cells:
+            print(f"  harness {r.backend}/{r.method} {r.matrix_type} "
+                  f"n={r.size}: {r.solve_time_ms:.2f} ms (median of "
+                  f"{runs}, host clock, synchronized), {r.iterations} it, "
+                  f"residual {r.residual:.2e}, memory {r.memory_used_mb} MB"
+                  + (f", error {r.error_message}" if r.error_message
+                     else ""), flush=True)
+            check(not r.error_message and r.converged,
+                  f"harness cell {r.backend}/{r.method} failed")
+        check(len(cells) == 2, "the harness ran another set of cells")
+        report = harness.generate_markdown_report(
+            cells, cfg, os.path.join(tmp, "Logger"))
+        table = harness.export_csv(cells, os.path.join(tmp, "bench.csv"))
+        with open(report) as f:
+            text = f.read()
+        system = [ln for ln in text.splitlines() if ln.startswith("- **")]
+        print("  report: " + "; ".join(ln[2:] for ln in system))
+        with open(table) as f:
+            print(f"  csv header: {f.readline().strip()}")
+        print(f"  peak device memory {harness.device_peak_memory_mb(dev)} "
+              f"MB; harness wall {time.perf_counter() - t0:.1f} s")
+        if cuda:
+            check(torch.cuda.get_device_name(0) in text
+                  and re.search(r"power limit\*\*: .+, [0-9.]+ W", text),
+                  "the report does not name the card and its power limit")
+
+        # -- 2. run.py --benchmark --quick (the reference protocol)
+        quick = os.path.join(tmp, "quick")
+        os.makedirs(quick)
+        cwd = os.getcwd()
+        os.chdir(quick)
+        try:
+            rc = trun.main(["--benchmark", "--quick"]
+                           + ([] if cuda else ["--device", "cpu"]))
+        finally:
+            os.chdir(cwd)
+        (rep,) = os.listdir(os.path.join(quick, "Logger"))
+        rows = _report_rows(os.path.join(quick, "Logger", rep))
+        print(f"  run.py --benchmark --quick: exit {rc}, cells "
+              + ", ".join(f"{c[1]}/{c[2]} n={c[0]} {c[3]} ms {c[5]}"
+                          for c in rows))
+        check(rc == 0 and len(rows) == 4
+              and all(c[5] == "yes" for c in rows),
+              "run.py --benchmark --quick: a cell did not converge")
+
+        # -- 3. the Poisson demo (fused CG on the card)
+        before = counts()
+        demo = poisson3d_demo.run(poisson3d_demo.parse_args(
+            ["--nx", str(nx)] + on_cpu))
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        print(f"  demo: {demo['iterations']} it (phase (4)'s fused CG: "
+              f"{cg_iters} it on its own x_true draw), {demo['ms']:.2f} ms, "
+              f"{demo['gnnz_per_s']:.2f} Gnnz/s, true rel residual "
+              f"{demo['rel_residual']:.2e}; launches {grew}")
+        check(demo["converged"] and demo["rel_residual"] <= 1e-5,
+              "the Poisson demo did not converge to 1e-5")
+        if cuda:
+            check(grew.get("dia_cg_spmv_dot", 0) > 0
+                  and grew.get("dia_cg_update", 0) > 0,
+                  "the demo did not run kernels 2 and 3")
+
+        # -- 4. the inverse problem, the card against the CPU
+        before = counts()
+        t0 = time.perf_counter()
+        err_dev = inverse_poisson.main(list(inverse_args) + on_cpu)
+        t_dev = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+        t0 = time.perf_counter()
+        err_cpu = inverse_poisson.main(list(inverse_args) + ["--cpu"])
+        print(f"  inverse_poisson: error {err_dev!r} on {dev.type} "
+              f"({t_dev:.1f} s), {err_cpu!r} on the CPU "
+              f"({time.perf_counter() - t0:.1f} s), difference "
+              f"{abs(err_dev - err_cpu):.2e}; launches {grew}", flush=True)
+        check(err_dev < 0.4, f"inverse_poisson error {err_dev}")
+        check(abs(err_dev - err_cpu) <= 1e-6,
+              "inverse_poisson on the card differs from the CPU's")
+
+        # -- 5. checkpoints, loaded onto the card bit for bit
+        ldc = tldc.LDCSolver(tldc.LDCConfig(nx=ldc_nx, Re=400.0,
+                                            device=dev.type))
+        ldc.run(5)
+        state = {"x": x_main, "ldc": (ldc.u, ldc.v, ldc.p)}
+        path = checkpoint.save_pytree(os.path.join(tmp, "state.npz"), state)
+        like = {"x": torch.empty_like(x_main),
+                "ldc": tuple(torch.empty_like(t) for t in state["ldc"])}
+        back = checkpoint.load_pytree(path, like)
+        pairs = [(back["x"], x_main)] + list(zip(back["ldc"], state["ldc"]))
+        print(f"  checkpoint of x {tuple(x_main.shape)} and the LDC's "
+              f"(u, v, p) at nx={ldc_nx}: "
+              f"{os.path.getsize(path) / 1e6:.1f} MB, loaded onto "
+              f"{back['x'].device}")
+        check(all(a.device == b.device and same_bits(a, b)
+                  for a, b in pairs),
+              "a checkpoint leaf did not come back bit for bit")
+
+        # -- 6. per_iter_time and trace()
+        A = gen.poisson3d_27pt(nx, device=dev)
+        A_s = A.with_data(A.data * (1.0 / 26.0))
+        v0 = torch.from_numpy(np.random.default_rng(SEED + 30)
+                              .standard_normal(A.shape[0])
+                              .astype(np.float32)).to(dev)
+        k1 = cuda_spmv.dia_spmv_cuda if cuda else cuda_spmv.dia_spmv
+        t_it = timing.per_iter_time(lambda v: k1(A_s, v), v0) * 1e3
+        print(f"  per_iter_time of kernel 1 (f32 plain mode) at {nx}^3: "
+              f"{t_it:.4f} ms; phase (6)'s device time {kernel1_ms:.4f} ms "
+              f"({t_it / kernel1_ms:.3f})")
+        if cuda:
+            check(abs(t_it - kernel1_ms) <= 0.15 * kernel1_ms,
+                  "per_iter_time is not within 15% of phase (6)")
+        with timing.trace(os.path.join(tmp, "trace")) as log_dir:
+            _, res = tpu_sparse_torch.solve(A, b_main, method="cg",
+                                            tol=1e-6, maxiter=500)
+        (name,) = os.listdir(log_dir)
+        with open(os.path.join(log_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        cg_events = [e for e in events if e.get("cat") == "kernel"
+                     and "dia_cg" in e.get("name", "")]
+        print(f"  trace(): {name}, {len(events)} events, "
+              f"{len(cg_events)} dia_cg kernel events "
+              f"({sum(e.get('dur', 0) for e in cg_events) / 1e3:.2f} ms); "
+              f"the traced solve {res}")
+        check(res.converged, "the traced solve did not converge")
+        if cuda:
+            check(len(cg_events) > 0, "the trace holds no dia_cg kernel")
+        del A, A_s, v0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = counts()
+    main_runs["phase (30)"] = got
+    print(f"  launches in phase (30): "
+          f"{ {k: v for k, v in got.items() if v} }")
+    if cuda:
+        for keys, what in ((("dia_cg_spmv_dot", "dia_cg_update"),
+                            "kernels 2-3"),
+                           (("dia_spmv_f64", "dia_spmv_ext_f64"), "K3"),
+                           (("dia_spmv_f32",), "kernel 1 f32 plain"),
+                           (("cwell_spmv_f32", "cwell_spmv_f64"), "K4/K5")):
+            check(sum(got[k] for k in keys) > 0,
+                  f"{what} was not launched in phase (30)")
+    print(f"  phase (30) wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
 

@@ -1,6 +1,6 @@
 """tpu_sparse_torch — the PyTorch / NVIDIA H100 port of ``tpu_sparse``.
 
-Ported so far: DIA/CSR/COO/BSR containers and generators; the CWELL pack
+Ported: DIA/CSR/COO/BSR containers and generators; the CWELL pack
 of general matrices, the BELL (block-ELL) format and ``to_gpu_operator``;
 the Krylov solvers (CG, single-reduction CG, flexible CG, MINRES,
 BiCGStab, GMRES, flexible GMRES) with mixed-precision refinement and the
@@ -12,7 +12,10 @@ ILU(0)) and the
 supernodal level-scheduled LU) and the ``direct`` backend; the
 ``SparseSolver`` / ``solve`` router with ``reorder="rcm"``; the
 lid-driven-cavity application (``python -m tpu_sparse_torch.apps.ldc``);
-hand-written
+the row-partitioned solvers over several cards (``dist``); the tooling:
+the benchmark harness (``bench``), ``python -m tpu_sparse_torch.run``,
+checkpoints and timing (``utils``), the Poisson and inverse-problem demos
+(``apps``); hand-written
 CUDA kernels for the DIA SpMV, the fused CG iteration, the fused BiCGStab
 iteration, the CWELL SpMV and SpMM and the BELL SpMM
 (``tpu_sparse_torch/csrc``). The package

@@ -1,9 +1,10 @@
 """Capability detection and reporting.
 
 Counterpart of ``tpu_sparse/api/availability.py``: the ``krylov``,
-``amg`` and ``direct`` backends. No probe result is cached, so a
-transient failure is never pinned for the life of the process (the fault
-R1 that the JAX probes' ``lru_cache`` had).
+``amg`` and ``direct`` backends, the CUDA kernels and the distributed
+solvers (``tpu_sparse_torch.dist``, one process per card). No probe result
+is cached, so a transient failure is never pinned for the life of the
+process (the fault R1 that the JAX probes' ``lru_cache`` had).
 """
 
 from __future__ import annotations
@@ -56,6 +57,17 @@ def check_cuda_available() -> bool:
     return torch.cuda.is_available()
 
 
+def device_count() -> int:
+    """The CUDA devices this process sees, or 1 (the host) without any."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
+def check_distributed_available() -> bool:
+    """The distributed solvers need ``torch.distributed`` and more than one
+    device (JAX: ``device_count() > 1``)."""
+    return torch.distributed.is_available() and device_count() > 1
+
+
 def get_available_backends() -> List[str]:
     out = ["krylov"] if check_krylov_available() else []
     if check_amg_available():
@@ -71,7 +83,7 @@ def availability_dict() -> Dict[str, bool]:
         "amg": check_amg_available(),
         "direct": check_direct_available(),
         "cuda": check_cuda_available(),
-        "distributed": False,
+        "distributed": check_distributed_available(),
     }
 
 
@@ -83,10 +95,12 @@ def print_availability_report(verbose: bool = True) -> Dict[str, bool]:
         "tpu_sparse_torch capability report",
         "=" * 40,
         f"  device             : {device}",
+        f"  devices            : {device_count()}",
         f"  krylov solvers     : {'yes' if avail['krylov'] else 'NO'}",
         f"  AMG preconditioner : {'yes' if avail['amg'] else 'NO'}",
         f"  direct solvers     : {'yes' if avail['direct'] else 'NO'}",
         f"  CUDA kernels       : {'yes' if avail['cuda'] else 'no (plain CPU path)'}",
+        f"  multi-device       : {'yes' if avail['distributed'] else 'no'}",
     ]
     if verbose:
         print("\n".join(lines))

@@ -79,6 +79,7 @@ from __future__ import annotations
 
 import warnings
 from contextlib import contextmanager
+from enum import Enum
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
@@ -90,6 +91,27 @@ from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
 from tpu_sparse_torch.sparse.containers import DIA, is_sparse, values
 from tpu_sparse_torch.utils.opcache import OperandCache, TensorCache, _leaves
 from tpu_sparse_torch.utils.tree import tree_norm, tree_sub
+
+class SolverMethod(Enum):
+    """The method names ``solve()`` takes (as their string values)."""
+    CG = "cg"
+    CG_SR = "cg_sr"
+    FCG = "fcg"
+    MINRES = "minres"
+    BICGSTAB = "bicgstab"
+    GMRES = "gmres"
+    FGMRES = "fgmres"
+    AMG = "amg"
+    DIRECT = "direct"
+
+
+class SolverBackend(Enum):
+    """The backend names ``solve()`` takes (as their string values)."""
+    KRYLOV = "krylov"
+    AMG = "amg"
+    DIRECT = "direct"
+    AUTO = "auto"
+
 
 _BACKEND_ALIASES = {
     "module_a": "krylov",

@@ -22,7 +22,8 @@ the float64 DIA matrix is the fp64 kernel K3 in plain mode. ``solver=
 "direct"`` is ``direct.banded_solve`` every step, as in the JAX example:
 block PCR with block size nx on the card (the fixed pinned matrix is
 eliminated again each step), the banded LU on the host for a CPU solver.
-The JAX ``save_plot`` (matplotlib) is not ported.
+``save_plot`` draws the velocity field with matplotlib, imported when it
+is called.
 
 Staggered layout (MAC):
   p[J, I]   cell centres, shape (ny, nx)
@@ -296,6 +297,35 @@ class LDCSolver:
         uc = 0.5 * (self.u[1:-1, :-1] + self.u[1:-1, 1:])
         vc = 0.5 * (self.v[:-1, 1:-1] + self.v[1:, 1:-1])
         return torch.sqrt(uc**2 + vc**2).cpu().numpy()
+
+    def save_plot(self, path: str) -> str:
+        """Velocity-magnitude contour + streamlines PNG (reference
+        ldc_solver_common.py:255-297)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        nx, ny = self.config.nx, self.config.ny
+        xc = (np.arange(nx) + 0.5) * self.dx
+        yc = (np.arange(ny) + 0.5) * self.dy
+        uc = (0.5 * (self.u[1:-1, :-1] + self.u[1:-1, 1:])).cpu().numpy()
+        vc = (0.5 * (self.v[:-1, 1:-1] + self.v[1:, 1:-1])).cpu().numpy()
+        mag = np.sqrt(uc**2 + vc**2)
+        fig, ax = plt.subplots(figsize=(6, 5))
+        cs = ax.contourf(xc, yc, mag, levels=24)
+        fig.colorbar(cs, ax=ax, label="|u|")
+        ax.streamplot(xc, yc, uc, vc, color="w", density=1.2, linewidth=0.6)
+        ax.set_title(f"Lid-driven cavity  Re={self.config.Re:g}  "
+                     f"{nx}x{ny}  ({self.config.solver}/"
+                     f"{self.config.precond})")
+        ax.set_xlabel("x")
+        ax.set_ylabel("y")
+        ax.set_aspect("equal")
+        fig.tight_layout()
+        fig.savefig(path, dpi=130)
+        plt.close(fig)
+        return path
 
     def save_state(self, path: str) -> str:
         """Checkpoint (u, v, p) to an .npz file."""

@@ -86,6 +86,14 @@ def csr_spmv(A: CSR, x: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, A.row_ids().long(), prod)
 
 
+def csr_spmv_transpose(A: CSR, x: torch.Tensor) -> torch.Tensor:
+    """y = A^T @ x without materializing the transpose: row-weighted values
+    scatter-added onto their columns."""
+    prod = A.data * x[A.row_ids().long()]
+    out = torch.zeros(A.shape[1], dtype=prod.dtype, device=prod.device)
+    return out.index_add_(0, A.indices.long(), prod)
+
+
 def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
     """y[i] = sum_d data[d, i] * x[i + off_d], rows whose column falls
     outside the matrix skipped; diagonals summed in offsets order."""
@@ -101,6 +109,23 @@ def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
         y = contrib if y is None else y + contrib
     if y is None:
         return x.new_zeros(n)
+    return y
+
+
+def dia_spmv_padded(A: DIA, x: torch.Tensor) -> torch.Tensor:
+    """DIA SpMV in one padded pass: x padded by the bandwidth, full-length
+    shifted products accumulated in offsets order (every row of every
+    diagonal multiplied; the padding reads zeros)."""
+    n, m = A.shape
+    if not A.offsets:
+        return x.new_zeros(n)
+    lo = max(0, -min(A.offsets))
+    hi = max(0, n - 1 + max(A.offsets) - (m - 1))
+    xp = torch.nn.functional.pad(x, (lo, hi))
+    y = torch.zeros(n, dtype=torch.promote_types(A.data.dtype, x.dtype),
+                    device=x.device)
+    for d, o in enumerate(A.offsets):
+        y = y + A.data[d] * xp[lo + o:lo + o + n]
     return y
 
 

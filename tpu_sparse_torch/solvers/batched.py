@@ -422,3 +422,8 @@ def batch_fgmres(A, B: torch.Tensor, X0=None, *, tol: float = 1e-5,
     return _batch_gmres_restarts(
         A, B, X0, tol, atol, restart, maxiter, M,
         partial(_gmres_incremental_rows, flexible=True), left=False)
+
+
+# the column-batched refinement lives beside the single-RHS one; the JAX
+# package defines it here
+from tpu_sparse_torch.solvers.mixed import batch_refined  # noqa: E402,F401

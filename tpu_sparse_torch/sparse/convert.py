@@ -154,6 +154,17 @@ def dense_to_csr(A, tol: float = 0.0) -> CSR:
                A.shape)
 
 
+def dense_to_coo(A, tol: float = 0.0) -> COO:
+    """COO from a dense matrix, dropping |a| <= tol entries, in row-major
+    order. A tensor keeps its device; any other array-like lands on the
+    CPU."""
+    if not isinstance(A, torch.Tensor):
+        A = torch.from_numpy(np.array(A, copy=True))
+    row, col = (A.abs() > tol).nonzero(as_tuple=True)
+    return COO(A[row, col], row.to(torch.int32), col.to(torch.int32),
+               A.shape)
+
+
 def csr_from_arrays(data, indices, indptr, shape, device="cuda",
                     dtype=None) -> CSR:
     """CSR from array-likes, on ``device`` (the card unless the caller asks

@@ -2,7 +2,8 @@
 
 Counterpart of ``tpu_sparse/sparse/generators.py``: the same numpy
 construction, offsets and default dtypes, so both packages give byte-equal
-arrays. Matrices come back as DIA on ``device``: the card unless the
+arrays. Matrices come back on ``device`` (DIA, except the dense
+``random_spd_dense`` and the ``random_csr`` CSR): the card unless the
 caller asks for ``device="cpu"`` (with no card the default fails with
 torch's own error).
 """
@@ -10,9 +11,11 @@ torch's own error).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from tpu_sparse_torch.sparse.containers import DIA
-from tpu_sparse_torch.sparse.convert import dia_from_offsets
+from tpu_sparse_torch.sparse.containers import COO, CSR, DIA
+from tpu_sparse_torch.sparse.convert import (coo_to_csr, dense_to_csr,
+                                             dia_from_offsets)
 
 
 def tridiagonal(n: int, main: float = 2.0, off: float = -1.0,
@@ -126,3 +129,32 @@ def convection_diffusion_3d_27pt(nx: int, beta: float = 0.3,
     data[offs.index(-1)] *= dtype(1.0 + beta)
     data[offs.index(1)] *= dtype(1.0 - beta)
     return dia_from_offsets(tuple(offs), data, A.shape, device)
+
+
+def random_spd_dense(n: int, seed: int = 0, dtype=np.float64,
+                     device="cuda") -> torch.Tensor:
+    """Dense SPD matrix B B^T + n I (reference test_gpu_validation.py:72-76)
+    from ``default_rng(seed)``, as a tensor on ``device``."""
+    rng = np.random.default_rng(seed)
+    B = rng.standard_normal((n, n)).astype(dtype)
+    return torch.from_numpy(B @ B.T + n * np.eye(n, dtype=dtype)).to(device)
+
+
+def random_csr(n: int, m: int, density: float = 0.01, seed: int = 0,
+               dtype=np.float64, dominant: bool = True,
+               device="cuda") -> CSR:
+    """Random sparse CSR from ``default_rng(seed)`` (duplicates summed),
+    made diagonally dominant when square and ``dominant``; on
+    ``device``."""
+    rng = np.random.default_rng(seed)
+    nnz = max(1, int(n * m * density))
+    row = rng.integers(0, n, nnz).astype(np.int32)
+    col = rng.integers(0, m, nnz).astype(np.int32)
+    vals = rng.standard_normal(nnz).astype(dtype)
+    A = coo_to_csr(COO(torch.from_numpy(vals), torch.from_numpy(row),
+                       torch.from_numpy(col), (n, m)))
+    if dominant and n == m:
+        dense = A.todense().numpy()
+        dense[np.arange(n), np.arange(n)] += np.abs(dense).sum(axis=1) + 1.0
+        return dense_to_csr(torch.from_numpy(dense).to(device))
+    return A.to(device)

@@ -1,19 +1,30 @@
 """Pytree vector-space helpers for the Krylov solvers.
 
-Counterpart of ``tpu_sparse/utils/tree.py``, limited to the operations the
-CG solver uses. Operands are tensors or nested tuples/lists/dicts of
-tensors, traversed with ``torch.utils._pytree``.
+Counterpart of ``tpu_sparse/utils/tree.py``. Operands are tensors or
+nested tuples/lists/dicts of tensors, traversed with
+``torch.utils._pytree``. JAX's ``tree_util.Partial`` (a partial that is a
+pytree, for ``jit``) has no counterpart: nothing is traced here, and
+``functools.partial`` serves.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
 from torch.utils import _pytree as pytree
 
 tree_map = pytree.tree_map
 tree_leaves = pytree.tree_leaves
+tree_flatten = pytree.tree_flatten
+tree_unflatten = pytree.tree_unflatten
+tree_structure = pytree.tree_structure
+
+
+def tree_reduce(fn: Callable, tree: Any, *initializer) -> Any:
+    """``functools.reduce`` of ``fn`` over the leaves of ``tree``."""
+    return functools.reduce(fn, tree_leaves(tree), *initializer)
 
 
 def _map2(fn, a: Any, b: Any) -> Any:
