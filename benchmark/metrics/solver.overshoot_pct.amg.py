@@ -1,0 +1,8 @@
+"""solver.overshoot_pct.amg: ``solver.overshoot_pct`` in the AMG cells, which report
+``solve_ms.amg`` (their own bound) in place of ``solve_ms``."""
+
+from pathlib import Path
+
+from benchmark.core.cells import load_reader
+
+read = load_reader(Path(__file__).resolve().parents[2], "solver.overshoot_pct")

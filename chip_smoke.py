@@ -259,6 +259,7 @@ def main() -> int:
         return 2
 
     import tpu_sparse_torch
+    from tpu_sparse_torch import tracing
     from tpu_sparse_torch.kernels import (_build, cuda_bell, cuda_bicgstab,
                                           cuda_cg, cuda_cwell, cuda_spmv)
     from tpu_sparse_torch.kernels import reference as ref
@@ -292,7 +293,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds} s) from {_build.CSRC_DIR.name}/")
+          f"from {_build.CSRC_DIR.name}/")
     for line in _build.build_log().splitlines():
         if "Used" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -418,8 +419,7 @@ def main() -> int:
           "A @ x did not run kernel 1 in plain mode")
     # the main-path run starts here: every launch from now to the end of
     # phase (5) counts
-    cuda_spmv.reset_launch_counts()
-    cuda_cg.reset_launch_counts()
+    tracing.reset()
     solves = {}
     for M in (None, "jacobi"):
         before = {**cuda_spmv.LAUNCHES, **cuda_cg.LAUNCHES}
@@ -657,10 +657,7 @@ def main() -> int:
                 **cuda_bicgstab.LAUNCHES, **cuda_cwell.LAUNCHES,
                 **cuda_bell.LAUNCHES, **cuda_cwell.PLAN_COUNTS}
 
-    def reset_counts():
-        for mod in (cuda_spmv, cuda_cg, cuda_bicgstab, cuda_cwell,
-                    cuda_bell):
-            mod.reset_launch_counts()
+    reset_counts = tracing.reset
 
     # ---- (7) K10 against the plain versions --------------------------------
     phase("(7) K10 (fused BiCGStab) against fused_bicgstab_block_reference "
@@ -4182,8 +4179,7 @@ def bf16_phases(dev, b_main, *, note, counts, reset_counts, main_runs,
     # -- the main-path run: every launch from here to the read counts
     solver = tpu_sparse_torch.SparseSolver()
     solve = solver.solve
-    reset_counts()
-    tk.reset_cast_counts()
+    reset_counts()   # the launch and cast counters
     out = {}
 
     def run(label, call, rel, bound):

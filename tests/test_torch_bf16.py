@@ -48,6 +48,7 @@ from tpu_sparse.sparse import generators as jgen
 from tpu_sparse.sparse.convert import to_csr as jto_csr
 from tpu_sparse.sparse.cwell import csr_to_cwell as jcsr_to_cwell
 from tpu_sparse_torch import kernels as tk
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import cuda_spmv
 from tpu_sparse_torch.kernels import reference as tref
 from tpu_sparse_torch.sparse import convert as tconv
@@ -122,7 +123,7 @@ def test_dia_plain_versions_against_jax_kernels(interpret_mode, xdt):
     assert _max_rel(opt.extract(ye), y2j) <= bound
     # the CPU route (kernels.spmv): JAX's XLA product, float32 for a
     # float32 x, no values cast
-    tk.reset_cast_counts()
+    tracing.reset()
     y = tk.spmv(At, xt)
     assert y.dtype == xt.dtype and tk.CAST_COUNTS["values_casts"] == 0
     if xdt == "f32":
@@ -149,7 +150,7 @@ def test_cwell_plain_versions_against_jax_kernels(interpret_mode):
     assert cvals.dtype == BF  # the value gather keeps bf16
     y = tref.cwell_compact_spmv(plan, cvals, torch.from_numpy(x))
     assert y.dtype == torch.float32 and _max_rel(y, yj) <= 1e-5
-    tk.reset_cast_counts()
+    tracing.reset()
     assert _max_rel(tk.spmv(Wt, torch.from_numpy(x)), yj) <= 1e-5
     assert tk.CAST_COUNTS["values_casts"] == 0
     B = rng.standard_normal((A.shape[1], 3)).astype(np.float32)
@@ -224,7 +225,7 @@ def _solve_both(Aj, At, b, **kw):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         xj, rj = tpu_sparse.solve(Aj, b, **kw)
-    tk.reset_cast_counts()
+    tracing.reset()
     xt, rt = tpu_sparse_torch.solve(At, _torch(b), **kw)
     assert tk.CAST_COUNTS["values_casts"] == 0
     return (xj, rj), (xt, rt)

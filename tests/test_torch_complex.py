@@ -52,6 +52,7 @@ from tpu_sparse.sparse.convert import dense_to_csr as jdense_to_csr
 from tpu_sparse_torch import kernels as tk
 from tpu_sparse_torch import precond as tpre
 from tpu_sparse_torch import solvers as ts
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import cuda_bell, cuda_cwell, cuda_spmv
 from tpu_sparse_torch.kernels import reference as tref
 from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
@@ -377,7 +378,7 @@ def test_real_matrix_complex_rhs_casts_once(fmt):
     A = {"dia": L, "cwell": csr_to_cwell(to_csr(L)), "csr": to_csr(L)}[fmt]
     b = torch.from_numpy(_crand(np.random.default_rng(7), L.shape[0]))
     solver = tpu_sparse_torch.SparseSolver()
-    tk.reset_cast_counts()
+    tracing.reset()
     x, r = solver.solve(A, b, method="cg", M="jacobi", tol=1e-10)
     assert r.converged and x.dtype == torch.complex128
     assert tk.CAST_COUNTS["values_casts"] == 1
@@ -390,7 +391,7 @@ def test_real_matrix_complex_rhs_casts_once(fmt):
                                                    M="jacobi", tol=1e-10)
     assert torch.equal(x, xh)
     # a values gradient reaches the real values through the cast
-    tk.reset_cast_counts()
+    tracing.reset()
     v = L.data.clone().requires_grad_()
     xg, _ = solver.solve(L.with_data(v), b, tol=1e-12)
     xg.abs().sum().backward()

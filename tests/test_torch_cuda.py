@@ -53,6 +53,7 @@ import pytest
 import torch
 
 import tpu_sparse_torch
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import (cuda_bell, cuda_bicgstab, cuda_cg,
                                       cuda_cwell, cuda_spmv)
 from tpu_sparse_torch.kernels import reference as ref
@@ -532,7 +533,7 @@ def test_cwell_spmv_plan_counts_and_nan(dev):
     W = csr_to_cwell(dense_to_csr(A.to(dev)))
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(900).astype(
         np.float32)).to(dev)
-    cuda_cwell.reset_launch_counts()
+    tracing.reset()
     y1 = cuda_cwell.cwell_spmv_cuda(W, x)
     y2 = cuda_cwell.cwell_spmv_cuda(W, x)
     y3 = cuda_cwell.cwell_spmv_cuda(W.with_data(W.vals * 2.0), x)
@@ -1312,7 +1313,7 @@ def test_supernodal_direct_on_card(dev, dtype):
     n = A.shape[0]
     b = _consistent_rhs(S, dtype, n, 12).to(dev)
     solver = tpu_sparse_torch.SparseSolver()
-    cuda_cwell.reset_launch_counts()
+    tracing.reset()
     x, r = solver.solve(A, b, method="direct")
     sfx = "f32" if dtype == np.float32 else "f64"
     assert r.converged and _true_rel(S, b, x) <= tol
@@ -1738,7 +1739,7 @@ def test_complex_multirhs_mixed_and_bell_on_card(dev):
                                            device="cpu"))
     W = csr_to_cwell(to_csr(Ah)).to(dev)
     B = _crandn(rng, (Ah.shape[0], 4), torch.complex128).to(dev)
-    cuda_cwell.reset_launch_counts()
+    tracing.reset()
     X, r = tpu_sparse_torch.solve(W.with_data(W.vals.to(torch.complex64)),
                                   B.to(torch.complex64), tol=1e-5,
                                   maxiter=500)
@@ -1762,7 +1763,7 @@ def test_complex_multirhs_mixed_and_bell_on_card(dev):
     bell = bsr_to_bell(csr_to_bsr(csr_from_arrays(
         S.data, S.indices, S.indptr, S.shape, device=dev), 8))
     Bb = _crandn(rng, (S.shape[0], 4), torch.complex128).to(dev)
-    cuda_bell.reset_launch_counts()
+    tracing.reset()
     X, r = tpu_sparse_torch.solve(bell, Bb, method="gmres", tol=1e-10)
     assert r.converged and cuda_bell.LAUNCHES["bell_spmm_c128"] > 0
     Xc = torch.from_numpy(sp.linalg.spsolve(S.tocsc(), Bb.cpu().numpy()))
@@ -1800,7 +1801,7 @@ def test_complex_direct_and_gradient_on_card(dev):
     xt = rng.standard_normal(S.shape[0]) + 1j * rng.standard_normal(
         S.shape[0])
     b = torch.from_numpy(S @ xt).to(dev)
-    cuda_cwell.reset_launch_counts()
+    tracing.reset()
     x, r = tpu_sparse_torch.solve(A, b, method="direct")
     assert r.converged and cuda_cwell.LAUNCHES["cwell_spmv_c128"] > 0
     bb = b.cpu().numpy()
@@ -1989,8 +1990,7 @@ def test_bf16_solves_on_card(dev):
     A = A32.with_data(A32.data.to(torch.bfloat16))
     b = torch.from_numpy(np.random.default_rng(33).standard_normal(
         A.shape[0]).astype(np.float32)).to(dev)
-    kernels.reset_cast_counts()
-    cuda_spmv.reset_launch_counts()
+    tracing.reset()
     x, r = tpu_sparse_torch.solve(A, b, method="cg", tol=1e-6)
     assert cuda_spmv.LAUNCHES["dia_spmv_ext_bf16_f32"] > 0
     op32 = cuda_spmv.ExtendedStencilOperator(A32)
@@ -2007,7 +2007,8 @@ def test_bf16_solves_on_card(dev):
     assert xh.dtype == torch.bfloat16 and rh.converged
     W = csr_to_cwell(conv.to_csr(A))
     assert W.vals.dtype == torch.bfloat16
-    cuda_cwell.reset_launch_counts()
+    assert kernels.CAST_COUNTS["values_casts"] == 0
+    tracing.reset()
     xw, rw = tpu_sparse_torch.solve(W, b, method="cg", tol=1e-5)
     assert rw.converged and cuda_cwell.LAUNCHES["cwell_spmv_bf16_f32"] > 0
     B = torch.stack([b, 2 * b, -b], 1)

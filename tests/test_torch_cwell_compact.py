@@ -24,6 +24,7 @@ from tpu_sparse.sparse.convert import dense_to_csr as jdense_to_csr
 from tpu_sparse.sparse.convert import csr_from_arrays as jcsr_from_arrays
 from tpu_sparse.sparse.convert import to_csr as jto_csr
 from tpu_sparse.sparse.cwell import csr_to_cwell as jcsr_to_cwell
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import _cwellseg_apply
 from tpu_sparse_torch.kernels import reference as tref
 from tpu_sparse_torch.sparse import bsr_to_bell, csr_to_bsr
@@ -192,7 +193,7 @@ def test_with_data_reuses_the_plan_and_writes_regather():
     S = _scipy_csr(1000, 900, 6, np.float64, 8)
     W = csr_to_cwell(_both_csr(S)[1])
     x = torch.from_numpy(np.random.default_rng(7).standard_normal(900))
-    cc.reset_counts()
+    tracing.reset()
     plan, cvals = cc.compact(W)
     assert cc.compact(W)[1] is cvals  # cached: no gather per SpMV
     W2 = W.with_data(W.vals * 2.0)
@@ -217,7 +218,7 @@ def test_nonzero_in_a_dropped_slot_rebuilds_the_plan():
     W = csr_to_cwell(_both_csr(S)[1])
     x = torch.from_numpy(np.random.default_rng(8).standard_normal(400))
     plan, _ = cc.compact(W)
-    cc.reset_counts()
+    tracing.reset()
     vals = W.vals.clone()
     b, s, lane = (vals == 0).nonzero()[0].tolist()  # a padding slot
     vals[b, s, lane] = 5.0
@@ -269,7 +270,7 @@ def test_segments_past_any_cache_size_keep_their_plans():
     assert len(Seg.segments) == 20
     x = torch.from_numpy(np.random.default_rng(10).standard_normal(
         20 * 256).astype(np.float32))
-    cc.reset_counts()
+    tracing.reset()
     y1 = _cwellseg_apply(Seg, x, _compact_spmv)
     y2 = _cwellseg_apply(Seg, x, _compact_spmv)
     assert cc.COUNTS == {"plan_builds": 20, "value_gathers": 20}
@@ -458,7 +459,7 @@ def test_transpose_and_repack_caches_hold_every_live_structure(monkeypatch):
         bells.append(bsr_to_bell(csr_to_bsr(
             tconvert.dense_to_csr(torch.from_numpy(Ad)), 2)))
     b = torch.ones(60, dtype=torch.float64)
-    cc.reset_counts()
+    tracing.reset()
     for _ in range(2):
         mode[0] = "cwell"
         for W in packs:

@@ -25,7 +25,7 @@ card (``device="cuda"``).
 """
 
 from tpu_sparse_torch import (autodiff, config, direct, kernels, precond,
-                              sparse, utils)
+                              sparse, tracing, utils)
 from tpu_sparse_torch.api import SolverResult, SparseSolver, solve
 from tpu_sparse_torch.autodiff import (bicgstab_diff, cg_diff, cg_sr_diff,
                                        fcg_diff, fgmres_diff, gmres_diff,
@@ -41,7 +41,8 @@ from tpu_sparse_torch.sparse import (BELL, BSR, COO, CSR, CWELL, DIA,
 __version__ = "0.5.0"
 
 __all__ = [
-    "autodiff", "config", "direct", "kernels", "precond", "sparse", "utils",
+    "autodiff", "config", "direct", "kernels", "precond", "sparse",
+    "tracing", "utils",
     "BELL", "BSR", "COO", "CSR", "CWELL", "CWELLSeg", "DIA", "bsr_to_bell",
     "csr_to_bsr", "csr_to_cwell", "to_gpu_operator",
     "batch_bicgstab", "batch_cg", "batch_fcg", "batch_fgmres",

@@ -77,6 +77,7 @@ names raise the JAX router's ``ValueError``.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from contextlib import contextmanager
 from enum import Enum
@@ -84,6 +85,7 @@ from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.api import availability
 from tpu_sparse_torch.kernels import as_matvec, cast_values
 from tpu_sparse_torch.kernels.cuda_spmv import extendable
@@ -141,10 +143,11 @@ class SolverResult:
 
     ``converged``/``iterations``/``residual`` may be device scalars; they
     are read in one transfer on first access, so building a result costs no
-    device-to-host round trip."""
+    device-to-host round trip. Under a profiler, that read is counted on
+    the solve's ``tsp.solve`` record with the iterations it reports."""
 
     __slots__ = ("x", "backend", "method", "_converged", "_iterations",
-                 "_residual", "_fetched")
+                 "_residual", "_fetched", "_record")
 
     def __init__(self, x, converged, iterations, residual, backend, method):
         self.x = x
@@ -155,6 +158,7 @@ class SolverResult:
         self._residual = residual
         self._fetched = not any(isinstance(v, torch.Tensor)
                                 for v in (converged, iterations, residual))
+        self._record = None  # the tsp.solve record, while tracing
 
     def _materialize(self):
         if self._fetched:
@@ -162,8 +166,9 @@ class SolverResult:
         fields = [self._converged, self._iterations, self._residual]
         on_device = [k for k, v in enumerate(fields)
                      if isinstance(v, torch.Tensor)]
-        host = torch.stack([fields[k].detach().reshape(()).double()
-                            for k in on_device]).tolist()  # one transfer
+        host = tracing.host_read(torch.stack(
+            [fields[k].detach().reshape(()).double()
+             for k in on_device])).tolist()  # one transfer
         for k, v in zip(on_device, host):
             fields[k] = v
         c, i, r = fields
@@ -171,11 +176,15 @@ class SolverResult:
         self._iterations = None if i is None else int(i)
         self._residual = None if r is None else float(r)
         self._fetched = True
+        if self._record is not None:
+            self._record.bump("solver.host_syncs")
+            self._record.attrs["iterations"] = self._iterations
 
     def replace_x(self, x) -> "SolverResult":
         out = SolverResult(x, self._converged, self._iterations,
                            self._residual, self.backend, self.method)
         out._fetched = self._fetched
+        out._record = self._record
         return out
 
     @property
@@ -201,6 +210,21 @@ class SolverResult:
                 f"method={self.method!r})")
 
 
+def _solve_span(solve):
+    """``SparseSolver.solve`` inside the request's ``tsp.solve`` span; the
+    result keeps its record, so that reading it is counted there."""
+
+    @functools.wraps(solve)
+    def traced(self, A, b, *args, **kwargs):
+        with tracing.span(tracing.ROOT) as sp:
+            x, result = solve(self, A, b, *args, **kwargs)
+        if sp.record is not None:
+            result._record = sp.record
+        return x, result
+
+    return traced
+
+
 class SparseSolver:
     """Unified sparse linear-system solver (reference solver.py:84-508).
 
@@ -216,14 +240,14 @@ class SparseSolver:
         self.default_method = default_method
         self._available: Optional[List[str]] = None
         # built preconditioners, per matrix content (JAX sizes)
-        self._m_cache = OperandCache(max_entries=16)
-        self._amg_cache = OperandCache(max_entries=8)
+        self._m_cache = OperandCache(max_entries=16, name="M")
+        self._amg_cache = OperandCache(max_entries=8, name="amg")
         # direct factors, one per live values tensor (a factor costs
         # seconds of host work: no size cap that would drop a live one)
         self._snlu_cache = TensorCache()
         self._host_lu_cache = TensorCache()
         # real operands cast to a complex b's dtype, per matrix content
-        self._cast_cache = OperandCache(max_entries=8)
+        self._cast_cache = OperandCache(max_entries=8, name="cast")
 
     @property
     def available_backends(self) -> List[str]:
@@ -257,6 +281,7 @@ class SparseSolver:
             return "amg", "amg"
         return "krylov", method
 
+    @_solve_span
     def solve(self, A: Union[Any, Callable], b: torch.Tensor,
               x0: Optional[torch.Tensor] = None, *,
               method: Optional[str] = None, backend: Optional[str] = None,
@@ -344,6 +369,12 @@ class SparseSolver:
                 "precision='mixed' is not differentiable (its inner solves "
                 "are iteration loops; the JAX package refuses the same): "
                 "pass precision='full' to differentiate through solve()")
+        if tracing.enabled():
+            tensor = isinstance(b, torch.Tensor)
+            tracing.annotate(backend=sel_backend, method=sel_method,
+                             precision=precision,
+                             n=int(b.shape[0]) if tensor else None,
+                             dtype=str(b.dtype) if tensor else None)
         if self.verbose:
             print(f"[SparseSolver] backend={sel_backend} "
                   f"method={sel_method} precision={precision}")
@@ -493,7 +524,8 @@ class SparseSolver:
         v, key = values(A), _index_key(A)
         lu = self._snlu_cache.get(v, key)
         if lu is None or (with_transpose and not lu.has_transpose):
-            lu = SupernodalLU.factor(A, with_transpose=with_transpose)
+            with tracing.span("tsp.router.build.factors"):
+                lu = SupernodalLU.factor(A, with_transpose=with_transpose)
             self._snlu_cache.put(v, lu, key)
         return lu
 
@@ -505,7 +537,8 @@ class SparseSolver:
         v, key = values(A), _index_key(A)
         lu = self._host_lu_cache.get(v, key)
         if lu is None:
-            lu = HostLU(A)
+            with tracing.span("tsp.router.build.factors"):
+                lu = HostLU(A)
             self._host_lu_cache.put(v, lu, key)
         return lu
 
@@ -544,7 +577,8 @@ class SparseSolver:
         per matrix content. The permuted matrix lives on A's device."""
         cached = getattr(self, "_reorder_cache", None)
         if cached is None:
-            cached = self._reorder_cache = OperandCache(max_entries=8)
+            cached = self._reorder_cache = OperandCache(max_entries=8,
+                                                        name="rcm")
 
         def build():
             import numpy as np

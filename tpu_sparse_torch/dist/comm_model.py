@@ -33,8 +33,10 @@ import dataclasses
 from collections import Counter
 from typing import Any, Callable, Dict, List, Optional
 
-# (kind, bytes) -> calls, since the process started
-_COUNTS: Counter = Counter()
+from tpu_sparse_torch import tracing
+
+# (kind, bytes) -> calls, since the process started or tracing.reset()
+_COUNTS: Counter = tracing.group("comm", Counter())
 
 
 def record(kind: str, nbytes: int) -> None:

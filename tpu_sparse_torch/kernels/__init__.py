@@ -34,6 +34,7 @@ from typing import Callable
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import reference as ref
 from tpu_sparse_torch.sparse.bell import BELL, block_cwell
 from tpu_sparse_torch.sparse.containers import (BSR, COO, CSR, DIA,
@@ -46,11 +47,7 @@ from tpu_sparse_torch.sparse.cwell import CWELL, CWELLSeg
 # happen: a product of a real container with a complex vector casts the
 # values on every call, so ``solve()`` casts a real operand of a complex b
 # once per solve and no matvec casts again.
-CAST_COUNTS = {"values_casts": 0}
-
-
-def reset_cast_counts() -> None:
-    CAST_COUNTS["values_casts"] = 0
+CAST_COUNTS = tracing.group("casts", {"values_casts": 0})
 
 
 def cast_values(A, dtype: torch.dtype):

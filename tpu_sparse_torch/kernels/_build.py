@@ -18,7 +18,6 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -33,7 +32,6 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
-build_seconds: "float | None" = None  # wall time of this process's build
 
 
 def sources() -> list:
@@ -68,7 +66,6 @@ def find_nvcc() -> str:
 def build() -> Path:
     """Compile csrc/*.cu into the hash-keyed build directory; returns the
     library path. A failed compile raises with nvcc's output."""
-    global build_seconds
     out_dir = BUILD_DIR / build_key()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
@@ -76,7 +73,6 @@ def build() -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     work = Path(tempfile.mkdtemp(dir=out_dir))
-    t0 = time.perf_counter()
     steps = []  # (command, process), all compiles started together
     for src in (p for p in sources() if p.suffix == ".cu"):
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
@@ -97,7 +93,6 @@ def build() -> Path:
         log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             failed.append(f"link (exit {proc.returncode}):\n{proc.stderr}")
-    build_seconds = time.perf_counter() - t0
     (out_dir / "nvcc.log").write_text("".join(log))
     if failed:
         shutil.rmtree(work, ignore_errors=True)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import reference as ref
 from tpu_sparse_torch.kernels.cuda_spmv import dtype_pairs
 from tpu_sparse_torch.sparse.bell import BELL
@@ -35,9 +36,9 @@ from tpu_sparse_torch.sparse.bell import BELL
 MAX_BLOCKSIZE = 64  # a double-buffered fp64 block and stripe: ~74 KB
 
 # Launches of K8, by dtype; counted where the kernel launches.
-LAUNCHES = {"bell_spmm_f32": 0, "bell_spmm_f64": 0,
-            "bell_spmm_c64": 0, "bell_spmm_c128": 0,
-            "bell_spmm_bf16": 0, "bell_spmm_bf16_f32": 0}
+LAUNCHES = tracing.group("launches", {
+    "bell_spmm_f32": 0, "bell_spmm_f64": 0, "bell_spmm_c64": 0,
+    "bell_spmm_c128": 0, "bell_spmm_bf16": 0, "bell_spmm_bf16_f32": 0})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
            torch.complex64: "c64", torch.complex128: "c128",
@@ -46,11 +47,6 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
 # blocks with a float32 B
 _BUILDS = {**{(d, d): s for d, s in _SUFFIX.items()},
            (torch.bfloat16, torch.float32): "bf16_f32"}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _check_operands(A: BELL, B: torch.Tensor) -> str:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels.cuda_cg import _ptr, grid_for, supports_fused_cg
 from tpu_sparse_torch.kernels.cuda_spmv import ExtendedStencilOperator
 
@@ -44,13 +45,9 @@ EPS = 1.1754944e-38      # float tiny: division guards
 EPS_REL = 1.1920929e-07  # float eps: breakdown tests
 
 # Launches of the three K10 kernels; counted where each kernel launches.
-LAUNCHES = {"dia_bicgstab_q": 0, "dia_bicgstab_t": 0,
-            "dia_bicgstab_update": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+LAUNCHES = tracing.group("launches", {"dia_bicgstab_q": 0,
+                                      "dia_bicgstab_t": 0,
+                                      "dia_bicgstab_update": 0})
 
 
 def supports_fused_bicgstab(op) -> bool:
@@ -344,6 +341,7 @@ def fused_bicgstab_block_reference(op: ExtendedStencilOperator, x, r, p,
     return x, r, p, torch.stack(hist)
 
 
+@tracing.traced("tsp.solver.fused_bicgstab")
 def fused_bicgstab_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
                        tol: float = 1e-6, atol: float = 0.0,
                        maxiter: "int | None" = None, block_iters: int = 12):
@@ -366,7 +364,8 @@ def fused_bicgstab_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
     if maxiter is None:
         maxiter = 10 * op.n
     b = b.to(torch.float32)
-    b_norm = np.float32(torch.linalg.vector_norm(b).item())
+    b_norm = np.float32(
+        tracing.host_read(torch.linalg.vector_norm(b)).item())
     thresh = np.maximum(np.float32(tol) * b_norm, np.float32(atol))
     thresh2 = thresh * thresh
     b_ext = op.extend(b)
@@ -376,8 +375,10 @@ def fused_bicgstab_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
     h = np.full(K, 3.0e38, dtype=np.float32)
     done, last = 0, np.float32(3.0e38)
     while last > thresh2 and done < maxiter and np.isfinite(last):
-        state.run(hist)
-        h = hist.cpu().numpy()  # the one host read per block
+        with tracing.span("tsp.solver.block"):
+            state.run(hist)
+            h = tracing.host_read(hist).numpy()  # the one read per block
+        tracing.SOLVER["iterations_run"] += K
         done += K
         last = h[K - 1]
     crossed = h <= thresh2
@@ -390,5 +391,5 @@ def fused_bicgstab_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
     conv = (torch.isfinite(res) & (res <= float(thresh * relax))
             & torch.isfinite(torch.linalg.vector_norm(state.x)))
     info = torch.where(conv, 0, int(code) if broke else -1).to(torch.int32)
-    iters_t = torch.tensor(iters, dtype=torch.int32, device=b.device)
+    iters_t = torch.full((), iters, dtype=torch.int32, device=b.device)
     return op.extract(state.x), info, iters_t, res

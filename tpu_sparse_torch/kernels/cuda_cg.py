@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels.cuda_spmv import (ExtendedStencilOperator,
                                                 make_extended_operator)
 
@@ -30,12 +31,8 @@ BLOCK = 256       # TS_BLOCK in csrc/ts_common.cuh
 MAX_GRID = 1024   # TS_MAX_GRID
 
 # Launches of kernels 2 and 3; counted where each kernel launches.
-LAUNCHES = {"dia_cg_spmv_dot": 0, "dia_cg_update": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+LAUNCHES = tracing.group("launches", {"dia_cg_spmv_dot": 0,
+                                      "dia_cg_update": 0})
 
 
 def grid_for(n: int) -> int:
@@ -289,6 +286,7 @@ def fused_cg_block_reference(op: ExtendedStencilOperator, x, r, p, K: int,
     return x, r, p, torch.stack(hist)
 
 
+@tracing.traced("tsp.solver.fused_cg")
 def fused_cg_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
                  tol: float = 1e-6, atol: float = 0.0,
                  maxiter: "int | None" = None, block_iters: int = 16,
@@ -309,7 +307,8 @@ def fused_cg_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
     if maxiter is None:
         maxiter = 10 * op.n  # reference default (torch_sparse_linalg.py:982)
     b = b.to(torch.float32)
-    b_norm = np.float32(torch.linalg.vector_norm(b).item())
+    b_norm = np.float32(
+        tracing.host_read(torch.linalg.vector_norm(b)).item())
     thresh = np.maximum(np.float32(tol) * b_norm, np.float32(atol))
     thresh2 = thresh * thresh
     b_ext = op.extend(b)
@@ -321,8 +320,10 @@ def fused_cg_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
     done, first_iter = 0, -1
     rr_last = np.float32(3.0e38)  # finite so the first pass runs
     while first_iter < 0 and done < maxiter and np.isfinite(rr_last):
-        state.run(hist)
-        h = hist.cpu().numpy()  # the one host read per block
+        with tracing.span("tsp.solver.block"):
+            state.run(hist)
+            h = tracing.host_read(hist).numpy()  # the one read per block
+        tracing.SOLVER["iterations_run"] += K
         crossed = h <= thresh2
         if crossed.any():
             first_iter = done + int(np.argmax(crossed)) + 1
@@ -334,5 +335,6 @@ def fused_cg_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
     ok = (torch.isfinite(res) & (res <= float(thresh * relax))
           & torch.isfinite(torch.linalg.vector_norm(state.x)))
     info = torch.where(ok, 0, -1).to(torch.int32)
-    iters_t = torch.tensor(iters, dtype=torch.int32, device=b.device)
+    # a fill, not a copy from the host: that would wait for the queue
+    iters_t = torch.full((), iters, dtype=torch.int32, device=b.device)
     return op.extract(state.x), info, iters_t, res

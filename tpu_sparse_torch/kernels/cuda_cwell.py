@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import reference as ref
 from tpu_sparse_torch.kernels.cuda_spmv import dtype_pairs
 from tpu_sparse_torch.sparse import cwell_compact
@@ -41,13 +42,12 @@ from tpu_sparse_torch.sparse.cwell import CWELL, LW
 # Launches of K4 (float32, complex64, bf16 values), K5 (float64,
 # complex128) and K6/K7 (SpMM, every build), by build; counted where the
 # kernel launches.
-LAUNCHES = {"cwell_spmv_f32": 0, "cwell_spmv_f64": 0,
-            "cwell_spmv_c64": 0, "cwell_spmv_c128": 0,
-            "cwell_spmv_bf16": 0, "cwell_spmv_bf16_f32": 0,
-            "cwell_spmm_f32": 0, "cwell_spmm_f64": 0,
-            "cwell_spmm_c64": 0, "cwell_spmm_c128": 0,
-            "cwell_spmm_bf16": 0, "cwell_spmm_bf16_f32": 0,
-            "cwell_spmm_f32_bf16": 0}
+LAUNCHES = tracing.group("launches", {
+    "cwell_spmv_f32": 0, "cwell_spmv_f64": 0, "cwell_spmv_c64": 0,
+    "cwell_spmv_c128": 0, "cwell_spmv_bf16": 0, "cwell_spmv_bf16_f32": 0,
+    "cwell_spmm_f32": 0, "cwell_spmm_f64": 0, "cwell_spmm_c64": 0,
+    "cwell_spmm_c128": 0, "cwell_spmm_bf16": 0, "cwell_spmm_bf16_f32": 0,
+    "cwell_spmm_f32_bf16": 0})
 # Compact-plan builds and value gathers behind K4 - K7.
 PLAN_COUNTS = cwell_compact.COUNTS
 
@@ -70,12 +70,6 @@ def _spmm_piece_cap(plan, value_bytes: int) -> int:
     slot = value_bytes + (4 if plan.wide else 2)
     window = 0 if plan.wide else plan.planes * 4
     return (_SPMM_SMEM - window) // (LW * slot)
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    cwell_compact.reset_counts()
 
 
 def _check_operands(W: CWELL, x: torch.Tensor, what: str = "cwell_spmv_cuda",

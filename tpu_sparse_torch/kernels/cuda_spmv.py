@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import reference as ref
 from tpu_sparse_torch.sparse.containers import DIA
 
@@ -35,11 +36,11 @@ MAX_DIAG = 64     # TS_MAX_DIAG in csrc/ts_common.cuh
 MARGIN_ALIGN = 32
 
 # Launches of kernel 1, by mode and dtype; counted where the kernel launches.
-LAUNCHES = {"dia_spmv_f32": 0, "dia_spmv_f64": 0,
-            "dia_spmv_c64": 0, "dia_spmv_c128": 0,
-            "dia_spmv_bf16": 0, "dia_spmv_bf16_f32": 0,
-            "dia_spmv_ext_f32": 0, "dia_spmv_ext_f64": 0,
-            "dia_spmv_ext_bf16": 0, "dia_spmv_ext_bf16_f32": 0}
+LAUNCHES = tracing.group("launches", {
+    "dia_spmv_f32": 0, "dia_spmv_f64": 0, "dia_spmv_c64": 0,
+    "dia_spmv_c128": 0, "dia_spmv_bf16": 0, "dia_spmv_bf16_f32": 0,
+    "dia_spmv_ext_f32": 0, "dia_spmv_ext_f64": 0, "dia_spmv_ext_bf16": 0,
+    "dia_spmv_ext_bf16_f32": 0})
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
            torch.complex64: "c64", torch.complex128: "c128",
@@ -64,11 +65,6 @@ _BUILD_IDS = {"f32": 0, "f64": 1, "c64": 2, "c128": 3, "bf16": 4,
               "bf16_f32": 5}
 _VALUE_BYTES = {"f32": 4, "f64": 8, "c64": 8, "c128": 16, "bf16": 2,
                 "bf16_f32": 2}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _round_up(v: int, m: int) -> int:

@@ -85,6 +85,7 @@ def main(argv) -> int:
     import numpy as np
     import torch
 
+    from tpu_sparse_torch import tracing
     from tpu_sparse_torch.kernels import cuda_cwell
     from tpu_sparse_torch.kernels import reference as ref
     from tpu_sparse_torch.sparse import convert as conv
@@ -109,7 +110,7 @@ def main(argv) -> int:
         A = conv.to_csr(gen.poisson3d_27pt(nx, device=dev))
         W = csr_to_cwell(A)
         n, m = W.shape
-        cwell_compact.reset_counts()
+        tracing.reset()
         packs = {"f32": W, "f64": W.with_data(W.vals.double()),
                  "bf16": W.with_data(W.vals.bfloat16())}
         compacts = {k: cwell_compact.compact(P) for k, P in packs.items()}

@@ -40,6 +40,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matvec, spmm, spmv, spmv_reference
 from tpu_sparse_torch.sparse.containers import (CSR, is_sparse, values,
                                                 with_values)
@@ -441,6 +442,7 @@ def _chebyshev_smooth(A, dinv, x, b, degree: int, lam_max: float,
     return x
 
 
+@tracing.traced("tsp.precond.vcycle")
 def v_cycle(hier: AMGHierarchy, b: torch.Tensor, *, pre_sweeps: int = 0,
             post_sweeps: int = 3, omega: float = 1.0,
             smoother: str = "l1_jacobi", plain: bool = False,
@@ -470,17 +472,19 @@ def v_cycle(hier: AMGHierarchy, b: torch.Tensor, *, pre_sweeps: int = 0,
 
     def descend(level_idx: int, rhs: torch.Tensor) -> torch.Tensor:
         if level_idx == len(hier.levels):
-            ci = hier.coarse_inv
-            if not isinstance(ci, torch.Tensor):
-                return product(ci, rhs)
-            return (ci @ rhs.to(ci.dtype)).to(rhs.dtype)
-        lvl = hier.levels[level_idx]
-        x = torch.zeros_like(rhs)
-        x = smooth(lvl, x, rhs, pre_sweeps)
-        r = rhs - product(lvl.A, x) if pre_sweeps > 0 else rhs
-        xc = descend(level_idx + 1, product(lvl.R, r))
-        x = x + product(lvl.P, xc)
-        return smooth(lvl, x, rhs, post_sweeps)
+            with tracing.span("tsp.precond.coarse"):
+                ci = hier.coarse_inv
+                if not isinstance(ci, torch.Tensor):
+                    return product(ci, rhs)
+                return (ci @ rhs.to(ci.dtype)).to(rhs.dtype)
+        with tracing.span(tracing.level_name(level_idx)):
+            lvl = hier.levels[level_idx]
+            x = torch.zeros_like(rhs)
+            x = smooth(lvl, x, rhs, pre_sweeps)
+            r = rhs - product(lvl.A, x) if pre_sweeps > 0 else rhs
+            xc = descend(level_idx + 1, product(lvl.R, r))
+            x = x + product(lvl.P, xc)
+            return smooth(lvl, x, rhs, post_sweeps)
 
     return descend(0, b)
 
@@ -564,14 +568,15 @@ def amg_stationary_solve(A, b, x0=None, *, tol: float = 1e-6,
     r = b - matvec(x)
     r_norm = torch.linalg.vector_norm(r)
     k = 0
-    while k < maxiter and bool((r_norm > thresh) & torch.isfinite(r_norm)):
+    while k < maxiter and bool(tracing.host_read(
+            (r_norm > thresh) & torch.isfinite(r_norm))):
         x = x + M(r)
         r = b - matvec(x)
         r_norm = torch.linalg.vector_norm(r)
         k += 1
     ok = torch.isfinite(r_norm) & (r_norm <= thresh)
     info = torch.where(ok, 0, -1).to(torch.int32)
-    return x, info, torch.tensor(k, dtype=torch.int32, device=b.device), \
+    return x, info, torch.full((), k, dtype=torch.int32, device=b.device), \
         r_norm
 
 

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matmat
 from tpu_sparse_torch.solvers.fcg import _fcg_loop
 from tpu_sparse_torch.solvers.krylov import (EXIT_CHECK, _WIDE,
@@ -332,8 +333,8 @@ def _gmres_incremental_rows(A, b, x0, unit_residual, residual_norm, ptol,
         err = torch.where(active, (beta * G_new[:, k + 1, 0]).abs(), err)
         breakdown = torch.where(active, brk, breakdown)
         k_done = k_done + active.to(torch.int64)
-        if k % EXIT_CHECK == EXIT_CHECK - 1 and not bool(
-                ((err > ptol) & ~breakdown).any()):
+        if k % EXIT_CHECK == EXIT_CHECK - 1 and not bool(tracing.host_read(
+                ((err > ptol) & ~breakdown).any())):
             break  # the later steps would all be masked
     # identity on R's unused tail: one triangular solve gives y = 0 past k
     idx = torch.arange(restart, device=dev)
@@ -380,7 +381,8 @@ def _batch_gmres_restarts(A, B, X0, tol, atol, restart, maxiter, M,
     unit_residual, residual_norm = _safe_normalize_rows(P(b - A_run(x)))
     k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     active = (k < maxiter) & (residual_norm > atol_)
-    while bool(active.any()):  # one host read per restart cycle
+    # one host read per restart cycle
+    while bool(tracing.host_read(active.any())):
         x_n, u_n, r_n = cycle_fn(A_run, b, x, unit_residual, residual_norm,
                                  ptol, restart, M_run)
         x = torch.where(active[:, None], x_n, x)

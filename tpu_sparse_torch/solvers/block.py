@@ -25,6 +25,7 @@ from typing import Callable, Optional
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matmat
 from tpu_sparse_torch.solvers.batched import (cols_vdot_real,
                                               gj_solve_batched)
@@ -109,7 +110,8 @@ def block_cg(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *,
     k = torch.zeros((), dtype=torch.int32, device=B.device)
     active = (k < maxiter) & torch.any(rs > atol2)
     it = 0  # host count of loop bodies: equals k while the loop is active
-    while bool(active):  # one host read per CHECK_EVERY iterations
+    # one host read per CHECK_EVERY iterations
+    while bool(tracing.host_read(active)):
         for _ in range(CHECK_EVERY):
             act = (rs > atol2).to(dtype)
             Pm = P * act[None, :]

@@ -19,6 +19,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.solvers.krylov import (CHECK_EVERY, Operator,
                                              _check_tree_compat,
@@ -45,7 +46,8 @@ def _fcg_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
         return (k < maxiter) & (vdot_real(r, r) > atol2)
 
     active = active_now()
-    while bool(active.any()):  # one host read per CHECK_EVERY iterations
+    # one host read per CHECK_EVERY iterations
+    while bool(tracing.host_read(active.any())):
         for _ in range(CHECK_EVERY):
             q = A(p)
             alpha = (rz / vdot_real(p, q)).to(dtype)

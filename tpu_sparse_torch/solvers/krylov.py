@@ -30,6 +30,7 @@ import torch
 
 from torch.utils import _pytree as pytree
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.utils.tree import (
     tree_axpy,
@@ -91,7 +92,8 @@ def _thresholds(b, tol: float, atol, vdot_real: Callable = tree_vdot_real):
     max(tol^2 <b, b>, atol^2)). ``vdot_real`` is the dot product (the
     distributed solvers pass an all-reduced one)."""
     bs = vdot_real(b, b)
-    atol_t = torch.as_tensor(atol, dtype=bs.dtype, device=bs.device)
+    # a fill, not a copy from the host: that would wait for the queue
+    atol_t = torch.full((), atol, dtype=bs.dtype, device=bs.device)
     return bs, atol_t, torch.maximum((tol * tol) * bs, atol_t * atol_t)
 
 
@@ -133,22 +135,25 @@ def _cg_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
         return (k < maxiter) & (rs > atol2)
 
     active = active_now()
-    while bool(active.any()):  # one host read per CHECK_EVERY iterations
+    # one host read per CHECK_EVERY iterations
+    while bool(tracing.host_read(active.any())):
         for _ in range(CHECK_EVERY):
-            Ap = A(p)
-            alpha = (gamma / vdot_real(p, Ap)).to(dtype)
-            x_new = tree_axpy(alpha, p, x)
-            r_new = tree_axpy(-alpha, Ap, r)
-            z = M(r_new)
-            gamma_new = vdot_real(r_new, z).to(_real_dtype(dtype))
-            beta = (gamma_new / gamma).to(dtype)
-            p_new = tree_axpy(beta, p, z)
-            x = tree_where(active, x_new, x)
-            r = tree_where(active, r_new, r)
-            p = tree_where(active, p_new, p)
-            gamma = torch.where(active, gamma_new, gamma)
-            k = k + active.to(torch.int32)
-            active = active_now()
+            with tracing.span("tsp.solver.iter"):
+                Ap = A(p)
+                alpha = (gamma / vdot_real(p, Ap)).to(dtype)
+                x_new = tree_axpy(alpha, p, x)
+                r_new = tree_axpy(-alpha, Ap, r)
+                z = M(r_new)
+                gamma_new = vdot_real(r_new, z).to(_real_dtype(dtype))
+                beta = (gamma_new / gamma).to(dtype)
+                p_new = tree_axpy(beta, p, z)
+                x = tree_where(active, x_new, x)
+                r = tree_where(active, r_new, r)
+                p = tree_where(active, p_new, p)
+                gamma = torch.where(active, gamma_new, gamma)
+                k = k + active.to(torch.int32)
+                active = active_now()
+            tracing.SOLVER["iterations_run"] += 1
     return x, k
 
 
@@ -164,6 +169,7 @@ def cg(A: Operator, b: Any, x0: Optional[Any] = None, *, tol: float = 1e-5,
     return x, info
 
 
+@tracing.traced("tsp.solver.cg")
 def cg_full(A: Operator, b: Any, x0: Optional[Any] = None, *,
             tol: float = 1e-5, atol=0.0, maxiter: Optional[int] = None,
             M: Optional[Operator] = None):
@@ -206,41 +212,45 @@ def _bicgstab_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
         return (rs > atol2) & (k < maxiter) & (k >= 0)
 
     active = active_now()
-    while bool(active.any()):  # one host read per CHECK_EVERY iterations
+    # one host read per CHECK_EVERY iterations
+    while bool(tracing.host_read(active.any())):
         for _ in range(CHECK_EVERY):
-            rho_new = vdot(rhat, r)
-            beta = rho_new / rho * alpha / omega
-            p_new = tree_axpy(beta, tree_axpy(-omega, q, p), r)
-            phat = M(p_new)
-            q_new = A(phat)
-            alpha_new = rho_new / vdot(rhat, q_new)
-            s = tree_axpy(-alpha_new, q_new, r)
-            exit_early = vdot_real(s, s) < atol2
-            shat = M(s)
-            t = A(shat)
-            tt = vdot(t, t)
-            omega_new = torch.where(tt.abs() > 0, vdot(t, s) / tt,
-                                    torch.zeros((), dtype=dtype, device=dev))
-            x_half = tree_axpy(alpha_new, phat, x)
-            x_new = tree_where(exit_early, x_half,
-                               tree_axpy(omega_new, shat, x_half))
-            r_new = tree_where(exit_early, s, tree_axpy(-omega_new, t, s))
-            # breakdown codes of the reference (:902 rho, :913/:934
-            # alpha/omega)
-            k_next = torch.where(
-                rho_new.abs() < eps * rho.abs(), -10,
-                torch.where((alpha_new.abs() < eps)
-                            | ((omega_new.abs() < eps) & ~exit_early),
-                            -11, k + 1)).to(torch.int32)
-            x = tree_where(active, x_new, x)
-            r = tree_where(active, r_new, r)
-            p = tree_where(active, p_new, p)
-            q = tree_where(active, q_new, q)
-            alpha = torch.where(active, alpha_new, alpha)
-            omega = torch.where(active, omega_new, omega)
-            rho = torch.where(active, rho_new, rho)
-            k = torch.where(active, k_next, k)
-            active = active_now()
+            with tracing.span("tsp.solver.iter"):
+                rho_new = vdot(rhat, r)
+                beta = rho_new / rho * alpha / omega
+                p_new = tree_axpy(beta, tree_axpy(-omega, q, p), r)
+                phat = M(p_new)
+                q_new = A(phat)
+                alpha_new = rho_new / vdot(rhat, q_new)
+                s = tree_axpy(-alpha_new, q_new, r)
+                exit_early = vdot_real(s, s) < atol2
+                shat = M(s)
+                t = A(shat)
+                tt = vdot(t, t)
+                omega_new = torch.where(
+                    tt.abs() > 0, vdot(t, s) / tt,
+                    torch.zeros((), dtype=dtype, device=dev))
+                x_half = tree_axpy(alpha_new, phat, x)
+                x_new = tree_where(exit_early, x_half,
+                                   tree_axpy(omega_new, shat, x_half))
+                r_new = tree_where(exit_early, s, tree_axpy(-omega_new, t, s))
+                # breakdown codes of the reference (:902 rho, :913/:934
+                # alpha/omega)
+                k_next = torch.where(
+                    rho_new.abs() < eps * rho.abs(), -10,
+                    torch.where((alpha_new.abs() < eps)
+                                | ((omega_new.abs() < eps) & ~exit_early),
+                                -11, k + 1)).to(torch.int32)
+                x = tree_where(active, x_new, x)
+                r = tree_where(active, r_new, r)
+                p = tree_where(active, p_new, p)
+                q = tree_where(active, q_new, q)
+                alpha = torch.where(active, alpha_new, alpha)
+                omega = torch.where(active, omega_new, omega)
+                rho = torch.where(active, rho_new, rho)
+                k = torch.where(active, k_next, k)
+                active = active_now()
+            tracing.SOLVER["iterations_run"] += 1
     return x, k
 
 
@@ -256,6 +266,7 @@ def bicgstab(A: Operator, b: Any, x0: Optional[Any] = None, *,
     return x, info
 
 
+@tracing.traced("tsp.solver.bicgstab")
 def bicgstab_full(A: Operator, b: Any, x0: Optional[Any] = None, *,
                   tol: float = 1e-5, atol: float = 0.0,
                   maxiter: Optional[int] = None,
@@ -513,7 +524,7 @@ def _gmres_incremental(A, b, x0, unit_residual, residual_norm, ptol,
         breakdown = torch.where(active, brk, breakdown)
         k_done = k_done + active.to(torch.int64)
         if k % EXIT_CHECK == EXIT_CHECK - 1 and not bool(
-                (err > ptol) & ~breakdown):
+                tracing.host_read((err > ptol) & ~breakdown)):
             break  # the later steps would all be masked
     # identity on R's unused tail: one triangular solve gives y = 0 past k
     idx = torch.arange(restart, device=dev)
@@ -590,10 +601,12 @@ def _gmres_restarts(A: Operator, b: Any, x0: Optional[Any], tol: float,
     unit_residual, residual_norm = _safe_normalize(P(b_run - A_run(x)),
                                                    allreduce=allreduce)
     k = 0
-    while k < maxiter and bool(residual_norm > atol_):
-        x, unit_residual, residual_norm = cycle_fn(
-            A_run, b_run, x, unit_residual, residual_norm, ptol, restart,
-            M_run)
+    while k < maxiter and bool(tracing.host_read(residual_norm > atol_)):
+        with tracing.span("tsp.solver.block"):
+            x, unit_residual, residual_norm = cycle_fn(
+                A_run, b_run, x, unit_residual, residual_norm, ptol, restart,
+                M_run)
+        tracing.SOLVER["iterations_run"] += 1
         k += 1
 
     res_norm = _vnorm(P(b_run - A_run(x)), allreduce)
@@ -601,7 +614,7 @@ def _gmres_restarts(A: Operator, b: Any, x0: Optional[Any], tol: float,
     failed = (~torch.isfinite(_vnorm(x, allreduce))) \
         | (~torch.isfinite(res_norm)) | (res_norm > relaxed_atol)
     info = torch.where(failed, -1, 0).to(torch.int32)
-    k_t = torch.tensor(k, dtype=torch.int32, device=b_norm.device)
+    k_t = torch.full((), k, dtype=torch.int32, device=b_norm.device)
     return unflatten(x), info, k_t, res_norm
 
 
@@ -619,6 +632,7 @@ def gmres(A: Operator, b: Any, x0: Optional[Any] = None, *,
     return x, info
 
 
+@tracing.traced("tsp.solver.gmres")
 def gmres_full(A: Operator, b: Any, x0: Optional[Any] = None, *,
                tol: float = 1e-5, atol: float = 0.0, restart: int = 20,
                maxiter: Optional[int] = None, M: Optional[Operator] = None,

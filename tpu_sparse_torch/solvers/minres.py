@@ -28,6 +28,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.solvers.krylov import (CHECK_EVERY, Operator,
                                              _check_tree_compat,
@@ -69,7 +70,8 @@ def _minres_loop(A: Callable, M: Callable, b, x0, atol_norm: torch.Tensor,
         return (k < maxiter) & (phibar > atol_norm) & (beta > tiny)
 
     active = active_now()
-    while bool(active.any()):  # one host read per CHECK_EVERY iterations
+    # one host read per CHECK_EVERY iterations
+    while bool(tracing.host_read(active.any())):
         for _ in range(CHECK_EVERY):
             v = tree_scalar_mul((1.0 / safe(beta)).to(dtype), y)
             y_new = A(v)
@@ -137,15 +139,16 @@ def minres_full(A: Operator, b: Any, x0: Optional[Any] = None, *,
     atol_norm = torch.maximum(tol * torch.sqrt(bs), atol_t)
     x, k = _minres_loop(A_fn, M_fn, b, x0, atol_norm, maxiter)
     info, res_norm = _final_check(A_fn, b, x, bs, atol_t, tol)
-    while bool((info != 0) & (k < maxiter) & torch.isfinite(res_norm)):
+    while bool(tracing.host_read(
+            (info != 0) & (k < maxiter) & torch.isfinite(res_norm))):
         # the true residual must still fall by atol_norm / res_norm: ask
         # the same of the estimate, which restarts at the M-norm of r
         x_new, k_new = _minres_loop(A_fn, M_fn, b, x, atol_norm,
-                                    maxiter - int(k),
+                                    maxiter - int(tracing.host_read(k)),
                                     rel_goal=atol_norm / res_norm)
         k = k + k_new
         info_new, res_new = _final_check(A_fn, b, x_new, bs, atol_t, tol)
-        if not bool(res_new < res_norm):
+        if not bool(tracing.host_read(res_new < res_norm)):
             break  # no progress: keep the better x
         x, info, res_norm = x_new, info_new, res_new
     return x, info, k, res_norm

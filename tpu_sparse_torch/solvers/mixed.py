@@ -45,6 +45,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.kernels.cuda_spmv import (make_extended_operator,
                                                 make_extended_operator_f64)
@@ -188,7 +189,7 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
 
     for _ in range(max_sweeps):
         done = (res_norm <= thresh) | (~torch.isfinite(res_norm)) | stalled
-        if bool(done):  # the one host read of the sweep
+        if bool(tracing.host_read(done)):  # the one host read of the sweep
             break
         r = tree_sub(b, A_fn(x))
         d32, _, it, _ = _inner(_cast_tree(r, inner_dtype))
@@ -205,7 +206,7 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
     # Full-precision rescue: one inner solve in the outer dtype on the
     # current defect, aimed at the true threshold (tol=0, atol=thresh).
     failed = (~torch.isfinite(res_norm)) | (res_norm > thresh)
-    if bool(failed):
+    if bool(tracing.host_read(failed)):
         r = tree_sub(b, A_fn(x))
         d, _, it_f, _ = inner_solver(A_rescue, r, None, tol=0.0, atol=thresh,
                                      maxiter=rescue_maxiter, M=M,
@@ -354,7 +355,7 @@ def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
 
     for _ in range(max_sweeps):
         done = (res <= thresh) | (~torch.isfinite(res)) | stalled
-        if bool(done.all()):  # the one host read of the sweep
+        if bool(tracing.host_read(done.all())):  # the sweep's one read
             break
         R = torch.where(done, zero, B - A_mm(X))
         D32, _, it, _ = inner_solver(A32, R.to(inner_dtype), None,
@@ -371,7 +372,7 @@ def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
 
     # full-precision rescue of the columns the sweeps left above threshold
     failed = (~torch.isfinite(res)) | (res > thresh)
-    if bool(failed.any()):
+    if bool(tracing.host_read(failed.any())):
         R = torch.where(failed, B - A_mm(X), zero)
         D, _, it_f, _ = inner_solver(A, R, None, tol=0.0, atol=thresh,
                                      maxiter=rescue_maxiter, M=M,

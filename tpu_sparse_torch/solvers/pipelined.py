@@ -29,6 +29,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.solvers.krylov import (CHECK_EVERY, Operator,
                                              _check_tree_compat,
@@ -81,7 +82,8 @@ def _cg_sr_loop(A: Callable, M: Callable, b, x0, atol2: torch.Tensor,
         return (k < maxiter) & (rr > atol2)
 
     active = active_now()
-    while bool(active.any()):  # one host read per CHECK_EVERY iterations
+    # one host read per CHECK_EVERY iterations
+    while bool(tracing.host_read(active.any())):
         for _ in range(CHECK_EVERY):
             x_new = tree_axpy(alpha.to(dtype), p, x)
             r_new = tree_axpy(-alpha.to(dtype), s, r)

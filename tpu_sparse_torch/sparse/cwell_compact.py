@@ -43,23 +43,19 @@ import weakref
 
 import torch
 
+from tpu_sparse_torch import tracing
 from tpu_sparse_torch.sparse.cwell import CWELL, LW
 from tpu_sparse_torch.utils.opcache import TensorCache
 
 NARROW_PLANES = 256  # planes a 16-bit slot index can name
 
 # Plan builds and value gathers, counted where they happen.
-COUNTS = {"plan_builds": 0, "value_gathers": 0}
+COUNTS = tracing.group("cwell_plan", {"plan_builds": 0, "value_gathers": 0})
 
 BUILD_SLOTS = 1 << 24  # pack slots a step of the plan build reads
 
 _PLANS = TensorCache()   # on W.idx2: the plan
 _VALUES = TensorCache()  # on W.vals: (plan, compact values)
-
-
-def reset_counts() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
 
 
 def clear_caches() -> None:
@@ -233,4 +229,4 @@ def compact(W: CWELL) -> "tuple[CompactPlan, torch.Tensor]":
 
 
 __all__ = ["BUILD_SLOTS", "COUNTS", "CompactPlan", "build_plan",
-           "clear_caches", "compact", "gather_values", "reset_counts"]
+           "clear_caches", "compact", "gather_values"]

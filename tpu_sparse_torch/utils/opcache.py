@@ -18,6 +18,8 @@ from typing import Any, Callable, Hashable
 
 import torch
 
+from tpu_sparse_torch import tracing
+
 
 def _leaves(A) -> tuple:
     """The tensors that make up ``A``: itself, a container's tensor fields,
@@ -42,11 +44,14 @@ def content_key(A, extra: Hashable = ()) -> tuple:
 
 
 class OperandCache:
-    """Small map from (matrix content, extra options) to a derived object."""
+    """Small map from (matrix content, extra options) to a derived object.
+    A ``name`` puts each build after a miss in the span
+    ``tsp.router.build.<name>``."""
 
-    def __init__(self, max_entries: int = 16):
+    def __init__(self, max_entries: int = 16, name: "str | None" = None):
         self._store: dict = {}
         self._max = max_entries
+        self._span = None if name is None else f"tsp.router.build.{name}"
 
     def get_or_build(self, A, build: Callable[[], Any],
                      extra: Hashable = ()) -> Any:
@@ -59,7 +64,11 @@ class OperandCache:
         if entry is not None and entry[0]() is A and all(
                 r() is t for r, t in zip(entry[1], _leaves(A))):
             return entry[2]
-        value = build()
+        if self._span is None:
+            value = build()
+        else:
+            with tracing.span(self._span):
+                value = build()
         if len(self._store) >= self._max:
             self._store.clear()
         try:
