@@ -178,6 +178,54 @@ def test_block_vcycle_equals_column_loop():
         _close(Y[:, j].numpy(), M(B[:, j].contiguous()).numpy(), 1e-14)
 
 
+@pytest.mark.parametrize("cols", [None, 3], ids=["vector", "block3"])
+def test_cpu_apply_is_the_eager_cycle(cols):
+    """Off the card an apply is ``v_cycle`` itself, bit for bit, on every
+    apply (a card would replay a captured graph from the third): no graph
+    is kept and the graph counters stay 0, through a solve too."""
+    import tpu_sparse_torch
+
+    A = _port(jgen.poisson3d_27pt(10, dtype=np.float64))
+    M = tamg.amg_preconditioner(A)
+    shape = (A.shape[0],) if cols is None else (A.shape[0], cols)
+    rng = np.random.default_rng(3)
+    before = dict(tamg.PRECOND)
+    for _ in range(3):
+        b = torch.from_numpy(rng.standard_normal(shape))
+        y = M(b) if cols is None else M.matmat(b)
+        assert torch.equal(y, tamg.v_cycle(
+            M.hier, b, pre_sweeps=M.pre_sweeps, post_sweeps=M.post_sweeps,
+            omega=M.omega, smoother=M.smoother))
+    x, res = tpu_sparse_torch.solve(A, torch.from_numpy(rng.standard_normal(
+        A.shape[0])), backend="amg")
+    assert res.converged
+    assert dict(tamg.PRECOND) == before and len(M.hier.graphs) == 0
+
+
+def test_hierarchy_goes_with_its_last_reference():
+    """After applies, dropping the preconditioner frees its hierarchy (and
+    on the card the CUDA graphs it keeps) at once: no reference cycle
+    leaves it to the garbage collector, which could free a graph inside
+    another capture."""
+    import gc
+    import weakref
+
+    A = _port(jgen.poisson2d(16))
+    M = tamg.amg_preconditioner(A)
+    b = torch.ones(A.shape[0], dtype=torch.float64)
+    M(b)
+    M.matmat(torch.ones(A.shape[0], 2, dtype=torch.float64))
+    ref = weakref.ref(M.hier)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        del M
+        assert ref() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
 @pytest.mark.parametrize("matrix,stationary", [
     ("poisson2d(32)", False), ("poisson2d(32)", True),
     ("anisotropic(24)", True)],

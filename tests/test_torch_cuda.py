@@ -28,7 +28,9 @@ SpMM): 1e-5 (f32) / 1e-12 (f64) of max|Y| against the plain version,
 bit-identical reruns; multi-RHS solves on the card against the CPU with
 the CWELL solves' iteration slack and x tolerances. AMG: the card's
 V-cycle against the same cycle on the plain versions and the block cycle
-against the single ones within 1e-5 (f32) / 1e-12 (f64) of max|y|;
+against the single ones within 1e-5 (f32) / 1e-12 (f64) of max|y|; a
+replayed CUDA graph of the cycle equal to the eager ``v_cycle`` bit for
+bit, and so PCG's x and iterations with it;
 preconditioned solves on the card against the CPU with the slack and x
 tolerances above (f64 rtol 1e-8); the lid-driven cavity's fields on the
 card within 1e-8 of the CPU's after 20 steps. Direct solves: PCR and
@@ -1059,6 +1061,191 @@ def test_block_amg_solve_on_card_runs_spmm(dev):
     assert cuda_cwell.LAUNCHES["cwell_spmm_f32"] > before
     r = B - ref.cwell_spmm(W, X)
     assert float((r.norm(dim=0) / B.norm(dim=0)).max()) <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def amg40():
+    """poisson3d_27pt(40) and its hierarchy by dtype, set up once; each call
+    wraps the levels in a new hierarchy, so its graph cache starts empty."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from tpu_sparse_torch.precond import amg as tamg
+
+    built = {}
+
+    def get(dtype):
+        if dtype not in built:
+            A = gen.poisson3d_27pt(40, dtype=dtype, device="cuda")
+            built[dtype] = A, tamg.amg_setup(A)
+        A, h = built[dtype]
+        return A, tamg.AMGPreconditioner(tamg.AMGHierarchy(h.levels,
+                                                           h.coarse_inv))
+
+    return get
+
+
+def _sweeps(M):
+    return dict(pre_sweeps=M.pre_sweeps, post_sweeps=M.post_sweeps,
+                omega=M.omega, smoother=M.smoother)
+
+
+def _graph_counts(fn):
+    """(fn(), the precond.graph_* counters it moved)."""
+    from tpu_sparse_torch.precond import amg as tamg
+
+    before = dict(tamg.PRECOND)
+    out = fn()
+    return out, {k: v - before[k] for k, v in tamg.PRECOND.items()
+                 if v != before[k]}
+
+
+@pytest.mark.parametrize("cols", [None, 4], ids=["vector", "block4"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_amg_replayed_cycle_equals_eager_bit_for_bit(amg40, dtype, cols):
+    """A key's first apply runs eager, its second captures, the rest
+    replay: every result equals ``v_cycle`` on the same b bit for bit, and
+    a returned y is not changed by the applies after it."""
+    from tpu_sparse_torch.precond import amg as tamg
+
+    A, M = amg40(dtype)
+    shape = (A.shape[0],) if cols is None else (A.shape[0], cols)
+    rng = np.random.default_rng(7)
+    bs = [torch.from_numpy(rng.standard_normal(shape).astype(dtype)).to(
+        "cuda") for _ in range(5)]
+    apply = M if cols is None else M.matmat
+    ys, kept = [], []
+
+    def run():
+        for b in bs:
+            ys.append(apply(b))
+            kept.append(ys[-1].clone())
+
+    _, grew = _graph_counts(run)
+    assert grew == {"graph_eager": 1, "graph_captures": 1,
+                    "graph_replays": 3}
+    for y, k, b in zip(ys, kept, bs):
+        assert torch.equal(y, k)
+        assert torch.equal(y, tamg.v_cycle(M.hier, b, **_sweeps(M)))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pcg_with_replayed_cycles_equals_eager_pcg(amg40, dtype):
+    """``cg_full`` with the preconditioner (its cycles replayed from the
+    third) and with ``v_cycle`` called directly: the same iterations and
+    x bit for bit."""
+    from tpu_sparse_torch.precond import amg as tamg
+    from tpu_sparse_torch.solvers import krylov
+
+    A, M = amg40(dtype)
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        A.shape[0]).astype(dtype)).to("cuda")
+    tol = 1e-6 if dtype == np.float32 else 1e-10
+    (x, info, k, _), grew = _graph_counts(
+        lambda: krylov.cg_full(A, b, tol=tol, M=M))
+    x0, info0, k0, _ = krylov.cg_full(
+        A, b, tol=tol, M=lambda v: tamg.v_cycle(M.hier, v, **_sweeps(M)))
+    assert int(info) == int(info0) == 0 and int(k) == int(k0) > 2
+    assert torch.equal(x, x0)
+    assert grew["graph_eager"] == grew["graph_captures"] == 1
+    assert grew["graph_replays"] >= int(k) - 1
+
+
+def test_amg_apply_runs_eager_where_a_graph_cannot_serve(amg40):
+    """Inside a caller's own capture, while autograd records, for a b of
+    another dtype than the hierarchy's and on another stream (a key of its
+    own) the apply runs ``v_cycle``; a key's graph then replays."""
+    from tpu_sparse_torch.precond import amg as tamg
+
+    A, M = amg40(np.float32)
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        A.shape[0]).astype(np.float32)).to("cuda")
+    y0 = tamg.v_cycle(M.hier, b, **_sweeps(M))
+    _, grew = _graph_counts(lambda: (M(b), M(b)))
+    assert grew == {"graph_eager": 1, "graph_captures": 1}
+    # a caller's capture: the eager cycle is captured into its graph
+    static = b.clone()
+    g = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(g):
+            return M(static)
+
+    yc, grew = _graph_counts(capture)
+    assert grew == {"graph_eager": 1}
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(yc, y0)
+    # autograd records: eager; under no_grad the same b replays
+    bg = b.clone().requires_grad_()
+    y, grew = _graph_counts(lambda: M(bg))
+    assert grew == {"graph_eager": 1} and torch.equal(y, y0)
+    with torch.no_grad():
+        y, grew = _graph_counts(lambda: M(bg))
+    assert grew == {"graph_replays": 1} and torch.equal(y, y0)
+    # a float64 b on the float32 hierarchy: eager on every apply
+    bd = b.double()
+    for _ in range(3):
+        y, grew = _graph_counts(lambda: M(bd))
+        assert grew == {"graph_eager": 1}
+    assert torch.equal(y, tamg.v_cycle(M.hier, bd, **_sweeps(M)))
+    # another stream is another key: eager, then its own capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ys = [_graph_counts(lambda: M(b)) for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(side)
+    assert [g for _, g in ys] == [{"graph_eager": 1},
+                                  {"graph_captures": 1},
+                                  {"graph_replays": 1}]
+    assert all(torch.equal(y, y0) for y, _ in ys)
+
+
+def test_amg_capture_keeps_the_cache_and_runs_without_the_collector(
+        amg40, monkeypatch):
+    """The capture leaves the allocator's cached blocks in place (no
+    empty_cache) and runs with the garbage collector off: a CUDA graph it
+    freed inside the capture would invalidate the capture."""
+    import gc
+
+    from tpu_sparse_torch.precond import amg as tamg
+
+    A, M = amg40(np.float32)
+    b = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        A.shape[0]).astype(np.float32)).to("cuda")
+    seen = []
+    cycle = tamg.v_cycle
+
+    def spy(*args, **kwargs):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return cycle(*args, **kwargs)
+
+    monkeypatch.setattr(tamg, "v_cycle", spy)
+    M(b)
+    torch.empty(1 << 28, dtype=torch.uint8, device="cuda")  # cached, free
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    M(b)
+    M(b)
+    assert seen == [(False, True), (True, False)] and gc.isenabled()
+    assert torch.cuda.memory_reserved() >= reserved
+
+
+def test_amg_cycle_graphs_keep_the_four_latest_keys(amg40):
+    """Blocks of five widths: the hierarchy keeps the graphs of the four
+    used last; the width that fell out starts again with an eager apply."""
+    A, M = amg40(np.float32)
+    rng = np.random.default_rng(10)
+    n = A.shape[0]
+    blocks = {k: torch.from_numpy(rng.standard_normal((n, k)).astype(
+        np.float32)).to("cuda") for k in range(1, 6)}
+    for B in blocks.values():
+        for _ in range(3):
+            M.matmat(B)
+    assert [key[1] for key in M.hier.graphs] == [(n, k) for k in (2, 3, 4, 5)]
+    _, grew = _graph_counts(lambda: M.matmat(blocks[1]))
+    assert grew == {"graph_eager": 1}
+    assert [key[1] for key in M.hier.graphs] == [(n, k) for k in (3, 4, 5, 1)]
 
 
 @pytest.mark.parametrize("precond", ["jacobi", "amg", "fsai"])

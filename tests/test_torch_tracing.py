@@ -69,8 +69,15 @@ def test_off_without_a_profiler_records_nothing(monkeypatch):
 
 def test_amg_solve_span_tree_and_chrome_trace(tmp_path):
     """An AMG solve under torch.profiler: tsp.solve -> tsp.solver.cg ->
-    tsp.solver.iter -> tsp.precond.vcycle -> tsp.precond.level0, one solve
-    id, the same names as user_annotation events in the Chrome trace."""
+    tsp.solver.iter -> tsp.precond.vcycle, one solve id, the same names as
+    user_annotation events in the Chrome trace; off the card every cycle
+    is eager (no ``graph`` attribute, no graph counter moves). The level
+    chain tsp.precond.vcycle -> level0 -> level1 and the coarse solve, by
+    ``v_cycle`` directly: on the card a solve's cycles replay a captured
+    graph and record no level spans
+    (``test_replayed_amg_solve_spans``)."""
+    from tpu_sparse_torch.precond import amg as tamg
+
     A, b = _system()
     tpu_sparse_torch.solve(A, b, backend="amg")  # the hierarchy, untraced
     (x, res), prof = _run(lambda: tpu_sparse_torch.solve(A, b,
@@ -80,12 +87,12 @@ def test_amg_solve_span_tree_and_chrome_trace(tmp_path):
     assert len(roots) == 1 and roots[0] is recs[0]
     assert {r.solve_id for r in recs} == {roots[0].solve_id}
     assert all(r.end_ns >= r.start_ns > 0 for r in recs)
-    level0 = [r for r in recs if r.name == "tsp.precond.level0"]
-    chains = {tuple(_chain(r, recs)) for r in level0}
+    cycles = [r for r in recs if r.name == "tsp.precond.vcycle"]
     assert ("tsp.solve", "tsp.solver.cg", "tsp.solver.iter",
-            "tsp.precond.vcycle", "tsp.precond.level0") in chains
+            "tsp.precond.vcycle") in {tuple(_chain(r, recs)) for r in cycles}
+    assert not any("graph" in r.attrs for r in cycles)
+    assert not any(k.startswith("precond.") for k in roots[0].counters)
     names = {r.name for r in recs}
-    assert {"tsp.precond.level1", "tsp.precond.coarse"} <= names
     assert roots[0].attrs["backend"] == "amg"
     assert roots[0].attrs["method"] == "cg"
     assert roots[0].attrs["n"] == A.shape[0]
@@ -103,6 +110,18 @@ def test_amg_solve_span_tree_and_chrome_trace(tmp_path):
     # the reported iterations, read once on the host, land on the record
     assert root.counters["solver.host_syncs"] >= 2
     assert res.iterations == root.attrs["iterations"]
+    # the eager cycle's level chain
+    M = tamg.amg_preconditioner(A)
+    _run(lambda: tamg.v_cycle(M.hier, b, pre_sweeps=1, post_sweeps=1))
+    recs = tracing.spans()
+    assert recs[0].name == "tsp.precond.vcycle" and recs[0].parent == -1
+    level1 = [r for r in recs if r.name == "tsp.precond.level1"]
+    assert [tuple(_chain(r, recs)) for r in level1] == [
+        ("tsp.precond.vcycle", "tsp.precond.level0", "tsp.precond.level1")]
+    coarse, = [r for r in recs if r.name == "tsp.precond.coarse"]
+    assert _chain(coarse, recs)[:2] == ["tsp.precond.vcycle",
+                                        "tsp.precond.level0"]
+    assert len(_chain(coarse, recs)) == M.hier.num_levels + 1
 
 
 def test_cg_loop_counts_whole_checks():
@@ -217,6 +236,35 @@ def test_records_past_the_cap_are_dropped_and_counted(monkeypatch):
     assert tracing.counters()["tracing.dropped"] == 2
     a, b = tracing.spans()
     assert b.parent == 0 and b.solve_id is None and not a.root
+
+
+@pytest.mark.cuda
+def test_replayed_amg_solve_spans():
+    """On the card, an AMG solve after the one that captured its cycle:
+    every tsp.precond.vcycle span is a replay (``graph=True``) with no
+    span under it, no level span is recorded, and the solve record
+    carries one ``precond.graph_replays`` a cycle and no eager apply or
+    capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    A = gen.poisson3d_27pt(24, dtype=np.float32, device=dev)
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        A.shape[0]).astype(np.float32)).to(dev)
+    # the hierarchy, the key's eager apply and its capture
+    tpu_sparse_torch.solve(A, b, backend="amg")
+    (x, res), _ = _run(lambda: tpu_sparse_torch.solve(A, b, backend="amg"))
+    assert res.converged
+    recs = tracing.spans()
+    root, = tracing.solves()
+    cycles = [i for i, r in enumerate(recs) if r.name == "tsp.precond.vcycle"]
+    assert cycles and all(recs[i].attrs.get("graph") is True for i in cycles)
+    assert not [r for r in recs if r.parent in cycles]
+    assert not [r for r in recs if r.name.startswith("tsp.precond.level")
+                or r.name == "tsp.precond.coarse"]
+    assert root.counters["precond.graph_replays"] == len(cycles)
+    assert "precond.graph_eager" not in root.counters
+    assert "precond.graph_captures" not in root.counters
 
 
 @pytest.mark.cuda

@@ -24,6 +24,10 @@ a deterministic set-up.
 * **Solve phase**: ``v_cycle`` on a vector or an (n, k) block (every
   level then runs one SpMM), ``AMGPreconditioner`` as an ``M=``,
   ``amg_stationary_solve`` and ``amg_solve`` (CG with the V-cycle).
+  On the card an ``AMGPreconditioner`` replays its cycle as a CUDA graph
+  kept on the hierarchy (``_cycle_on_card``): one launch from the host in
+  place of the ~16 kernels and torch ops a level that ``v_cycle``
+  enqueues, the same kernels in the same order.
 
 The hierarchy is a plain object holding tensors; ``.to(device)`` moves it
 and ``.to(dtype)`` casts its values (the mixed-precision solvers cast an
@@ -34,6 +38,8 @@ levels.
 
 from __future__ import annotations
 
+import gc
+from collections import OrderedDict
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +52,12 @@ from tpu_sparse_torch.sparse.containers import (CSR, is_sparse, values,
                                                 with_values)
 from tpu_sparse_torch.sparse.convert import (csr_from_arrays, dia_from_numpy,
                                              numpy_dtype, to_scipy_csr)
+from tpu_sparse_torch.utils.opcache import _leaves
+
+# Applies on the card by how they ran: replaying a captured cycle,
+# capturing one, or eager (``v_cycle``; a key's first apply included).
+PRECOND = tracing.group("precond", {"graph_captures": 0,
+                                    "graph_replays": 0, "graph_eager": 0})
 
 # ---------------------------------------------------------------------------
 # Host-side set-up
@@ -195,6 +207,10 @@ class AMGHierarchy:
     def __init__(self, levels: Sequence[AMGLevel], coarse_inv: torch.Tensor):
         self.levels = tuple(levels)
         self.coarse_inv = coarse_inv
+        # the cycles captured on the card (``_cycle_on_card``): key ->
+        # _Captured, or None after the key's first apply; least recently
+        # used first
+        self.graphs: OrderedDict = OrderedDict()
 
     @property
     def num_levels(self) -> int:
@@ -486,13 +502,109 @@ def v_cycle(hier: AMGHierarchy, b: torch.Tensor, *, pre_sweeps: int = 0,
             x = x + product(lvl.P, xc)
             return smooth(lvl, x, rhs, post_sweeps)
 
-    return descend(0, b)
+    try:
+        return descend(0, b)
+    finally:
+        # descend refers to itself: without this the cycle would keep the
+        # hierarchy (and its CUDA graphs) alive until the collector runs
+        del descend
+
+
+# Captured cycles a hierarchy keeps, least recently used out: one for each
+# width, dtype, stream and sweep options its applies see.
+GRAPHS_PER_HIERARCHY = 4
+
+
+class _Captured(NamedTuple):
+    graph: Any          # torch.cuda.CUDAGraph of one v_cycle
+    b: torch.Tensor     # the static input it reads
+    y: torch.Tensor     # the static output it writes
+    held: tuple         # the finest operand's tensors at capture, kept
+                        # alive so that no other tensor takes their ids
+
+
+def _capture(hier: AMGHierarchy, b: torch.Tensor, sweeps: dict,
+             held: tuple) -> _Captured:
+    """One ``v_cycle`` captured on a side stream. Unlike
+    ``torch.cuda.graph`` this leaves the allocator's cache as it is (no
+    ``empty_cache``: the caller's next allocations would pay cudaMalloc
+    again), and the garbage collector is off meanwhile: a CUDA graph that
+    it frees inside a capture invalidates the capture."""
+    static_b = torch.empty(b.shape, dtype=b.dtype, device=b.device)
+    static_b.copy_(b)
+    graph = torch.cuda.CUDAGraph()
+    caller = torch.cuda.current_stream(b.device)
+    side = torch.cuda.Stream(b.device)
+    side.wait_stream(caller)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.device(b.device), torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                static_y = v_cycle(hier, static_b, **sweeps)
+            finally:
+                graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
+    caller.wait_stream(side)
+    return _Captured(graph, static_b, static_y, held)
+
+
+def _cycle_on_card(hier: AMGHierarchy, b: torch.Tensor,
+                   sweeps: dict) -> torch.Tensor:
+    """One V-cycle of a CUDA b, replayed from a CUDA graph where it can be.
+
+    The cycle runs eager (``v_cycle``) inside a caller's own capture,
+    while autograd records (grad mode on and b or the finest operand
+    requiring grad) and for a b whose dtype is not the hierarchy's (the
+    levels' values are then cast, and K4's compact values gathered with a
+    host read, on every apply). Otherwise the key is the sweep options,
+    b's shape, dtype and device, the current stream, and the id and
+    in-place version of each tensor of the finest operand (the caller's
+    matrix; the other levels are the hierarchy's own). A key's first apply
+    runs eager, building the lazy state (K4's plans, kernel attributes,
+    cuBLAS handles) outside a capture; the second captures the cycle; each
+    apply after copies b in, replays and returns a copy of the output,
+    since a caller may keep a result past the next apply (the CG loop's
+    first p is its z)."""
+    held = _leaves(hier.levels[0].A) if hier.levels else ()
+    if (torch.cuda.is_current_stream_capturing()
+            or b.dtype != hier.coarse_inv.dtype
+            or (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (b,) + held))):
+        PRECOND["graph_eager"] += 1
+        return v_cycle(hier, b, **sweeps)
+    key = (tuple(sweeps.values()), tuple(b.shape), b.dtype, b.device,
+           torch.cuda.current_stream(b.device).cuda_stream,
+           tuple((id(t), t._version) for t in held))
+    graphs = hier.graphs
+    if key not in graphs:
+        graphs[key] = None
+        if len(graphs) > GRAPHS_PER_HIERARCHY:
+            graphs.popitem(last=False)
+        PRECOND["graph_eager"] += 1
+        return v_cycle(hier, b, **sweeps)
+    graphs.move_to_end(key)
+    captured = graphs[key]
+    if captured is None:
+        captured = graphs[key] = _capture(hier, b, sweeps, held)
+        PRECOND["graph_captures"] += 1
+    else:
+        PRECOND["graph_replays"] += 1
+    with tracing.span("tsp.precond.vcycle", graph=True), \
+            torch.cuda.device(b.device):
+        captured.b.copy_(b)
+        captured.graph.replay()
+        return captured.y.clone()
 
 
 class AMGPreconditioner:
     """M ~ A^-1 as one V-cycle: ``M(v)`` for a vector, ``M.matmat(V)`` for
     an (n, k) block (one SpMM per level operator), ``M.to(device or
-    dtype)``."""
+    dtype)``. On the card an apply replays a captured CUDA graph of the
+    cycle (``_cycle_on_card``); elsewhere it runs ``v_cycle``."""
 
     def __init__(self, hier: AMGHierarchy, pre_sweeps: int = 1,
                  post_sweeps: int = 1, omega: float = 0.9,
@@ -504,9 +616,12 @@ class AMGPreconditioner:
         self.smoother = smoother
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return v_cycle(self.hier, v, pre_sweeps=self.pre_sweeps,
-                       post_sweeps=self.post_sweeps, omega=self.omega,
-                       smoother=self.smoother)
+        sweeps = dict(pre_sweeps=self.pre_sweeps,
+                      post_sweeps=self.post_sweeps, omega=self.omega,
+                      smoother=self.smoother)
+        if v.is_cuda:
+            return _cycle_on_card(self.hier, v, sweeps)
+        return v_cycle(self.hier, v, **sweeps)
 
     matmat = __call__
 

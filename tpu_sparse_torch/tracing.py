@@ -34,14 +34,18 @@ The names, one prefix a layer of the two benchmark cells' paths:
   ``gmres``, ``fused_cg``, ``fused_bicgstab``); ``tsp.solver.block``: one
   fused block of K iterations and its history read, or one GMRES restart
   cycle; ``tsp.solver.iter``: one iteration of a torch-op loop;
-* ``tsp.precond.vcycle``: ``precond.amg.v_cycle``; ``tsp.precond.level<i>``:
-  level i's smoothing, residual, restriction and prolongation (its coarser
-  levels are its children); ``tsp.precond.coarse``: the coarse solve.
+* ``tsp.precond.vcycle``: ``precond.amg.v_cycle``, or the replay of a
+  captured cycle (attribute ``graph=True``, no children);
+  ``tsp.precond.level<i>``: level i's smoothing, residual, restriction and
+  prolongation (its coarser levels are its children), recorded by eager
+  cycles and by a capture; ``tsp.precond.coarse``: the coarse solve.
 
 and the solver counters ``solver.iterations_run`` (iterations the loops
 ran, masked ones included: a fused block counts all its K) and
 ``solver.host_syncs`` (reads of the solvers' device state by the host,
-each through ``host_read``).
+each through ``host_read``); the AMG preconditioner's applies on the card
+count in ``precond.graph_replays``, ``precond.graph_captures`` and
+``precond.graph_eager`` (``precond.amg``).
 """
 
 from __future__ import annotations
