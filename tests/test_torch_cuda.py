@@ -2202,3 +2202,86 @@ def test_bf16_solves_on_card(dev):
     X, rB = tpu_sparse_torch.solve(W, B, method="cg", tol=1e-5)
     assert rB.converged and cuda_cwell.LAUNCHES["cwell_spmm_bf16_f32"] > 0
     assert kernels.CAST_COUNTS["values_casts"] == 0
+
+
+def _hpcg_fp64(nx, dev, count):
+    """HPCG's 27-point matrix in float64 on the card, built as the
+    benchmark's fp64 cells build it, and ``count`` right-hand sides of
+    their fixed-base pool."""
+    from benchmark.core import stencil
+
+    data, offsets = stencil.diagonals([nx] * 3, 26.0, -1.0, torch.float64,
+                                      dev)
+    n = data.shape[1]
+    pool = stencil.rhs_pool(data, offsets, count, 1, 2147483933, 1)
+    return tpu_sparse_torch.DIA(data, offsets, (n, n)), data, offsets, pool
+
+
+@pytest.mark.parametrize("precision", ["auto", "full"])
+def test_hpcg_fp64_routes_on_card_match_the_reference(dev, precision):
+    """The benchmark's two float64 routes at 64^3 against its plain
+    reference (``benchmark/reference/hpcg.py``, float64 CG to 1e-8 on the
+    card): the true residual at most 1e-8; full: x within 1e-9 of the
+    reference's (the same recurrence in float64, sums in another order,
+    amplified over ~100 iterations by at most cond(A) ~ 570), iterations
+    within 1, every product on the fp64 extended kernel; auto: x within
+    2e-5 (each x only as near the exact solution as cond(A) x its
+    residual allows: 570 x 2e-8), and the refinement's counters: one cast,
+    an outer residual before the sweeps and two a sweep, each on the fp64
+    extended kernel, no rescue."""
+    from benchmark.reference import hpcg as href
+
+    A, data, offsets, pool = _hpcg_fp64(64, dev, 2)
+    for b in pool:
+        tracing.reset()
+        x, res = tpu_sparse_torch.solve(A, b, method="cg",
+                                        precision=precision, tol=1e-8,
+                                        maxiter=1000)
+        counts = tracing.counters()
+        x_ref, it_ref, conv = href.cg(data, offsets, b, 1e-8, 1000)
+        assert res.converged and conv
+        assert max(href.rel_residuals(data, offsets, x, b)) <= 1e-8
+        err = float(torch.linalg.vector_norm(x - x_ref)
+                    / torch.linalg.vector_norm(x_ref))
+        if precision == "full":
+            assert abs(res.iterations - it_ref) <= 1
+            assert err <= 1e-9
+            assert counts["refine.sweeps"] == 0
+            assert counts["launches.dia_spmv_ext_f64"] >= res.iterations
+        else:
+            sweeps = counts["refine.sweeps"]
+            assert 1 <= sweeps <= 3 and counts["refine.rescues"] == 0
+            assert counts["refine.residuals"] == 1 + 2 * sweeps
+            assert counts["refine.operator_casts"] == 1
+            assert counts["launches.dia_spmv_ext_f64"] == \
+                counts["refine.residuals"]
+            assert counts["launches.dia_spmv_ext_f32"] > 0
+            assert err <= 2e-5
+
+
+@pytest.mark.parametrize("precision", ["auto", "full"])
+def test_hpcg_fp64_host_syncs_equal_with_and_without_profiler(dev,
+                                                              precision):
+    """``solver.host_syncs`` of a float64 solve is the same with torch's
+    profiler on (spans recording) as off: the spans and the ``refine``
+    counters add no host read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    A, _, _, pool = _hpcg_fp64(64, dev, 1)
+    b = pool[0]
+
+    def syncs():
+        before = tracing.counters()["solver.host_syncs"]
+        _, res = tpu_sparse_torch.solve(A, b, method="cg",
+                                        precision=precision, tol=1e-8)
+        assert res.converged
+        return tracing.counters()["solver.host_syncs"] - before
+
+    off = syncs()
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = syncs()
+    root, = tracing.solves()
+    assert on == off == root.counters["solver.host_syncs"]
+    names = {r.name for r in tracing.spans()}
+    assert ("tsp.solver.refine" in names) == (precision == "auto")

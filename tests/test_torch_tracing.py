@@ -176,6 +176,67 @@ def test_solve_record_carries_the_counter_deltas(method):
         "tsp.solve", f"tsp.solver.{method}"}
 
 
+def test_refinement_spans_and_counters():
+    """A float64 solve on the default route (precision="auto"): tsp.solve ->
+    tsp.solver.refine -> tsp.solver.refine.sweep -> tsp.solver.cg, one sweep
+    span a ``refine.sweeps``, the ``refine.*`` deltas on the tsp.solve
+    record (an outer residual before the sweeps and two a sweep, one cast
+    of the values). Then a refinement whose float32 sweep stalls (it
+    returns no update) runs the rescue, in its own span, under the same
+    refinement; the column-batched refinement records the same tree."""
+    from tpu_sparse_torch.solvers import batched, mixed
+
+    A32, b32 = _system(8)
+    A, b = A32.with_data(A32.data.double()), b32.double()
+    (x, res), _ = _run(lambda: tpu_sparse_torch.solve(A, b, tol=1e-8))
+    assert res.converged
+    recs = tracing.spans()
+    root, = tracing.solves()
+    refine, = [r for r in recs if r.name == "tsp.solver.refine"]
+    assert refine.attrs == {"method": "cg", "inner_dtype": "torch.float32"}
+    sweeps = [i for i, r in enumerate(recs)
+              if r.name == "tsp.solver.refine.sweep"]
+    assert [recs[i].attrs["i"] for i in sweeps] == list(range(len(sweeps)))
+    for i in sweeps:
+        assert _chain(recs[i], recs) == ["tsp.solve", "tsp.solver.refine",
+                                         "tsp.solver.refine.sweep"]
+        inner, = [r for r in recs if r.parent == i]
+        assert inner.name == "tsp.solver.cg"
+    n = len(sweeps)
+    assert n >= 1
+    assert {k: v for k, v in root.counters.items()
+            if k.startswith("refine.")} == {
+        "refine.sweeps": n, "refine.residuals": 1 + 2 * n,
+        "refine.operator_casts": 1}
+
+    def stall_f32(A_, b_, x0=None, **kw):
+        if b_.dtype == torch.float32:
+            return torch.zeros_like(b_), 0, torch.tensor(3), None
+        return krylov.cg_full(A_, b_, x0, **kw)
+
+    (x, info, it, _), _ = _run(lambda: mixed.refined_solve(
+        stall_f32, A, b, tol=1e-8))
+    assert int(info) == 0
+    recs = tracing.spans()
+    rescue, = [r for r in recs if r.name == "tsp.solver.refine.rescue"]
+    assert _chain(rescue, recs) == ["tsp.solver.refine",
+                                    "tsp.solver.refine.rescue"]
+    assert recs[rescue.parent].attrs["method"] == "stall_f32"
+    assert [r.name for r in recs if r.parent == recs.index(rescue)] == [
+        "tsp.solver.cg"]
+    counts = tracing.counters()
+    assert (counts["refine.sweeps"], counts["refine.rescues"],
+            counts["refine.residuals"]) == (1, 1, 5)
+    B = torch.stack([b, -2 * b], 1)
+    _run(lambda: mixed.batch_refined_solve(batched.batch_cg, A, B, tol=1e-8))
+    recs = tracing.spans()
+    refine, = [r for r in recs if r.name == "tsp.solver.refine"]
+    assert refine.attrs["method"] == "cg"
+    sweeps = [r for r in recs if r.name == "tsp.solver.refine.sweep"]
+    assert len(sweeps) == tracing.counters()["refine.sweeps"] >= 1
+    assert all(recs[r.parent] is refine for r in sweeps)
+
+
 def test_router_build_span_on_a_cache_miss():
     """A preconditioner built on a cache miss runs in its build span; the
     next solve hits the cache and builds nothing."""

@@ -37,6 +37,15 @@ on the float32-cast operand: K6/K7 on a CWELL, K8 on a BELL on the card),
 the outer float64 residuals are ``spmm`` in float64 (the double builds of
 the same kernels), and the loop reads the host once per sweep, on
 ``done.all()``.
+
+Both refinements run in a ``tsp.solver.refine`` span (attributes method,
+inner dtype), each sweep's residual, inner solve and accept in a child
+``tsp.solver.refine.sweep`` (attribute i) and the rescue in
+``tsp.solver.refine.rescue``. The counter group ``refine`` counts host-side
+events only, so that counting adds no host read: ``sweeps`` (sweeps that
+ran an inner solve), ``rescues``, ``residuals`` (outer residual products,
+each A x or A X in the outer dtype) and ``operator_casts`` (casts of the
+matrix values to the inner dtype).
 """
 
 from __future__ import annotations
@@ -69,6 +78,9 @@ from tpu_sparse_torch.utils.tree import (
     tree_zeros_like,
 )
 
+REFINE = tracing.group("refine", {"sweeps": 0, "rescues": 0, "residuals": 0,
+                                  "operator_casts": 0})
+
 
 def _cast_tree(tree, dtype):
     return tree_map(lambda leaf: leaf.to(dtype), tree)
@@ -85,6 +97,32 @@ def _cast_operator(A, dtype, outer_dtype=torch.float64):
 
         return op
     return A.to(dtype)
+
+
+def _inner_operator(A, dtype, outer_dtype):
+    """A for the inner sweeps, counted in ``refine.operator_casts`` when its
+    values are cast (a matrix-free operator is wrapped, not cast)."""
+    if is_sparse(A) or isinstance(A, torch.Tensor):
+        REFINE["operator_casts"] += 1
+    return _cast_operator(A, dtype, outer_dtype)
+
+
+def _counted_residuals(A_fn):
+    """``A_fn`` counted in ``refine.residuals``: the outer residual
+    products."""
+
+    def product(x):
+        REFINE["residuals"] += 1
+        return A_fn(x)
+
+    return product
+
+
+def _method_name(inner_solver) -> str:
+    """The span's method attribute: ``cg`` for ``cg_full`` or
+    ``batch_cg``."""
+    name = getattr(inner_solver, "__name__", type(inner_solver).__name__)
+    return name.removeprefix("batch_").removesuffix("_full")
 
 
 def _cast_precond(M, dtype):
@@ -147,6 +185,7 @@ def _make_inner(inner_solver, A32, M32, inner_tol, maxiter, inner_kwargs):
     return _inner
 
 
+@tracing.traced("tsp.solver.refine")
 def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
                   tol: float = 1e-8, atol: float = 0.0,
                   inner_tol: float = 1e-5, maxiter: Optional[int] = None,
@@ -163,12 +202,16 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
     outer_dtype = _first_dtype(b)
     if inner_dtype is None:
         inner_dtype = _inner_dtype(outer_dtype)
+    if tracing.enabled():
+        tracing.annotate(method=_method_name(inner_solver),
+                         inner_dtype=str(inner_dtype))
     A_rescue = A
     df_op = _make_df_operator(A, outer_dtype)
     if df_op is not None:
         A_fn = df_op.matvec64
         A_rescue = df_op.matvec64
-    A32 = _cast_operator(A, inner_dtype, outer_dtype)
+    A_fn = _counted_residuals(A_fn)
+    A32 = _inner_operator(A, inner_dtype, outer_dtype)
     M32 = _cast_precond(M, inner_dtype)
     maxiter = _default_maxiter(b, maxiter)
     if inner_maxiter is None:
@@ -187,37 +230,41 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
     inner_iters = torch.zeros((), dtype=torch.int32, device=b_norm.device)
     stalled = torch.zeros((), dtype=torch.bool, device=b_norm.device)
 
-    for _ in range(max_sweeps):
+    for i in range(max_sweeps):
         done = (res_norm <= thresh) | (~torch.isfinite(res_norm)) | stalled
         if bool(tracing.host_read(done)):  # the one host read of the sweep
             break
-        r = tree_sub(b, A_fn(x))
-        d32, _, it, _ = _inner(_cast_tree(r, inner_dtype))
-        # accept the sweep only if it lowered the true residual: an f32
-        # breakdown can return a finite but useless update
-        x_new = tree_add(x, _cast_tree(d32, outer_dtype))
-        res_new = tree_norm(tree_sub(b, A_fn(x_new)))
-        accept = torch.isfinite(res_new) & (res_new < res_norm)
-        x = tree_where(accept, x_new, x)
-        res_norm = torch.where(accept, res_new, res_norm)
-        stalled = stalled | ~accept
-        inner_iters = inner_iters + torch.clamp_min(it, 0)
+        REFINE["sweeps"] += 1
+        with tracing.span("tsp.solver.refine.sweep", i=i):
+            r = tree_sub(b, A_fn(x))
+            d32, _, it, _ = _inner(_cast_tree(r, inner_dtype))
+            # accept the sweep only if it lowered the true residual: an
+            # f32 breakdown can return a finite but useless update
+            x_new = tree_add(x, _cast_tree(d32, outer_dtype))
+            res_new = tree_norm(tree_sub(b, A_fn(x_new)))
+            accept = torch.isfinite(res_new) & (res_new < res_norm)
+            x = tree_where(accept, x_new, x)
+            res_norm = torch.where(accept, res_new, res_norm)
+            stalled = stalled | ~accept
+            inner_iters = inner_iters + torch.clamp_min(it, 0)
 
     # Full-precision rescue: one inner solve in the outer dtype on the
     # current defect, aimed at the true threshold (tol=0, atol=thresh).
     failed = (~torch.isfinite(res_norm)) | (res_norm > thresh)
     if bool(tracing.host_read(failed)):
-        r = tree_sub(b, A_fn(x))
-        d, _, it_f, _ = inner_solver(A_rescue, r, None, tol=0.0, atol=thresh,
-                                     maxiter=rescue_maxiter, M=M,
-                                     **inner_kwargs)
-        x_new = tree_add(x, d)
-        res_new = tree_norm(tree_sub(b, A_fn(x_new)))
-        accept = torch.isfinite(res_new) & (res_new < res_norm)
-        x = tree_where(accept, x_new, x)
-        res_norm = torch.where(accept, res_new, res_norm)
-        inner_iters = inner_iters + torch.clamp_min(it_f, 0)
-        failed = (~torch.isfinite(res_norm)) | (res_norm > thresh)
+        REFINE["rescues"] += 1
+        with tracing.span("tsp.solver.refine.rescue"):
+            r = tree_sub(b, A_fn(x))
+            d, _, it_f, _ = inner_solver(A_rescue, r, None, tol=0.0,
+                                         atol=thresh, maxiter=rescue_maxiter,
+                                         M=M, **inner_kwargs)
+            x_new = tree_add(x, d)
+            res_new = tree_norm(tree_sub(b, A_fn(x_new)))
+            accept = torch.isfinite(res_new) & (res_new < res_norm)
+            x = tree_where(accept, x_new, x)
+            res_norm = torch.where(accept, res_new, res_norm)
+            inner_iters = inner_iters + torch.clamp_min(it_f, 0)
+            failed = (~torch.isfinite(res_norm)) | (res_norm > thresh)
     info = torch.where(failed, -1, 0).to(torch.int32)
     return x, info, inner_iters, res_norm
 
@@ -317,6 +364,7 @@ def fgmres_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,
                          max_sweeps=max_sweeps, M=M, restart=restart)
 
 
+@tracing.traced("tsp.solver.refine")
 def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
                         X0=None, *, tol: float = 1e-8, atol: float = 0.0,
                         inner_tol: float = 1e-5,
@@ -334,11 +382,14 @@ def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
     from tpu_sparse_torch.kernels import as_matmat
     from tpu_sparse_torch.solvers.batched import cols_norm
 
-    A_mm = as_matmat(A)
     outer_dtype = B.dtype
     if inner_dtype is None:
         inner_dtype = _inner_dtype(outer_dtype)
-    A32 = _cast_operator(A, inner_dtype, outer_dtype)
+    if tracing.enabled():
+        tracing.annotate(method=_method_name(inner_solver),
+                         inner_dtype=str(inner_dtype))
+    A_mm = _counted_residuals(as_matmat(A))
+    A32 = _inner_operator(A, inner_dtype, outer_dtype)
     M32 = _cast_precond(M, inner_dtype)
     maxiter = 10 * B.shape[0] if maxiter is None else int(maxiter)
     if inner_maxiter is None:
@@ -353,37 +404,41 @@ def batch_refined_solve(inner_solver: Callable, A, B: torch.Tensor,
     inner_iters = torch.zeros(B.shape[1], dtype=torch.int32, device=B.device)
     stalled = torch.zeros(B.shape[1], dtype=torch.bool, device=B.device)
 
-    for _ in range(max_sweeps):
+    for i in range(max_sweeps):
         done = (res <= thresh) | (~torch.isfinite(res)) | stalled
         if bool(tracing.host_read(done.all())):  # the sweep's one read
             break
-        R = torch.where(done, zero, B - A_mm(X))
-        D32, _, it, _ = inner_solver(A32, R.to(inner_dtype), None,
-                                     tol=inner_tol, maxiter=inner_maxiter,
-                                     M=M32, **inner_kwargs)
-        # accept a column's sweep only if it lowered its true residual
-        X_new = X + D32.to(outer_dtype)
-        res_new = cols_norm(B - A_mm(X_new))
-        accept = torch.isfinite(res_new) & (res_new < res) & ~done
-        X = torch.where(accept, X_new, X)
-        res = torch.where(accept, res_new, res)
-        stalled = stalled | (~accept & ~done)
-        inner_iters = inner_iters + torch.clamp_min(it, 0)
+        REFINE["sweeps"] += 1
+        with tracing.span("tsp.solver.refine.sweep", i=i):
+            R = torch.where(done, zero, B - A_mm(X))
+            D32, _, it, _ = inner_solver(A32, R.to(inner_dtype), None,
+                                         tol=inner_tol, maxiter=inner_maxiter,
+                                         M=M32, **inner_kwargs)
+            # accept a column's sweep only if it lowered its true residual
+            X_new = X + D32.to(outer_dtype)
+            res_new = cols_norm(B - A_mm(X_new))
+            accept = torch.isfinite(res_new) & (res_new < res) & ~done
+            X = torch.where(accept, X_new, X)
+            res = torch.where(accept, res_new, res)
+            stalled = stalled | (~accept & ~done)
+            inner_iters = inner_iters + torch.clamp_min(it, 0)
 
     # full-precision rescue of the columns the sweeps left above threshold
     failed = (~torch.isfinite(res)) | (res > thresh)
     if bool(tracing.host_read(failed.any())):
-        R = torch.where(failed, B - A_mm(X), zero)
-        D, _, it_f, _ = inner_solver(A, R, None, tol=0.0, atol=thresh,
-                                     maxiter=rescue_maxiter, M=M,
-                                     **inner_kwargs)
-        X_new = X + D
-        res_new = cols_norm(B - A_mm(X_new))
-        accept = torch.isfinite(res_new) & (res_new < res) & failed
-        X = torch.where(accept, X_new, X)
-        res = torch.where(accept, res_new, res)
-        inner_iters = inner_iters + torch.clamp_min(it_f, 0)
-        failed = (~torch.isfinite(res)) | (res > thresh)
+        REFINE["rescues"] += 1
+        with tracing.span("tsp.solver.refine.rescue"):
+            R = torch.where(failed, B - A_mm(X), zero)
+            D, _, it_f, _ = inner_solver(A, R, None, tol=0.0, atol=thresh,
+                                         maxiter=rescue_maxiter, M=M,
+                                         **inner_kwargs)
+            X_new = X + D
+            res_new = cols_norm(B - A_mm(X_new))
+            accept = torch.isfinite(res_new) & (res_new < res) & failed
+            X = torch.where(accept, X_new, X)
+            res = torch.where(accept, res_new, res)
+            inner_iters = inner_iters + torch.clamp_min(it_f, 0)
+            failed = (~torch.isfinite(res)) | (res > thresh)
     info = torch.where(failed, -1, 0).to(torch.int32)
     return X, info, inner_iters, res
 

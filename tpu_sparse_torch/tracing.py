@@ -34,6 +34,10 @@ The names, one prefix a layer of the two benchmark cells' paths:
   ``gmres``, ``fused_cg``, ``fused_bicgstab``); ``tsp.solver.block``: one
   fused block of K iterations and its history read, or one GMRES restart
   cycle; ``tsp.solver.iter``: one iteration of a torch-op loop;
+* ``tsp.solver.refine``: a mixed-precision refinement (``solvers.mixed``;
+  attributes method, inner_dtype); ``tsp.solver.refine.sweep``: one sweep
+  (attribute i), its inner solve's span under it;
+  ``tsp.solver.refine.rescue``: the full-precision rescue;
 * ``tsp.precond.vcycle``: ``precond.amg.v_cycle``, or the replay of a
   captured cycle (attribute ``graph=True``, no children);
   ``tsp.precond.level<i>``: level i's smoothing, residual, restriction and
@@ -45,7 +49,9 @@ ran, masked ones included: a fused block counts all its K) and
 ``solver.host_syncs`` (reads of the solvers' device state by the host,
 each through ``host_read``); the AMG preconditioner's applies on the card
 count in ``precond.graph_replays``, ``precond.graph_captures`` and
-``precond.graph_eager`` (``precond.amg``).
+``precond.graph_eager`` (``precond.amg``); the refinement's in
+``refine.sweeps``, ``refine.rescues``, ``refine.residuals`` and
+``refine.operator_casts`` (``solvers.mixed``).
 """
 
 from __future__ import annotations
