@@ -2228,7 +2228,8 @@ def test_hpcg_fp64_routes_on_card_match_the_reference(dev, precision):
     2e-5 (each x only as near the exact solution as cond(A) x its
     residual allows: 570 x 2e-8), and the refinement's counters: one cast,
     an outer residual before the sweeps and two a sweep, each on the fp64
-    extended kernel, no rescue."""
+    extended kernel, no rescue, every sweep on the fused CG kernels 2-3
+    (each launched at least once a reported inner iteration)."""
     from benchmark.reference import hpcg as href
 
     A, data, offsets, pool = _hpcg_fp64(64, dev, 2)
@@ -2255,8 +2256,57 @@ def test_hpcg_fp64_routes_on_card_match_the_reference(dev, precision):
             assert counts["refine.operator_casts"] == 1
             assert counts["launches.dia_spmv_ext_f64"] == \
                 counts["refine.residuals"]
-            assert counts["launches.dia_spmv_ext_f32"] > 0
+            assert counts["refine.fused_sweeps"] == sweeps
+            assert counts["launches.dia_cg_spmv_dot"] >= res.iterations
+            assert counts["launches.dia_cg_update"] >= res.iterations
             assert err <= 2e-5
+
+
+def _refined_on_card(A, b, **kw):
+    """(x, result, the ``refine`` counters) of a float64 solve on the
+    default precision."""
+    tracing.reset()
+    x, res = tpu_sparse_torch.solve(A, b, method="cg", precision="auto",
+                                    tol=1e-8, maxiter=1000, **kw)
+    assert res.converged
+    counts = {k: v for k, v in tracing.counters().items()
+              if k.startswith("refine.")}
+    return x, res, counts
+
+
+def test_hpcg_fp64_fused_sweeps_see_sign_and_scale_exactly(dev):
+    """The benchmark's fixed-base pool at 64^3 through the fused sweeps: a
+    sign and a power-of-two scale of b (-1, 0.25, 4, -2) send the same
+    iterations and sweeps and give x scaled exactly, since every step is
+    linear in b and such a scale is exact in float32 and float64 (the
+    refined cell sends the same work on every seed by it)."""
+    A, _, _, pool = _hpcg_fp64(64, dev, 1)
+    b = pool[0]
+    x, res, counts = _refined_on_card(A, b)
+    assert counts["refine.fused_sweeps"] == counts["refine.sweeps"] >= 1
+    for factor in (-1.0, 0.25, 4.0, -2.0):
+        xf, resf, countsf = _refined_on_card(A, b * factor)
+        assert resf.iterations == res.iterations
+        assert countsf == counts
+        assert torch.equal(xf, x * factor)
+
+
+def test_hpcg_fp64_jacobi_sweeps_run_fused(dev):
+    """``M="jacobi"`` with a float64 b on the default precision: the
+    sweeps run the fused Jacobi-PCG (the float32 dinv handed to
+    ``fused_cg_ext``), on a 27-point matrix whose diagonal varies 1-3x so
+    that the scaling matters; the true residual within tol."""
+    A, data, offsets, _ = _hpcg_fp64(48, dev, 0)
+    n = A.shape[0]
+    data = data.clone()
+    data[offsets.index(0)] *= torch.linspace(1.0, 3.0, n,
+                                             dtype=torch.float64, device=dev)
+    A = tpu_sparse_torch.DIA(data, offsets, (n, n))
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(n)).to(dev)
+    x, res, counts = _refined_on_card(A, b, M="jacobi")
+    assert counts["refine.fused_sweeps"] == counts["refine.sweeps"] >= 1
+    assert float(torch.linalg.vector_norm(b - ref.dia_spmv(A, x))
+                 / torch.linalg.vector_norm(b)) <= 1e-8
 
 
 @pytest.mark.parametrize("precision", ["auto", "full"])

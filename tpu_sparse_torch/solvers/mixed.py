@@ -18,11 +18,15 @@ the JAX ``refined_solve`` takes it: on the card a DIA's inner sweeps run
 kernel 1's bf16 extended build, a CWELL's K4's bf16 build)
 
 followed by one full-precision rescue solve when the sweeps stall. On CUDA
-DIA operands the outer f64 residuals run the fp64 extended kernel and the
-inner f32 sweeps run the method's loop over the f32 extended operator. A
-CWELL operand is cast through ``with_values`` (the JAX ``_cast_operator``
-reads ``A.data`` and fails on CWELL, ROADMAP queue 3, R5), so its inner
-matvecs run K4 and its outer residuals K5.
+DIA operands the outer f64 residuals run the fp64 extended kernel. A CG
+sweep (``cg_full`` with no other keyword) on the float32 cast, with M None
+or diagonal, runs the fused CG kernels 2-3 (``cuda_cg.fused_cg_ext``), as
+``implicit.ext_run`` runs a float32 CG; every other sweep on a CUDA DIA (the
+other methods, bf16 sweeps) runs the method's loop over the extended
+operator, each matvec kernel 1's extended mode. A CWELL operand is cast
+through ``with_values`` (the JAX ``_cast_operator`` reads ``A.data`` and
+fails on CWELL, ROADMAP queue 3, R5), so its inner matvecs run K4 and its
+outer residuals K5.
 The JAX version is a static unroll with masked no-op sweeps; here the sweep
 loop is Python
 with one host read per sweep and stops at the first done sweep, which
@@ -43,7 +47,8 @@ inner dtype), each sweep's residual, inner solve and accept in a child
 ``tsp.solver.refine.sweep`` (attribute i) and the rescue in
 ``tsp.solver.refine.rescue``. The counter group ``refine`` counts host-side
 events only, so that counting adds no host read: ``sweeps`` (sweeps that
-ran an inner solve), ``rescues``, ``residuals`` (outer residual products,
+ran an inner solve), ``fused_sweeps`` (those whose inner solve ran the
+fused CG kernels), ``rescues``, ``residuals`` (outer residual products,
 each A x or A X in the outer dtype) and ``operator_casts`` (casts of the
 matrix values to the inner dtype).
 """
@@ -56,6 +61,7 @@ import torch
 
 from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matvec
+from tpu_sparse_torch.kernels.cuda_cg import fused_cg_ext, make_fused_operator
 from tpu_sparse_torch.kernels.cuda_spmv import (make_extended_operator,
                                                 make_extended_operator_f64)
 from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
@@ -78,7 +84,8 @@ from tpu_sparse_torch.utils.tree import (
     tree_zeros_like,
 )
 
-REFINE = tracing.group("refine", {"sweeps": 0, "rescues": 0, "residuals": 0,
+REFINE = tracing.group("refine", {"sweeps": 0, "fused_sweeps": 0,
+                                  "rescues": 0, "residuals": 0,
                                   "operator_casts": 0})
 
 
@@ -160,29 +167,61 @@ def _make_df_operator(A, outer_dtype):
     return make_extended_operator_f64(A)
 
 
+def _inner_route(inner_solver, A32, M32, inner_kwargs):
+    """How the sweeps solve with ``A32``, on whatever device it lies:
+    ("fused", op) for CG with no other keyword on a float32 extended
+    operator and M None or diagonal (kernels 2-3 through ``fused_cg_ext``,
+    the test ``implicit.ext_run`` applies to a float32 CG); ("extended",
+    op) for any other method or a bf16 DIA under such an M (the method's
+    loop over the extended operator, kernel 1); ("plain", None) otherwise:
+    a CWELL or CSR, another M, a complex or non-extendable DIA."""
+    if not (isinstance(A32, DIA) and (
+            M32 is None or isinstance(M32, DiagonalPreconditioner))):
+        return "plain", None
+    if inner_solver is cg_full and not inner_kwargs:
+        op = make_fused_operator(A32)
+        if op is not None:
+            return "fused", op
+    op = make_extended_operator(A32)
+    return ("plain", None) if op is None else ("extended", op)
+
+
+def _on_card(A32) -> bool:
+    """Whether the sweeps take ``_inner_route``'s runners (the one device
+    test of the choice, so that a CPU test can stand in for the card)."""
+    return isinstance(A32, DIA) and A32.data.is_cuda
+
+
 def _make_inner(inner_solver, A32, M32, inner_tol, maxiter, inner_kwargs):
-    """Per-sweep inner solve. CUDA f32 DIA systems (no or diagonal M) run
-    through the extended operator, so every inner SpMV is kernel 1."""
-    op32 = None
-    if (isinstance(A32, DIA) and A32.data.is_cuda
-            and (M32 is None or isinstance(M32, DiagonalPreconditioner))):
-        op32 = make_extended_operator(A32)
-    if op32 is not None:
-        M32e = None if M32 is None else DiagonalPreconditioner(
-            op32.extend_diag(M32.dinv))
+    """Per-sweep inner solve, and whether it runs the fused CG kernels. On
+    the card a DIA takes ``_inner_route``'s runner: kernels 2-3 for a CG
+    sweep in float32 with M None or diagonal, the method's loop over kernel
+    1's extended mode for the other methods and bf16; any other operand,
+    and every operand off the card, runs the method on ``A32`` as it is."""
+    route, op = (_inner_route(inner_solver, A32, M32, inner_kwargs)
+                 if _on_card(A32) else ("plain", None))
+    if route == "fused":
+        dinv = None if M32 is None else M32.dinv
 
         def _inner(rhs):
-            out = inner_solver(op32, op32.extend(rhs), None, tol=inner_tol,
+            return fused_cg_ext(op, rhs, tol=inner_tol, maxiter=maxiter,
+                                dinv=dinv)
+
+    elif route == "extended":
+        M32e = None if M32 is None else DiagonalPreconditioner(
+            op.extend_diag(M32.dinv))
+
+        def _inner(rhs):
+            out = inner_solver(op, op.extend(rhs), None, tol=inner_tol,
                                maxiter=maxiter, M=M32e, **inner_kwargs)
-            return (op32.extract(out[0]),) + tuple(out[1:])
+            return (op.extract(out[0]),) + tuple(out[1:])
 
-        return _inner
+    else:
+        def _inner(rhs):
+            return inner_solver(A32, rhs, None, tol=inner_tol,
+                                maxiter=maxiter, M=M32, **inner_kwargs)
 
-    def _inner(rhs):
-        return inner_solver(A32, rhs, None, tol=inner_tol, maxiter=maxiter,
-                            M=M32, **inner_kwargs)
-
-    return _inner
+    return route == "fused", _inner
 
 
 @tracing.traced("tsp.solver.refine")
@@ -222,8 +261,8 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
     b_norm = tree_norm(b)
     thresh = torch.clamp_min(tol * b_norm, atol)
 
-    _inner = _make_inner(inner_solver, A32, M32, inner_tol, inner_maxiter,
-                         inner_kwargs)
+    fused, _inner = _make_inner(inner_solver, A32, M32, inner_tol,
+                                inner_maxiter, inner_kwargs)
 
     x = tree_zeros_like(b) if x0 is None else x0
     res_norm = tree_norm(tree_sub(b, A_fn(x)))
@@ -235,6 +274,7 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
         if bool(tracing.host_read(done)):  # the one host read of the sweep
             break
         REFINE["sweeps"] += 1
+        REFINE["fused_sweeps"] += int(fused)
         with tracing.span("tsp.solver.refine.sweep", i=i):
             r = tree_sub(b, A_fn(x))
             d32, _, it, _ = _inner(_cast_tree(r, inner_dtype))
