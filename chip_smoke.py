@@ -4099,7 +4099,7 @@ def bf16_phases(dev, b_main, *, note, counts, reset_counts, main_runs,
     import tpu_sparse_torch
     from tpu_sparse_torch import kernels as tk
     from tpu_sparse_torch.api.solver import SolverResult
-    from tpu_sparse_torch.autodiff.implicit import _ext_loop
+    from tpu_sparse_torch.solvers.extended import _ext_loop
     from tpu_sparse_torch.kernels import cuda_bell, cuda_cwell, cuda_spmv
     from tpu_sparse_torch.kernels import reference as ref
     from tpu_sparse_torch.kernels.spmm_probe import kron_bell

@@ -870,18 +870,12 @@ def test_spmm_probe_designs_agree(dev):
             for d in spmm_probe.CWELL_DESIGNS.values():
                 Yd = torch.empty_like(Y)
                 fn = getattr(lib, spmm_probe._cwell_symbol(d, "f32"))
-                if d is None:
-                    rc = fn(W.vals.data_ptr(), W.idx2.data_ptr(),
-                            W.srow.data_ptr(), B.data_ptr(), Yd.data_ptr(),
-                            W.n_blocks, W.planes, 3000, 2500, k, stream)
-                else:
-                    rc = fn(cv.data_ptr(), plan.idx.data_ptr(),
-                            plan.srow.data_ptr(), plan.boff.data_ptr(),
-                            B.data_ptr(), Yd.data_ptr(), plan.n_blocks,
-                            plan.planes, 3000, k, plan.depth, 0, stream)
+                rc = fn(cv.data_ptr(), plan.idx.data_ptr(),
+                        plan.srow.data_ptr(), plan.boff.data_ptr(),
+                        B.data_ptr(), Yd.data_ptr(), plan.n_blocks,
+                        plan.planes, 3000, k, plan.depth, 0, stream)
                 assert rc == 0
-                assert torch.equal(Yd, Y) if d is not None else \
-                    _rel(Yd, Y) <= 1e-5
+                assert torch.equal(Yd, Y)
         Ad = torch.from_numpy(_block_dense(40, 8, 0.3, 68).astype(
             np.float32))
         A = bsr_to_bell(csr_to_bsr(dense_to_csr(Ad.to(dev)), 8))
@@ -2169,7 +2163,7 @@ def test_bf16_solves_on_card(dev):
     iterations with x within 1e-6; a bf16 b, the CWELL pack and (n, 3)
     right-hand sides run their bf16 builds; no values cast anywhere."""
     from tpu_sparse_torch import kernels
-    from tpu_sparse_torch.autodiff import implicit
+    from tpu_sparse_torch.solvers import extended
     from tpu_sparse_torch.sparse import convert as conv
     from tpu_sparse_torch.sparse.cwell import csr_to_cwell
 
@@ -2181,7 +2175,7 @@ def test_bf16_solves_on_card(dev):
     x, r = tpu_sparse_torch.solve(A, b, method="cg", tol=1e-6)
     assert cuda_spmv.LAUNCHES["dia_spmv_ext_bf16_f32"] > 0
     op32 = cuda_spmv.ExtendedStencilOperator(A32)
-    xr, info, it, _ = implicit._ext_loop("cg", dict(tol=1e-6, atol=0.0,
+    xr, info, it, _ = extended._ext_loop("cg", dict(tol=1e-6, atol=0.0,
                                                     maxiter=None),
                                          op32, b, None, None)
     assert r.converged and int(info) == 0 and r.iterations == int(it)
@@ -2307,6 +2301,53 @@ def test_hpcg_fp64_jacobi_sweeps_run_fused(dev):
     assert counts["refine.fused_sweeps"] == counts["refine.sweeps"] >= 1
     assert float(torch.linalg.vector_norm(b - ref.dia_spmv(A, x))
                  / torch.linalg.vector_norm(b)) <= 1e-8
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "cg_sr", "fcg", "minres",
+                                    "fgmres", "cg-atol"])
+def test_refined_sweeps_take_the_owners_runner_on_card(dev, method):
+    """A float64 refinement on poisson3d_27pt(64) whose sweeps take the
+    runner ``solvers.extended.sweep_runner`` names: BiCGStab with no M,
+    cg_sr, fcg, minres and fgmres run their loop over kernel 1's extended
+    mode (``ext_loop``; the router's solve would run K10 or kernel 1's
+    plain mode). Each gives info 0 and a true relative residual within
+    tol, and launches the named route's kernels and no float32 ones of
+    another. "cg-atol" is one CG sweep given a fused keyword (``atol``),
+    which the refinement cannot pass on: it runs kernels 2-3 to the inner
+    tolerance (the float32 final check relaxed 10x)."""
+    from tpu_sparse_torch.solvers import extended, mixed
+    from tpu_sparse_torch.solvers.krylov import cg_full
+
+    A = gen.poisson3d_27pt(64, dtype=np.float64, device=dev)
+    b = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        A.shape[0])).to(dev)
+    A32 = A.with_data(A.data.float())
+    tracing.reset()
+    if method == "cg-atol":
+        assert extended.sweep_runner(cg_full, A32, b.float(), None) == (
+            extended.ext_run, True)
+        x, info, _, _ = mixed._sweep(cg_full, A32, None, b.float(), 1e-5,
+                                     1000, {"atol": 0.0})
+        res = float(torch.linalg.vector_norm(b.float() - ref.dia_spmv(A32, x))
+                    / torch.linalg.vector_norm(b.float()))
+        assert int(info) == 0 and res <= 1e-4
+        counts = tracing.counters()
+        assert counts["refine.fused_sweeps"] == 1
+        assert counts["launches.dia_cg_update"] > 0
+        assert counts["launches.dia_spmv_f32"] == 0
+        return
+    inner = extended._SOLVERS[method]
+    assert extended.sweep_runner(inner, A32, b.float(), None) == (
+        extended.ext_loop, False)
+    x, info, _, _ = getattr(mixed, f"{method}_refined")(A, b, tol=1e-8)
+    res = float(torch.linalg.vector_norm(b - ref.dia_spmv(A, x))
+                / torch.linalg.vector_norm(b))
+    assert int(info) == 0 and res <= 1e-8
+    counts = tracing.counters()
+    assert counts["refine.sweeps"] >= 1 and counts["refine.fused_sweeps"] == 0
+    assert counts["launches.dia_spmv_ext_f32"] > 0
+    assert counts["launches.dia_spmv_f32"] == 0
+    assert counts["launches.dia_bicgstab_update"] == 0
 
 
 @pytest.mark.parametrize("precision", ["auto", "full"])

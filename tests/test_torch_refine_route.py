@@ -1,13 +1,20 @@
-"""Which runner takes the sweeps of the mixed-precision refinement
-(``solvers/mixed.py::_inner_route``), and the fused sweeps on the CPU.
+"""Which runner takes a DIA solve (``solvers/extended.py``, the one owner
+of the choice for the router, ``runner``, and the refinement's sweeps,
+``sweep_runner``), and the fused sweeps on the CPU.
 
-On the card a CG sweep on a float32 DIA with M None or diagonal runs the
-fused CG kernels 2-3 (``cuda_cg.fused_cg_ext``); the other methods and
-bf16 sweeps run their loop over the extended operator; a CWELL, another M
-or a complex cast runs the method on the cast operand. The route is
-chosen from the operand alone, so it is checked here without a card.
-Off the card every sweep runs the method on the cast operand, so
-``refine.fused_sweeps`` stays 0.
+On the card the router sends a float32 CG with no x0 and M None or
+diagonal to the fused CG kernels 2-3 (``cuda_cg.fused_cg_ext``), a float32
+BiCGStab with no x0 and no M to K10, the other cg / bicgstab / gmres solves
+on a float32 or bf16 DIA to their loop over the extended operator, a
+float64 one at tol >= 1e-11 to the loop over the fp64 extended operator; a
+CWELL, another M, a complex cast, another method or a CPU tensor runs the
+method on the operand. A float32 or bf16 sweep runs the fused CG kernels
+for CG and the extended loop for every other named method (BiCGStab with
+no M too); a float64 sweep, another operand, M or inner solver runs the
+inner solver on the operand. The answers depend on the operand and one
+device test (``extended._on_card``), so they are checked here without a
+card by patching that test; ``refine.fused_sweeps`` counts exactly the
+sweeps whose answer is the fused CG, and off the card it stays 0.
 
 ``fused_cg_ext`` runs its plain PyTorch version on CPU tensors, so a
 refinement through the fused runner (the device test replaced) is held
@@ -35,8 +42,9 @@ from benchmark.core import stencil
 from tpu_sparse_torch import tracing
 from tpu_sparse_torch.precond.jacobi import (DiagonalPreconditioner,
                                              jacobi_preconditioner)
-from tpu_sparse_torch.solvers import mixed
+from tpu_sparse_torch.solvers import extended, mixed
 from tpu_sparse_torch.solvers.krylov import bicgstab_full, cg_full, gmres_full
+from tpu_sparse_torch.solvers.pipelined import cg_sr_full
 from tpu_sparse_torch.sparse import generators as gen
 from tpu_sparse_torch.sparse.containers import DIA
 from tpu_sparse_torch.sparse.convert import to_csr
@@ -49,45 +57,118 @@ def _f32():
     return gen.poisson3d_27pt(6, dtype=np.float32, device="cpu")
 
 
+def _cast(dtype):
+    return _f32().with_data(_f32().data.to(dtype))
+
+
 def _jacobi(A):
     return jacobi_preconditioner(A)
 
 
+_X0 = torch.zeros(216, dtype=torch.float32)
+
+# name: (inner solver, A, b's dtype, M, inner keyword arguments, tol, x0,
+# on the card): the first ten are a refinement's float32 sweeps (x0 None,
+# the inner dtype as b's), the rest solves the router hands to the owner
 _CASES = {
-    # name: (inner solver, A32, M32, inner keyword arguments)
-    "cg": lambda: (cg_full, _f32(), None, {}),
-    "cg-jacobi": lambda: (cg_full, _f32(), _jacobi(_f32()), {}),
-    "cg-bf16": lambda: (cg_full, _f32().with_data(
-        _f32().data.to(torch.bfloat16)), None, {}),
-    "cg-kwargs": lambda: (cg_full, _f32(), None, {"atol": 0.0}),
-    "bicgstab": lambda: (bicgstab_full, _f32(), None, {}),
-    "bicgstab-jacobi": lambda: (bicgstab_full, _f32(), _jacobi(_f32()), {}),
-    "gmres": lambda: (gmres_full, _f32(), None,
-                      {"restart": 20, "solve_method": "batched"}),
-    "cg-callable-M": lambda: (cg_full, _f32(), lambda v: 0.5 * v, {}),
-    "cg-cwell": lambda: (cg_full, csr_to_cwell(to_csr(_f32())), None, {}),
-    "cg-complex64": lambda: (cg_full, _f32().with_data(
-        _f32().data.to(torch.complex64)), None, {}),
+    "cg": lambda: (cg_full, _f32(), torch.float32, None, {}, 1e-5, None,
+                   True),
+    "cg-jacobi": lambda: (cg_full, _f32(), torch.float32, _jacobi(_f32()),
+                          {}, 1e-5, None, True),
+    "cg-bf16": lambda: (cg_full, _cast(torch.bfloat16), torch.bfloat16, None,
+                        {}, 1e-5, None, True),
+    "cg-kwargs": lambda: (cg_full, _f32(), torch.float32, None,
+                          {"atol": 0.0}, 1e-5, None, True),
+    "bicgstab": lambda: (bicgstab_full, _f32(), torch.float32, None, {},
+                         1e-5, None, True),
+    "bicgstab-jacobi": lambda: (bicgstab_full, _f32(), torch.float32,
+                                _jacobi(_f32()), {}, 1e-5, None, True),
+    "gmres": lambda: (gmres_full, _f32(), torch.float32, None,
+                      {"restart": 20, "solve_method": "batched"}, 1e-5, None,
+                      True),
+    "cg-callable-M": lambda: (cg_full, _f32(), torch.float32,
+                              lambda v: 0.5 * v, {}, 1e-5, None, True),
+    "cg-cwell": lambda: (cg_full, csr_to_cwell(to_csr(_f32())),
+                         torch.float32, None, {}, 1e-5, None, True),
+    "cg-complex64": lambda: (cg_full, _cast(torch.complex64),
+                             torch.complex64, None, {}, 1e-5, None, True),
+    "router-cg-x0": lambda: (cg_full, _f32(), torch.float32, None, {}, 1e-6,
+                             _X0, True),
+    "router-bf16-f32-b": lambda: (bicgstab_full, _cast(torch.bfloat16),
+                                  torch.float32, None, {}, 1e-6, None, True),
+    "router-f64": lambda: (cg_full, _cast(torch.float64), torch.float64,
+                           None, {}, 1e-8, None, True),
+    "router-f64-tol-1e-12": lambda: (cg_full, _cast(torch.float64),
+                                     torch.float64, None, {}, 1e-12, None,
+                                     True),
+    "router-cg_sr": lambda: (cg_sr_full, _f32(), torch.float32, None, {},
+                             1e-6, None, True),
+    "router-cpu": lambda: (cg_full, _f32(), torch.float32, None, {}, 1e-6,
+                           None, False),
 }
-_ROUTES = {"cg": "fused", "cg-jacobi": "fused", "cg-bf16": "extended",
-           "cg-kwargs": "extended", "bicgstab": "extended",
-           "bicgstab-jacobi": "extended", "gmres": "extended",
-           "cg-callable-M": "plain", "cg-cwell": "plain",
-           "cg-complex64": "plain"}
+# the owner's answers for each case, as names: the router's (``runner``,
+# with the case's x0) and a sweep's (``sweep_runner``, no x0): the fused CG
+# kernels 2-3, K10, the extended loop (float32 / bf16 or fp64) or the plain
+# loop. They differ for a float32 BiCGStab with no M, for cg_sr (and fcg,
+# minres, fgmres) and for a float64 or x0 solve (no sweep has either).
+_ROUTES = {"cg": ("fused", "fused"), "cg-jacobi": ("fused", "fused"),
+           "cg-bf16": ("extended", "extended"),
+           "cg-kwargs": ("fused", "fused"),
+           "bicgstab": ("k10", "extended"),
+           "bicgstab-jacobi": ("extended", "extended"),
+           "gmres": ("extended", "extended"),
+           "cg-callable-M": ("plain", "plain"),
+           "cg-cwell": ("plain", "plain"),
+           "cg-complex64": ("plain", "plain"),
+           "router-cg-x0": ("extended", "fused"),
+           "router-bf16-f32-b": ("extended", "extended"),
+           "router-f64": ("extended-f64", "plain"),
+           "router-f64-tol-1e-12": ("plain", "plain"),
+           "router-cg_sr": ("plain", "extended"),
+           "router-cpu": ("plain", "plain")}
+
+
+def _on_card_for_dia(monkeypatch):
+    """Route a CPU DIA as a card's: the runners' plain versions."""
+    monkeypatch.setattr(extended, "_on_card",
+                        lambda A, b: isinstance(A, DIA))
+
+
+def _route(method, A, b, M, tol, x0) -> str:
+    run = extended.runner(method, A, b, M, tol)
+    if run is None:
+        return "plain"
+    if run is extended.ext_run_f64:
+        return "extended-f64"
+    assert run is extended.ext_run
+    if extended._fused(method, A, x0, M):
+        return {"cg": "fused", "bicgstab": "k10"}[method]
+    return "extended"
+
+
+def _sweep_route(inner, A, b, M) -> str:
+    run, fused = extended.sweep_runner(inner, A, b, M)
+    assert fused is (run is extended.ext_run)
+    return {None: "plain", extended.ext_run: "fused",
+            extended.ext_loop: "extended"}[run]
 
 
 @pytest.mark.parametrize("case", list(_CASES))
-def test_route_of_a_sweep(case):
-    """The runner each operand takes on the card; off the card, every
-    operand takes the method on the cast operand (never fused)."""
-    inner, A32, M32, kw = _CASES[case]()
-    route, op = mixed._inner_route(inner, A32, M32, kw)
-    assert route == _ROUTES[case]
-    assert (op is None) == (route == "plain")
-    if route == "fused":
-        assert op.dtype == torch.float32
-    fused, _ = mixed._make_inner(inner, A32, M32, 1e-5, 100, kw)
-    assert fused is False
+def test_route_of_a_solve(monkeypatch, case):
+    """The owner's answers for each solve; off the card every answer is
+    the plain loop, and no sweep is fused."""
+    inner, A, dtype, M, kw, tol, x0, card = _CASES[case]()
+    method = mixed._method_name(inner)
+    b = torch.ones(A.shape[0], dtype=dtype)
+
+    def routes():
+        return (_route(method, A, b, M, tol, x0),
+                _sweep_route(inner, A, b, M))
+
+    assert routes() == ("plain", "plain")
+    if card:
+        _on_card_for_dia(monkeypatch)
+    assert routes() == _ROUTES[case]
 
 
 def _system(nx, seed):
@@ -109,11 +190,6 @@ def _refine(A, b, M):
     counts = {k: v for k, v in tracing.counters().items()
               if k.startswith("refine.")}
     return x, int(it), res, counts
-
-
-def _on_card_for_dia(monkeypatch):
-    """Route a CPU DIA as a card's: the fused runner's plain versions."""
-    monkeypatch.setattr(mixed, "_on_card", lambda A: isinstance(A, DIA))
 
 
 @pytest.mark.parametrize("jacobi", [False, True], ids=["none", "jacobi"])

@@ -72,7 +72,7 @@ def test_extended_space_runners_match_jax(dtype, M, slack, rtol):
     """ext_run_f64 / ext_run's extended-space loop (plain kernel versions on
     CPU tensors) against the JAX full-precision solve. The float32 case
     passes x0 so that it takes the loop, not the fused CG."""
-    from tpu_sparse_torch.autodiff.implicit import ext_run, ext_run_f64
+    from tpu_sparse_torch.solvers.extended import ext_run, ext_run_f64
     from tpu_sparse_torch.precond.jacobi import jacobi_preconditioner
 
     Aj = jgen.poisson2d(16, dtype=dtype)
@@ -142,7 +142,7 @@ def test_extended_space_nonsymmetric_runners_match_jax(method, dtype, M,
     bicgstab and gmres against the JAX full-precision solve. The float32
     bicgstab case without M takes fused_bicgstab_ext (K10); with M, the
     method's loop over the extended operator."""
-    from tpu_sparse_torch.autodiff.implicit import ext_run, ext_run_f64
+    from tpu_sparse_torch.solvers.extended import ext_run, ext_run_f64
     from tpu_sparse_torch.precond.jacobi import jacobi_preconditioner
 
     Aj = jgen.convection_diffusion_3d_27pt(8, dtype=dtype)

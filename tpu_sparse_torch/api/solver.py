@@ -10,20 +10,18 @@ stationary V-cycle iteration), the ``direct`` backend (``method="direct"``,
 matrix content and cached), ``reorder="rcm"``, with the extended-layout
 CUDA fast paths for square DIA systems (M None or Jacobi):
 
-* float32 ``b`` on CUDA, cg / bicgstab / gmres: ``autodiff.implicit.
-  ext_run`` (fused CG kernels, K10 for bicgstab without x0 and M, else the
-  method's loop over kernel 1);
-* bf16 data with a float32 or bf16 ``b`` on CUDA, cg / bicgstab / gmres:
-  ``ext_run`` too, where the fused kernels refuse bf16 (as JAX's do) and
-  the method's loop runs over kernel 1's bf16 extended builds;
 * float64 ``b``, ``precision="auto"`` (tol >= 1e-12), every method:
-  defect correction (``solvers.mixed.*_refined``), f32 inner sweeps over
-  the extended operator and f64 outer residuals by the fp64 kernel on
-  CUDA;
-* float64 ``b``, ``precision="full"`` on CUDA (tol >= 1e-11), cg /
-  bicgstab / gmres: the method with matvecs by the fp64 extended kernel
-  (``ext_run_f64``);
-* everything else: the method's ``*_diff`` on the operand (CUDA DIA SpMV
+  defect correction (``solvers.mixed.*_refined``), f32 inner sweeps on
+  the runner ``solvers.extended.runner`` names for them and f64 outer
+  residuals by the fp64 kernel on CUDA;
+* every other solve runs the runner ``solvers.extended.runner`` names
+  (the one owner of that choice) under the adjoint wrapper: for cg /
+  bicgstab / gmres on a CUDA DIA, ``ext_run`` for a float32 ``b`` and for
+  bf16 data with a float32 or bf16 ``b`` (fused CG kernels, K10 for
+  bicgstab without x0 and M, else the method's loop over kernel 1's
+  extended mode), ``ext_run_f64`` for a float64 ``b`` at tol >= 1e-11 (the
+  method with matvecs by the fp64 extended kernel);
+* with no runner: the method's ``*_diff`` on the operand (CUDA DIA SpMV
   is kernel 1); ``cg_sr``, ``fcg``, ``minres`` and ``fgmres`` always take
   this general path, as in the JAX router.
 
@@ -88,9 +86,8 @@ import torch
 from tpu_sparse_torch import tracing
 from tpu_sparse_torch.api import availability
 from tpu_sparse_torch.kernels import as_matvec, cast_values
-from tpu_sparse_torch.kernels.cuda_spmv import extendable
 from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
-from tpu_sparse_torch.sparse.containers import DIA, is_sparse, values
+from tpu_sparse_torch.sparse.containers import is_sparse, values
 from tpu_sparse_torch.utils.opcache import OperandCache, TensorCache, _leaves
 from tpu_sparse_torch.utils.tree import tree_norm, tree_sub
 
@@ -127,13 +124,6 @@ _BACKEND_ALIASES = {
 
 _KRYLOV_METHODS = ("cg", "cg_sr", "fcg", "minres", "bicgstab", "gmres",
                    "fgmres")
-# the methods with extended-layout fast paths (JAX router :401-423)
-_EXT_METHODS = ("cg", "bicgstab", "gmres")
-# (A's data dtype, b's dtype) of the float32 extended route: JAX takes a
-# float32 or bf16 b over float32 or bf16 data (:399-407); a float32 matrix
-# with a bf16 b solves in float32 here (b is promoted first)
-_EXT_PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-              (torch.bfloat16, torch.bfloat16))
 _PRECOND_NAMES = ("jacobi", "fsai", "fsai2", "chebyshev", "neumann", "ilu0",
                   "amg")
 
@@ -624,17 +614,11 @@ class SparseSolver:
 
     def _solve_krylov(self, A, b, x0, method, kw, M):
         from tpu_sparse_torch.autodiff import implicit
+        from tpu_sparse_torch.solvers import extended
 
-        fast = (method in _EXT_METHODS and isinstance(A, DIA)
-                and _extendable_m(M)
-                and isinstance(b, torch.Tensor) and b.is_cuda
-                and A.data.is_cuda and extendable(A))
-        pair = (A.data.dtype, b.dtype) if fast else None
-        if pair in _EXT_PAIRS:
-            out = implicit.ext_krylov_diff(method, kw, A, b, x0, M)
-            return out + (out[3] / _safe_norm(b.detach()),)
-        if pair == (torch.float64, torch.float64) and kw["tol"] >= 1e-11:
-            out = implicit.ext_krylov_diff_f64(method, kw, A, b, x0, M)
+        run = extended.runner(method, A, b, M, kw["tol"])
+        if run is not None:
+            out = implicit.implicit_solve(run, method, kw, A, b, x0, M)
             return out + (out[3] / _safe_norm(b.detach()),)
         out = getattr(implicit, f"{method}_diff")(A, b, x0, M=M, **kw)
         return out + (_relative_residual(A, b, out[0]),)
@@ -780,12 +764,6 @@ def _relative_residual(A, b, x) -> torch.Tensor:
     """||b - A x|| / ||b||, off the autograd graph (a report)."""
     with torch.no_grad():
         return tree_norm(tree_sub(b, as_matvec(A)(x))) / _safe_norm(b)
-
-
-def _extendable_m(M) -> bool:
-    """The extended paths take M=None or a diagonal preconditioner (unit
-    margins keep the zero-margin invariant)."""
-    return M is None or isinstance(M, DiagonalPreconditioner)
 
 
 def _auto_mixed_ok(A, b, tol: float, sel_backend: str) -> bool:

@@ -1,4 +1,4 @@
-"""Krylov solves with the adjoint gradient, and the halo-extended runners.
+"""Krylov solves with the adjoint gradient.
 
 Counterpart of ``tpu_sparse/autodiff/implicit.py``. Gradients of a solve
 x = A^-1 b come from one extra adjoint solve, never from differentiating
@@ -13,7 +13,8 @@ torch_sparse_linalg.py:1161-1258):
 ``_MatrixSolve`` (a ``torch.autograd.Function``) is the counterpart of the
 JAX ``custom_vjp``s ``_implicit_matrix_solve``, ``ext_krylov_diff`` and
 ``ext_krylov_diff_f64``: one class, with the forward runner as its
-argument. A_bar is the vector-Jacobian product of the plain
+argument (the method's loop, or a runner of ``solvers.extended``). A_bar
+is the vector-Jacobian product of the plain
 ``spmv_reference`` with respect to A's values at cotangent -v, taken by
 ``torch.autograd`` on the plain SpMV, never on a kernel; for DIA, entries
 whose column lies outside the matrix get zero, as in JAX; for CWELL every
@@ -36,16 +37,6 @@ launches a kernel with no backward) raises an error naming
 ``A_transpose=`` and never yields partial gradients. With
 ``A_transpose`` the backward solves with it, without M, and only b gets
 a gradient (the JAX contract).
-
-The extended runners: ``ext_run`` solves a float32 DIA system in the
-halo-extended layout (fused CG kernels for cg, K10 for bicgstab, else the
-method's loop over kernel 1), and a bf16 one with a float32 or bf16 b as
-JAX's ``_ext_run`` takes it: the fused kernels refuse bf16 data, so every
-method runs its loop over kernel 1's bf16 extended builds (the adjoint
-too); ``ext_run_f64`` runs the method's loop over the fp64 extended
-kernel. The JAX float64 runner matvecs in original space
-through the double-f32 operator, which needs a hi/lo split per call; the
-card has native fp64, so both dtypes here run the same extended-space loop.
 """
 
 from __future__ import annotations
@@ -56,16 +47,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from tpu_sparse_torch.kernels import spmv_reference
-from tpu_sparse_torch.kernels.cuda_bicgstab import fused_bicgstab_ext
-from tpu_sparse_torch.kernels.cuda_cg import fused_cg_ext, make_fused_operator
-from tpu_sparse_torch.kernels.cuda_spmv import (ExtendedStencilOperator,
-                                                make_extended_operator_f64)
-from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
-from tpu_sparse_torch.solvers.fcg import fcg_full
-from tpu_sparse_torch.solvers.fgmres import fgmres_full
-from tpu_sparse_torch.solvers.krylov import bicgstab_full, cg_full, gmres_full
-from tpu_sparse_torch.solvers.minres import minres_full
-from tpu_sparse_torch.solvers.pipelined import cg_sr_full
+from tpu_sparse_torch.solvers.extended import _SOLVERS, ext_run, ext_run_f64
 from tpu_sparse_torch.sparse.containers import (CSR, DIA, is_sparse, values,
                                                 with_values)
 from tpu_sparse_torch.sparse.cwell import CWELL, CWELLSeg
@@ -73,66 +55,10 @@ from tpu_sparse_torch.utils.opcache import TensorCache
 from tpu_sparse_torch.utils.tree import (tree_add, tree_leaves, tree_norm,
                                          tree_sub, tree_vdot)
 
-_SOLVERS = {"cg": cg_full, "cg_sr": cg_sr_full, "fcg": fcg_full,
-            "bicgstab": bicgstab_full, "gmres": gmres_full,
-            "fgmres": fgmres_full, "minres": minres_full}
-
 # 'symmetric': the adjoint solve may reuse A (hermitian operators); FCG
 # also tolerates a nonsymmetric M, so the forward M is reused too
 _SYMMETRIC = {"cg": True, "cg_sr": True, "fcg": True, "bicgstab": False,
               "gmres": False, "fgmres": False, "minres": True}
-
-_FUSED_KW = ("tol", "atol", "maxiter")
-
-
-def _ext_loop(method: str, kw: dict, op: ExtendedStencilOperator, b, x0, M):
-    """Run the method's loop over ``op`` in extended space, with a diagonal
-    M extended by unit margins. The default maxiter is 10 n, as in the
-    original-space solve, not 10 times the extended length. Returns (x,
-    info, iters, res)."""
-    if kw.get("maxiter") is None:
-        kw = {**kw, "maxiter": 10 * op.n}
-    solver = _SOLVERS[method]
-    b_ext = op.extend(b)
-    x0_ext = None if x0 is None else op.extend(x0)
-    M_ext = None
-    if M is not None:
-        M_ext = DiagonalPreconditioner(op.extend_diag(M.dinv))
-    out = solver(op, b_ext, x0_ext, M=M_ext, **kw)
-    return (op.extract(out[0]),) + tuple(out[1:])
-
-
-def ext_run(method: str, kw: dict, A, b, x0, M):
-    """Solve a square float32 (or bf16) DIA system in extended space.
-
-    CG with no x0 and M None or diagonal runs the fused CG kernels;
-    BiCGStab with no x0 and no M runs K10; other cases, and every bf16
-    system (the fused kernels take float32 only), run the method's loop
-    over the extended operator (kernel 1). Returns (x, info, iters,
-    res)."""
-    fkw = {k: v for k, v in kw.items() if k in _FUSED_KW and v is not None}
-    if method == "cg" and x0 is None and (
-            M is None or isinstance(M, DiagonalPreconditioner)):
-        opf = make_fused_operator(A)
-        if opf is not None:
-            return fused_cg_ext(opf, b, dinv=None if M is None else M.dinv,
-                                **fkw)
-    if method == "bicgstab" and x0 is None and M is None:
-        opf = make_fused_operator(A)
-        if opf is not None:
-            return fused_bicgstab_ext(opf, b, **fkw)
-    return _ext_loop(method, kw, ExtendedStencilOperator(A), b, x0, M)
-
-
-def ext_run_f64(method: str, kw: dict, A, b, x0, M):
-    """Full-precision float64 solve over the fp64 extended kernel (the
-    double-f32 operator's slot in the JAX package), in extended space."""
-    op = make_extended_operator_f64(A)
-    if op is None:
-        raise ValueError(
-            "ext_run_f64: the fp64 extended operator does not take this "
-            "matrix (needs square float64 DIA with bandwidth below n)")
-    return _ext_loop(method, kw, op, b, x0, M)
 
 
 def _matrix_run(method: str, kw: dict, A, b, x0, M):
@@ -261,13 +187,14 @@ def implicit_solve(runner: Callable, method: str, kw: dict, A, b, x0, M):
 
 
 def ext_krylov_diff(method: str, kw: dict, A, b, x0, M):
-    """``ext_run`` with the adjoint: forward and adjoint solves both take
-    the float32 extended fast path (fused CG, K10 on A^T for bicgstab)."""
+    """``extended.ext_run`` with the adjoint: forward and adjoint solves
+    both take the float32 extended fast path (fused CG, K10 on A^T for
+    bicgstab)."""
     return implicit_solve(ext_run, method, kw, A, b, x0, M)
 
 
 def ext_krylov_diff_f64(method: str, kw: dict, A, b, x0, M):
-    """``ext_run_f64`` with the adjoint."""
+    """``extended.ext_run_f64`` with the adjoint."""
     return implicit_solve(ext_run_f64, method, kw, A, b, x0, M)
 
 

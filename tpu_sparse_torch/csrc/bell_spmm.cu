@@ -49,7 +49,7 @@
 //
 // `python3 -m tpu_sparse_torch.kernels.spmm_probe` instantiates stages of
 // 24 to 96 KB, two stages, and any bs beside the bs = 8 specialisation,
-// and times them beside the first design (spmm_v1.cuh) on one card.
+// and times them on one card.
 
 #include <map>
 #include <type_traits>

@@ -51,7 +51,7 @@
 //
 // `python3 -m tpu_sparse_torch.kernels.spmm_probe` instantiates the design
 // with 128 threads and with plain loads in place of the bulk copies, and
-// times them beside the first design (spmm_v1.cuh) on one card.
+// times them on one card.
 //
 // Offsets are 64-bit (col * k passes 2^31 at m = 4.1M, k = 128) and there
 // are no atomics: reruns give the same bits.

@@ -48,13 +48,13 @@
 //   all its data and x loads before its first multiply-add (70 registers
 //   in float at 27 diagonals, one row a thread);
 // * one CTA a tile, no grid-stride loop: 8,000 or 16,000 CTAs at 160^3.
-// Three designs (dia_spmv_probe times them beside v1 on one card): strided
-// (a CTA owns 256 R rows, thread t the rows t + 256 r: v1's coalesced
-// loads, R rows in registers), vector (R consecutive rows a thread, each
-// diagonal's R values as one vector load of 4, 8 or 16 bytes; x read at a
-// stride of R values, R times the L1 wavefronts of a coalesced read) and
-// ring (a persistent grid streaming (ndiag x T) boxes of data through
-// shared memory by bulk async copies). Each build ships the fastest at
+// Three designs were timed beside v1 on one card: strided (a CTA owns 256 R
+// rows, thread t the rows t + 256 r: v1's coalesced loads, R rows in
+// registers), vector (R consecutive rows a thread, each diagonal's R values
+// as one vector load of 4, 8 or 16 bytes; x read at a stride of R values, R
+// times the L1 wavefronts of a coalesced read) and ring (a persistent grid
+// streaming (ndiag x T) boxes of data through shared memory by bulk async
+// copies; dia_spmv_probe times the first two). Each build ships the fastest at
 // 160^3 (TsDiaShipped): vector R = 2 for f32 (8-byte loads; strided R = 1
 // within 1%); vector R = 2 at 4 CTAs a SM for both bf16 builds (a bf16
 // pair in one 4-byte load, so a warp's load is a whole 128-byte line: 0.76
@@ -77,8 +77,7 @@
 
 // ---- plain mode -----------------------------------------------------------
 
-// The plain mode's designs (the third, the ring, is in dia_spmv_ring.cuh;
-// only the probe launches it):
+// The plain mode's designs:
 // TS_DIA_STRIDED, a CTA owns a tile of TS_BLOCK * R rows and thread t the
 // rows base + t + TS_BLOCK * r (every load coalesced, as v1's); and
 // TS_DIA_VECTOR, thread t owns R consecutive rows and reads each

@@ -34,6 +34,7 @@ import torch
 from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels.cuda_cg import _ptr, grid_for, supports_fused_cg
 from tpu_sparse_torch.kernels.cuda_spmv import ExtendedStencilOperator
+from tpu_sparse_torch.utils.tree import _final_check_relax
 
 # Slots of ``scal`` and rows of the partials buffer (csrc/dia_bicgstab.cu).
 RHO, ALPHA, OMEGA, BETA, CODE = range(5)
@@ -356,8 +357,6 @@ def fused_bicgstab_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
     x10 relaxation, else the breakdown code, else -1. Returns (x, info,
     iters, res) with x in the original space.
     """
-    from tpu_sparse_torch.solvers.krylov import _final_check_relax
-
     if not supports_fused_bicgstab(op):
         raise ValueError("operator does not support the fused BiCGStab "
                          "kernels")

@@ -26,6 +26,7 @@ import torch
 from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels.cuda_spmv import (ExtendedStencilOperator,
                                                 make_extended_operator)
+from tpu_sparse_torch.utils.tree import _final_check_relax
 
 BLOCK = 256       # TS_BLOCK in csrc/ts_common.cuh
 MAX_GRID = 1024   # TS_MAX_GRID
@@ -300,8 +301,6 @@ def fused_cg_ext(op: ExtendedStencilOperator, b: torch.Tensor, *,
     with the float32 x10 relaxation. ``dinv`` (original space) gives
     Jacobi-PCG. Returns (x, info, iters, res) with x in the original space.
     """
-    from tpu_sparse_torch.solvers.krylov import _final_check_relax
-
     if not supports_fused_cg(op):
         raise ValueError("operator does not support the fused CG kernels")
     if maxiter is None:

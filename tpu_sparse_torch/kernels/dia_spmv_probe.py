@@ -2,18 +2,15 @@
 
     python3 -m tpu_sparse_torch.kernels.dia_spmv_probe [nx]
 
-Three plain-mode designs: "strided" (a CTA owns 256 R rows, thread t the
+Two plain-mode designs: "strided" (a CTA owns 256 R rows, thread t the
 rows t, t + 256, ...: v1's coalesced loads, R rows in registers) and
 "vector" (thread t owns R consecutive rows and reads each diagonal's R
 values as one vector load of 4, 8 or 16 bytes), both in ``dia_spmv.cu``
-with no column tests on tiles inside the interior, and "ring" (a
-persistent grid streaming (ndiag x T) boxes of data through shared
-memory by bulk async copies, ``dia_spmv_ring.cuh``, launched by nothing
-but this probe). It instantiates them at several R, ptxas occupancy
-targets (min CTAs a SM) and ring sizes for every build (f32, f64, c64,
-c128, bf16, bf16_f32) in one extra library (a generated file that
-includes both sources, compiled with the package's nvcc flags), prints
-their ptxas lines (registers, stack, spills), and on
+with no column tests on tiles inside the interior. It instantiates them
+at several R and ptxas occupancy targets (min CTAs a SM) for every build
+(f32, f64, c64, c128, bf16, bf16_f32) in one extra library (a generated
+file that includes ``dia_spmv.cu``, compiled with the package's nvcc
+flags), prints their ptxas lines (registers, stack, spills), and on
 ``poisson3d_27pt(nx)`` (default 160; complex: D^H A D, D = diag(exp(i
 theta)), as smoke phase (28)) in f32, bf16_f32, bf16, c64 and c128, and
 in f64 at 64^3, at nx^3 and at the lid-driven cavity's shape
@@ -48,18 +45,12 @@ TYPES = {"f32": ("float", "float"), "f64": ("double", "double"),
 # rows a thread of the vector design: 16 bytes of values (32 for complex)
 VECTOR_ROWS = {"f32": 4, "f64": 2, "c64": 4, "c128": 2, "bf16": 8,
                "bf16_f32": 8}
-STRIDED, VECTOR, RING = 0, 1, 2
-# the ring's (rows a tile, stages) by build: stages of about 28-55 KB at
-# 27 diagonals
-RING_SIZES = {"f32": ((256, 2),), "f64": ((256, 2),), "c64": ((128, 2),),
-              "c128": ((128, 2),), "bf16": ((256, 2),),
-              "bf16_f32": ((256, 2),)}
+STRIDED, VECTOR = 0, 1
 
 
 def designs(sfx: str) -> dict:
-    """name -> (design, a, b): for the strided and vector designs a = rows
-    a thread, b = min CTAs a SM for ptxas; for the ring a = rows a tile, b
-    = stages."""
+    """name -> (design, R, b): R = rows a thread, b = min CTAs a SM for
+    ptxas."""
     rv = VECTOR_ROWS[sfx]
     out = {"strided R=1": (STRIDED, 1, 1),
            "strided R=1 minB=8": (STRIDED, 1, 8),
@@ -69,8 +60,6 @@ def designs(sfx: str) -> dict:
         if r < rv or (r == rv and mb > 1):
             out[f"vector R={r}" + (f" minB={mb}" if mb > 1 else "")] = \
                 (VECTOR, r, mb)
-    for t, st in RING_SIZES[sfx]:
-        out[f"ring {t}x{st}"] = (RING, t, st)
     return out
 
 
@@ -81,11 +70,9 @@ def symbol(spec, sfx: str) -> str:
 
 _HELPER = r'''
 #include "dia_spmv.cu"
-#include "dia_spmv_ring.cuh"
 
-// One launch of a design at R rows a thread (the ring: R rows a tile, MINB
-// stages) whatever the size (the probe forces R); unrolled instances for
-// 27 and 5 diagonals, else the generic.
+// One launch of a design at R rows a thread whatever the size (the probe
+// forces R); unrolled instances for 27 and 5 diagonals, else the generic.
 template <typename V, typename X, int D, int R, int MINB>
 static int probe_dia_launch(const V* data, long long ld, const int* offsets,
                             int ndiag, const X* x, X* y, long long n_rows,
@@ -101,34 +88,20 @@ static int probe_dia_launch(const V* data, long long ld, const int* offsets,
   const TsDiaGeometry g = ts_dia_geometry(offs, ndiag, n_rows, n_cols, ld, 0,
                                           (int)sizeof(V), TS_DIA_STRIDED, 1,
                                           0);
-  if constexpr (D == TS_DIA_RING) {
-    if ((size_t)data % 16 != 0 || (ld * sizeof(V)) % 16 != 0)
-      return TS_BAD_ARGUMENT;
-    const int sms = ts_sm_count();
-    if (ndiag == 27)
-      return launch_dia_ring_nd<V, X, R, MINB, 27>(
-          data, ld, offs, ndiag, x, y, n_rows, n_cols, g.lo, g.hi, sms, s);
-    if (ndiag == 5)
-      return launch_dia_ring_nd<V, X, R, MINB, 5>(
-          data, ld, offs, ndiag, x, y, n_rows, n_cols, g.lo, g.hi, sms, s);
-    return launch_dia_ring_nd<V, X, R, MINB, 0>(
-        data, ld, offs, ndiag, x, y, n_rows, n_cols, g.lo, g.hi, sms, s);
-  } else {
-    const long long t = (long long)TS_BLOCK * R;
-    const long long grid = (n_rows + t - 1) / t;
-    if (ndiag == 27)
-      launch_dia_plain_nd<V, X, D, R, MINB, 27>(data, ld, offs, ndiag, x, y,
-                                                n_rows, n_cols, g.lo, g.hi,
-                                                grid, s);
-    else if (ndiag == 5)
-      launch_dia_plain_nd<V, X, D, R, MINB, 5>(data, ld, offs, ndiag, x, y,
-                                               n_rows, n_cols, g.lo, g.hi,
-                                               grid, s);
-    else
-      launch_dia_plain_nd<V, X, D, R, MINB, 0>(data, ld, offs, ndiag, x, y,
-                                               n_rows, n_cols, g.lo, g.hi,
-                                               grid, s);
-  }
+  const long long t = (long long)TS_BLOCK * R;
+  const long long grid = (n_rows + t - 1) / t;
+  if (ndiag == 27)
+    launch_dia_plain_nd<V, X, D, R, MINB, 27>(data, ld, offs, ndiag, x, y,
+                                              n_rows, n_cols, g.lo, g.hi,
+                                              grid, s);
+  else if (ndiag == 5)
+    launch_dia_plain_nd<V, X, D, R, MINB, 5>(data, ld, offs, ndiag, x, y,
+                                             n_rows, n_cols, g.lo, g.hi,
+                                             grid, s);
+  else
+    launch_dia_plain_nd<V, X, D, R, MINB, 0>(data, ld, offs, ndiag, x, y,
+                                             n_rows, n_cols, g.lo, g.hi,
+                                             grid, s);
   return (int)cudaGetLastError();
 }
 '''

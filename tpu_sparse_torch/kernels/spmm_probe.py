@@ -4,16 +4,15 @@ K8 (``csrc/bell_spmm.cu``) on one GPU.
     python3 -m tpu_sparse_torch.kernels.spmm_probe [nx] [bell_nx]
 
 Instantiates, in one extra library (a generated file that includes both
-kernel sources and ``spmm_v1.cuh``, compiled with the package's nvcc
-flags), the shipped designs, their variants and the first designs of both
-kernels, and prints their ptxas lines. K6 / K7 on ``poisson3d_27pt(nx)``
-(default 160) taken as a general CSR and packed as CWELL on the card: the
-shipped design (256 threads, bulk copies), 128 threads, plain loads, and
-the first design on the plane pack, at k = 8, 32, 128 in float32 and k = 4
-in float64. K8 on kron(poisson3d_27pt(bell_nx), C8) (default 40) as a BELL
+kernel sources, compiled with the package's nvcc flags), the shipped
+designs and their variants, and prints their ptxas lines. K6 / K7 on
+``poisson3d_27pt(nx)`` (default 160) taken as a general CSR and packed as
+CWELL on the card: the shipped design (256 threads, bulk copies), 128
+threads and plain loads, at k = 8, 32, 128 in float32 and k = 4 in
+float64. K8 on kron(poisson3d_27pt(bell_nx), C8) (default 40) as a BELL
 of 8 x 8 blocks: one stage of 24 to 96 KB (bs = 8 unrolled; the shipped
-entry takes 96 KB in float32, 64 KB in float64), two stages, any bs, and
-the first design, at k = 8, 32 in float32 and k = 4 in float64; and on
+entry takes 96 KB in float32, 64 KB in float64), two stages and any bs,
+at k = 8, 32 in float32 and k = 4 in float64; and on
 bf16 blocks with a float32 B at k = 8, one stage of 32 to 96 KB beside the
 shipped entry and the float32 blocks. Every design
 is checked against its plain version (``reference.cwell_compact_spmm`` /
@@ -36,11 +35,10 @@ import sys
 import tempfile
 from pathlib import Path
 
-# K6 / K7 designs: (threads, bulk copies) or None for the first design
+# K6 / K7 designs: (threads, bulk copies)
 CWELL_DESIGNS = {"shipped: 256 thr, bulk": (256, 1),
                  "128 thr, bulk": (128, 1),
-                 "256 thr, plain loads": (256, 0),
-                 "first design (planes)": None}
+                 "256 thr, plain loads": (256, 0)}
 # K8 designs: (stages, bs or 0 for any, stage bytes)
 BELL_DESIGNS = {"1 x 96 KB": (1, 8, 98304),
                 "1 x 64 KB": (1, 8, 65536),
@@ -48,8 +46,7 @@ BELL_DESIGNS = {"1 x 96 KB": (1, 8, 98304),
                 "1 x 24 KB": (1, 8, 24576),
                 "2 x 24 KB": (2, 8, 24576),
                 "2 x 48 KB": (2, 8, 49152),
-                "1 x 48 KB, any bs": (1, 0, 49152),
-                "first design": None}
+                "1 x 48 KB, any bs": (1, 0, 49152)}
 _TYPES = {"f32": "float", "f64": "double"}
 # K8 on bf16 blocks with a float32 B: one stage of these target bytes
 # (bs = 8 unrolled)
@@ -59,13 +56,11 @@ BF16_BELL_STAGES = {"bf16 1 x 96 KB": 98304, "bf16 1 x 80 KB": 81920,
 
 
 def _cwell_symbol(design, sfx):
-    return (f"probe_cwell_v1_{sfx}" if design is None
-            else f"probe_cwell_{design[0]}_{design[1]}_{sfx}")
+    return f"probe_cwell_{design[0]}_{design[1]}_{sfx}"
 
 
 def _bell_symbol(design, sfx):
-    return (f"probe_bell_v1_{sfx}" if design is None
-            else "probe_bell_" + "_".join(map(str, design)) + f"_{sfx}")
+    return "probe_bell_" + "_".join(map(str, design)) + f"_{sfx}"
 
 
 def build_designs(work: Path) -> "tuple[ctypes.CDLL, list]":
@@ -73,41 +68,26 @@ def build_designs(work: Path) -> "tuple[ctypes.CDLL, list]":
     from tpu_sparse_torch.kernels import _build
 
     src = work / "spmm_probe.cu"
-    lines = ['#include "cwell_spmm.cu"', '#include "bell_spmm.cu"',
-             '#include "spmm_v1.cuh"']
+    lines = ['#include "cwell_spmm.cu"', '#include "bell_spmm.cu"']
     for sfx, T in _TYPES.items():
         for d in CWELL_DESIGNS.values():
-            name = _cwell_symbol(d, sfx)
-            if d is None:
-                lines.append(
-                    f'extern "C" int {name}(const void* v, const int* i2, '
-                    f"const int* srow, const void* B, void* Y, long long nb, "
-                    f"long long planes, long long n, long long m, long long "
-                    f"k, cudaStream_t s) {{ return launch_cwell_spmm_v1<{T}>"
-                    f"((const {T}*)v, i2, srow, (const {T}*)B, ({T}*)Y, nb, "
-                    f"planes, n, m, k, s); }}")
-            else:
-                lines.append(
-                    f'extern "C" int {name}(const void* cv, const void* ix, '
-                    f"const int* srow, const long long* boff, const void* B, "
-                    f"void* Y, long long nb, long long planes, long long n, "
-                    f"long long k, long long depth, int wide, cudaStream_t s)"
-                    f" {{ return launch_cwell_spmm<{T}, {T}, {T}, {d[0]}, "
-                    f"{'true' if d[1] else 'false'}>((const {T}*)cv, ix, "
-                    f"srow, boff, (const {T}*)B, ({T}*)Y, nullptr, nb, "
-                    f"planes, n, k, depth, wide, s); }}")
-        for d in BELL_DESIGNS.values():
-            name = _bell_symbol(d, sfx)
-            call = ("launch_bell_spmm_v1<{T}>" if d is None else
-                    "launch_bell_spmm<{T}, {T}, {T}, {d[0]}, {d[1]}>").format(
-                        T=T, d=d)
-            extra = "" if d is None else f", {d[2]}"
             lines.append(
-                f'extern "C" int {name}(const void* blk, const int* idx, '
-                f"const void* B, void* Y, long long nbr, long long L, "
-                f"long long bs, long long m, long long k, cudaStream_t s) "
-                f"{{ return {call}((const {T}*)blk, idx, (const {T}*)B, "
-                f"({T}*)Y, nbr, L, bs, m, k, s{extra}); }}")
+                f'extern "C" int {_cwell_symbol(d, sfx)}(const void* cv, '
+                f"const void* ix, const int* srow, const long long* boff, "
+                f"const void* B, void* Y, long long nb, long long planes, "
+                f"long long n, long long k, long long depth, int wide, "
+                f"cudaStream_t s) {{ return launch_cwell_spmm<{T}, {T}, {T}, "
+                f"{d[0]}, {'true' if d[1] else 'false'}>((const {T}*)cv, ix, "
+                f"srow, boff, (const {T}*)B, ({T}*)Y, nullptr, nb, "
+                f"planes, n, k, depth, wide, s); }}")
+        for d in BELL_DESIGNS.values():
+            lines.append(
+                f'extern "C" int {_bell_symbol(d, sfx)}(const void* blk, '
+                f"const int* idx, const void* B, void* Y, long long nbr, "
+                f"long long L, long long bs, long long m, long long k, "
+                f"cudaStream_t s) {{ return launch_bell_spmm<{T}, {T}, {T}, "
+                f"{d[0]}, {d[1]}>((const {T}*)blk, idx, (const {T}*)B, "
+                f"({T}*)Y, nbr, L, bs, m, k, s, {d[2]}); }}")
     for stage in BF16_BELL_STAGES.values():
         lines.append(
             f'extern "C" int probe_bell_bf16_{stage}(const void* blk, '
@@ -134,8 +114,7 @@ def build_designs(work: Path) -> "tuple[ctypes.CDLL, list]":
     for sfx in _TYPES:
         for d in CWELL_DESIGNS.values():
             fn = getattr(loaded, _cwell_symbol(d, sfx))
-            fn.argtypes = ([P] * 5 + [L] * 5 + [P] if d is None
-                           else [P] * 6 + [L] * 5 + [I, P])
+            fn.argtypes = [P] * 6 + [L] * 5 + [I, P]
             fn.restype = ctypes.c_int
         for d in BELL_DESIGNS.values():
             fn = getattr(loaded, _bell_symbol(d, sfx))
@@ -270,22 +249,16 @@ def main(argv) -> int:
             B = torch.from_numpy(np.random.default_rng(k).standard_normal(
                 (m, k))).to(dev, dt)
 
-            def design(d, W=W, plan=plan, cv=cv, B=B, k=k, key=key, dt=dt):
+            def design(d, plan=plan, cv=cv, B=B, k=k, key=key, dt=dt):
                 fn = getattr(lib, _cwell_symbol(d, key))
 
                 def call():
                     Y = torch.empty((n, k), dtype=dt, device=dev)
-                    if d is None:
-                        rc = fn(W.vals.data_ptr(), W.idx2.data_ptr(),
-                                W.srow.data_ptr(), B.data_ptr(),
-                                Y.data_ptr(), W.n_blocks, W.planes, n, m, k,
-                                stream())
-                    else:
-                        rc = fn(cv.data_ptr(), plan.idx.data_ptr(),
-                                plan.srow.data_ptr(), plan.boff.data_ptr(),
-                                B.data_ptr(), Y.data_ptr(), plan.n_blocks,
-                                plan.planes, n, k, plan.depth,
-                                int(plan.wide), stream())
+                    rc = fn(cv.data_ptr(), plan.idx.data_ptr(),
+                            plan.srow.data_ptr(), plan.boff.data_ptr(),
+                            B.data_ptr(), Y.data_ptr(), plan.n_blocks,
+                            plan.planes, n, k, plan.depth, int(plan.wide),
+                            stream())
                     if rc != 0:
                         raise RuntimeError(f"launch failed: {rc}")
                     return Y

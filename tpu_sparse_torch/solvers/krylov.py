@@ -33,6 +33,7 @@ from torch.utils import _pytree as pytree
 from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matvec
 from tpu_sparse_torch.utils.tree import (
+    _final_check_relax,
     tree_axpy,
     tree_leaves,
     tree_norm,
@@ -77,14 +78,6 @@ def _check_tree_compat(x0, b):
         if a.shape != c.shape:
             raise ValueError(f"arrays in x0 and b must have matching shapes: "
                              f"{tuple(a.shape)} vs {tuple(c.shape)}")
-
-
-def _final_check_relax(dtype: torch.dtype) -> float:
-    """Residual-recheck relaxation: the loop stops on the recurrence
-    residual, and in 32-bit arithmetic the recomputed true residual drifts
-    slightly above it. The reference relaxes its final check 10x for this
-    (torch_sparse_linalg.py:765-771); 64-bit stays strict."""
-    return 10.0 if torch.finfo(dtype).bits <= 32 else 1.0
 
 
 def _thresholds(b, tol: float, atol, vdot_real: Callable = tree_vdot_real):

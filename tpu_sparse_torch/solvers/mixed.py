@@ -18,15 +18,16 @@ the JAX ``refined_solve`` takes it: on the card a DIA's inner sweeps run
 kernel 1's bf16 extended build, a CWELL's K4's bf16 build)
 
 followed by one full-precision rescue solve when the sweeps stall. On CUDA
-DIA operands the outer f64 residuals run the fp64 extended kernel. A CG
-sweep (``cg_full`` with no other keyword) on the float32 cast, with M None
-or diagonal, runs the fused CG kernels 2-3 (``cuda_cg.fused_cg_ext``), as
-``implicit.ext_run`` runs a float32 CG; every other sweep on a CUDA DIA (the
-other methods, bf16 sweeps) runs the method's loop over the extended
-operator, each matvec kernel 1's extended mode. A CWELL operand is cast
-through ``with_values`` (the JAX ``_cast_operator`` reads ``A.data`` and
-fails on CWELL, ROADMAP queue 3, R5), so its inner matvecs run K4 and its
-outer residuals K5.
+DIA operands the outer f64 residuals run the fp64 extended kernel. Each
+sweep runs the runner ``solvers.extended.sweep_runner`` names for the
+inner solver, the cast operand, the cast residual and the cast M: on the
+card a float32 CG sweep with M None or diagonal runs the fused CG kernels
+2-3, and every other sweep of a named method's loop (bf16 ones too) runs
+that loop over kernel 1's extended mode; with no runner (another inner
+solver, M, operand, dtype or device) the sweep runs the inner solver on
+the cast operand. A CWELL operand is cast through ``with_values`` (the
+JAX ``_cast_operator`` reads ``A.data`` and fails on CWELL, ROADMAP queue
+3, R5), so its inner matvecs run K4 and its outer residuals K5.
 The JAX version is a static unroll with masked no-op sweeps; here the sweep
 loop is Python
 with one host read per sweep and stops at the first done sweep, which
@@ -61,10 +62,8 @@ import torch
 
 from tpu_sparse_torch import tracing
 from tpu_sparse_torch.kernels import as_matvec
-from tpu_sparse_torch.kernels.cuda_cg import fused_cg_ext, make_fused_operator
-from tpu_sparse_torch.kernels.cuda_spmv import (make_extended_operator,
-                                                make_extended_operator_f64)
-from tpu_sparse_torch.precond.jacobi import DiagonalPreconditioner
+from tpu_sparse_torch.kernels.cuda_spmv import make_extended_operator_f64
+from tpu_sparse_torch.solvers import extended
 from tpu_sparse_torch.solvers.fcg import fcg_full
 from tpu_sparse_torch.solvers.fgmres import fgmres_full
 from tpu_sparse_torch.solvers.krylov import (_default_maxiter, bicgstab_full,
@@ -167,61 +166,18 @@ def _make_df_operator(A, outer_dtype):
     return make_extended_operator_f64(A)
 
 
-def _inner_route(inner_solver, A32, M32, inner_kwargs):
-    """How the sweeps solve with ``A32``, on whatever device it lies:
-    ("fused", op) for CG with no other keyword on a float32 extended
-    operator and M None or diagonal (kernels 2-3 through ``fused_cg_ext``,
-    the test ``implicit.ext_run`` applies to a float32 CG); ("extended",
-    op) for any other method or a bf16 DIA under such an M (the method's
-    loop over the extended operator, kernel 1); ("plain", None) otherwise:
-    a CWELL or CSR, another M, a complex or non-extendable DIA."""
-    if not (isinstance(A32, DIA) and (
-            M32 is None or isinstance(M32, DiagonalPreconditioner))):
-        return "plain", None
-    if inner_solver is cg_full and not inner_kwargs:
-        op = make_fused_operator(A32)
-        if op is not None:
-            return "fused", op
-    op = make_extended_operator(A32)
-    return ("plain", None) if op is None else ("extended", op)
-
-
-def _on_card(A32) -> bool:
-    """Whether the sweeps take ``_inner_route``'s runners (the one device
-    test of the choice, so that a CPU test can stand in for the card)."""
-    return isinstance(A32, DIA) and A32.data.is_cuda
-
-
-def _make_inner(inner_solver, A32, M32, inner_tol, maxiter, inner_kwargs):
-    """Per-sweep inner solve, and whether it runs the fused CG kernels. On
-    the card a DIA takes ``_inner_route``'s runner: kernels 2-3 for a CG
-    sweep in float32 with M None or diagonal, the method's loop over kernel
-    1's extended mode for the other methods and bf16; any other operand,
-    and every operand off the card, runs the method on ``A32`` as it is."""
-    route, op = (_inner_route(inner_solver, A32, M32, inner_kwargs)
-                 if _on_card(A32) else ("plain", None))
-    if route == "fused":
-        dinv = None if M32 is None else M32.dinv
-
-        def _inner(rhs):
-            return fused_cg_ext(op, rhs, tol=inner_tol, maxiter=maxiter,
-                                dinv=dinv)
-
-    elif route == "extended":
-        M32e = None if M32 is None else DiagonalPreconditioner(
-            op.extend_diag(M32.dinv))
-
-        def _inner(rhs):
-            out = inner_solver(op, op.extend(rhs), None, tol=inner_tol,
-                               maxiter=maxiter, M=M32e, **inner_kwargs)
-            return (op.extract(out[0]),) + tuple(out[1:])
-
-    else:
-        def _inner(rhs):
-            return inner_solver(A32, rhs, None, tol=inner_tol,
-                                maxiter=maxiter, M=M32, **inner_kwargs)
-
-    return route == "fused", _inner
+def _sweep(inner_solver, A32, M32, rhs, inner_tol, maxiter, inner_kwargs):
+    """One sweep's inner solve of A32 d = rhs from zero: on the runner
+    ``extended.sweep_runner`` names, else the inner solver on ``A32`` as it
+    is. A sweep on the fused CG kernels 2-3 counts in
+    ``refine.fused_sweeps``."""
+    run, fused = extended.sweep_runner(inner_solver, A32, rhs, M32)
+    REFINE["fused_sweeps"] += int(fused)
+    if run is None:
+        return inner_solver(A32, rhs, None, tol=inner_tol, maxiter=maxiter,
+                            M=M32, **inner_kwargs)
+    kw = dict(tol=inner_tol, maxiter=maxiter, **inner_kwargs)
+    return run(_method_name(inner_solver), kw, A32, rhs, None, M32)
 
 
 @tracing.traced("tsp.solver.refine")
@@ -261,9 +217,6 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
     b_norm = tree_norm(b)
     thresh = torch.clamp_min(tol * b_norm, atol)
 
-    fused, _inner = _make_inner(inner_solver, A32, M32, inner_tol,
-                                inner_maxiter, inner_kwargs)
-
     x = tree_zeros_like(b) if x0 is None else x0
     res_norm = tree_norm(tree_sub(b, A_fn(x)))
     inner_iters = torch.zeros((), dtype=torch.int32, device=b_norm.device)
@@ -274,10 +227,11 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
         if bool(tracing.host_read(done)):  # the one host read of the sweep
             break
         REFINE["sweeps"] += 1
-        REFINE["fused_sweeps"] += int(fused)
         with tracing.span("tsp.solver.refine.sweep", i=i):
             r = tree_sub(b, A_fn(x))
-            d32, _, it, _ = _inner(_cast_tree(r, inner_dtype))
+            d32, _, it, _ = _sweep(inner_solver, A32, M32,
+                                   _cast_tree(r, inner_dtype), inner_tol,
+                                   inner_maxiter, inner_kwargs)
             # accept the sweep only if it lowered the true residual: an
             # f32 breakdown can return a finite but useless update
             x_new = tree_add(x, _cast_tree(d32, outer_dtype))

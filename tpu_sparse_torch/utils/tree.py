@@ -79,3 +79,11 @@ def tree_where(pred: torch.Tensor, a: Any, b: Any) -> Any:
 def tree_size(x: Any) -> int:
     """Total number of elements across all leaves."""
     return sum(leaf.numel() for leaf in tree_leaves(x))
+
+
+def _final_check_relax(dtype: torch.dtype) -> float:
+    """Residual-recheck relaxation: the loop stops on the recurrence
+    residual, and in 32-bit arithmetic the recomputed true residual drifts
+    slightly above it. The reference relaxes its final check 10x for this
+    (torch_sparse_linalg.py:765-771); 64-bit stays strict."""
+    return 10.0 if torch.finfo(dtype).bits <= 32 else 1.0
