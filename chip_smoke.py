@@ -538,7 +538,7 @@ def main() -> int:
         pn_k, pn_p = torch.zeros_like(bx), torch.zeros_like(bx)
         ap_p = torch.zeros_like(bx)
         cuda_cg.dia_cg_spmv_dot(op, st.r, d_ext, st.p[st.cur], pn_k, st.ap,
-                                st.scal, st.pap_part)
+                                st.scal, st.pap_part, st.work)
         cuda_cg.dia_cg_spmv_dot_plain(op, pl_["r"], d_ext, pl_["p0"], pn_p,
                                       ap_p, pl_["scal"], pl_["pap"])
         torch.cuda.synchronize()
@@ -567,7 +567,7 @@ def main() -> int:
         note("dia_cg_spmv_dot" + key, max_abs_err=e2,
              ms=cuda_time_ms(lambda: cuda_cg.dia_cg_spmv_dot(
                  op, st.r, d_ext, st.p[st.cur], pn_k, st.ap, st.scal,
-                 st.pap_part)),
+                 st.pap_part, st.work)),
              plain_ms=cuda_time_ms(lambda: cuda_cg.dia_cg_spmv_dot_plain(
                  op, st.r, d_ext, st.p[st.cur], pn_p, ap_p, st.scal,
                  pl_["pap"])))

@@ -271,6 +271,114 @@ def test_kernel1_probe_designs_equal_v1(dev):
                     assert torch.equal(y, y_v1), spec
 
 
+# ---- kernel 2 of the fused CG: its geometry and its launches ---------------
+
+
+def _stencil_offsets(ndiag, nx):
+    """The 27- or 7-point stencil's offsets on an nx^3 grid, or (11) the
+    7-point one with four more (+-2, +-2 nx): an instance the kernel does
+    not unroll."""
+    if ndiag == 27:
+        return [dz * nx * nx + dy * nx + dx for dz in (-1, 0, 1)
+                for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    seven = [-nx * nx, -nx, -1, 0, 1, nx, nx * nx]
+    return seven if ndiag == 7 else sorted(seven + [-2 * nx, -2, 2, 2 * nx])
+
+
+def _kernel2_case(ndiag, jacobi, dev, nx=128):
+    """An extended operator of ``ndiag`` random diagonals on nx^3 rows
+    (more than 1,024 tiles at 128^3) and a mid-solve state: r, p_prev
+    random in the value region, beta 0.37."""
+    from tpu_sparse_torch.sparse.containers import DIA
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1000 * ndiag + int(jacobi))
+    n = nx ** 3
+    offsets = _stencil_offsets(ndiag, nx)
+    data = torch.randn(len(offsets), n, device=dev, generator=g)
+    op = cuda_spmv.ExtendedStencilOperator(DIA(data, tuple(offsets),
+                                               (n, n)))
+
+    def vec():
+        v = torch.zeros(op.E, device=dev)
+        v[op.Wl:op.Wl + n] = torch.randn(n, device=dev, generator=g)
+        return v
+
+    dinv = (op.extend_diag(0.5 + torch.rand(n, device=dev, generator=g))
+            if jacobi else None)
+    scal = torch.tensor([1.0, 0.37], dtype=torch.float64, device=dev)
+    return op, vec(), dinv, vec(), scal
+
+
+@pytest.mark.parametrize("jacobi", [False, True], ids=["none", "jacobi"])
+@pytest.mark.parametrize("ndiag", [27, 7, 11])
+def test_kernel2_matches_plain_and_repeats_its_bits(dev, ndiag, jacobi):
+    """Kernel 2 on more than 1,024 tiles against its plain version over
+    the mirror's tile split: p_new and ap within the SpMV limits, the
+    <p,Ap> slots and their sum within 1e-5; two launches give the same
+    bits; the unrolled counter counts the 27- and 7-diagonal launches."""
+    op, r, dinv, p_prev, scal = _kernel2_case(ndiag, jacobi, dev)
+    geo = cuda_cg.operator_geometry(op, dev)
+    assert geo["grid"] > cuda_cg.MAX_GRID and geo["per_slot"] > 1
+    assert geo["unrolled"] == (ndiag != 11)
+    n_pap = cuda_cg.grid_for(op.n)
+    work = cuda_cg.spmv_dot_workspace(op, dev)
+    outs = []
+    for _ in range(2):
+        p_new, ap = torch.zeros_like(r), torch.zeros_like(r)
+        pap = torch.full((n_pap,), float("nan"), dtype=torch.float64,
+                         device=dev)
+        before = dict(cuda_cg.LAUNCHES)
+        cuda_cg.dia_cg_spmv_dot(op, r, dinv, p_prev, p_new, ap, scal, pap,
+                                work)
+        assert cuda_cg.LAUNCHES["dia_cg_spmv_dot"] == \
+            before["dia_cg_spmv_dot"] + 1
+        assert cuda_cg.LAUNCHES["dia_cg_spmv_dot_unrolled"] == \
+            before["dia_cg_spmv_dot_unrolled"] + int(ndiag != 11)
+        outs.append((p_new, ap, pap))
+    torch.cuda.synchronize()
+    assert int(work[1].abs().sum()) == 0  # tickets rearmed
+    (p_new, ap, pap), (p2, ap2, pap2) = outs
+    assert torch.equal(p_new, p2) and torch.equal(ap, ap2)
+    assert torch.equal(_bits(pap), _bits(pap2))
+    pp, app = torch.zeros_like(r), torch.zeros_like(r)
+    papp = torch.zeros(n_pap, dtype=torch.float64, device=dev)
+    cuda_cg.dia_cg_spmv_dot_plain(op, r, dinv, p_prev, pp, app, scal, papp,
+                                  geometry=geo)
+    assert _rel(p_new, pp) <= 1e-6 and _rel(ap, app) <= 1e-5
+    for v in (p_new, ap):
+        assert float(v[:op.Wl].abs().max()) == 0.0
+        assert float(v[op.Wl + op.n:].abs().max()) == 0.0
+    used = -(-geo["grid"] // geo["per_slot"])
+    assert bool(torch.isfinite(pap).all())
+    assert float(pap[used:].abs().sum()) == 0.0
+    assert float((pap - papp).abs().max()) <= 1e-5 * float(
+        papp.abs().max())
+    assert abs(float(pap.sum() - papp.sum())) <= 1e-5 * float(
+        papp.abs().sum())
+
+
+def test_kernel2_geometry_host_entry_equals_mirror(dev):
+    """The C host entry's launch geometry of kernel 2 equals
+    cuda_cg.spmv_dot_geometry: the benchmark's and the smoke run's
+    shapes, a 3-D 7-point and a 2-D 5-point shape, 11 diagonals, a grid
+    too small for R rows a thread, and data the vector loads refuse."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = [(_stencil_offsets(27, 256), 256 ** 3), (_stencil_offsets(
+        27, 160), 160 ** 3), (_stencil_offsets(7, 128), 128 ** 3),
+        ([-1024, -1, 0, 1, 1024], 1024 ** 2), (_stencil_offsets(11, 64),
+                                               64 ** 3),
+        ([-256, -1, 0, 1, 256], 256 ** 2), ([-1, 0, 1], 37),
+        ([0], 1_000_003)]
+    for offsets, n in shapes:
+        for ld in (n, n + 1, n + 2):
+            for ptr in (1 << 20, (1 << 20) + 4, (1 << 20) + 8):
+                assert cuda_cg.spmv_dot_geometry_cuda(
+                    n, offsets, ld, ptr, sms) == \
+                    cuda_cg.spmv_dot_geometry(n, offsets, ld, ptr, sms), \
+                    (len(offsets), n, ld, ptr)
+
+
 @pytest.mark.parametrize("jacobi", [False, True])
 def test_fused_cg_kernels_match_plain_loop(dev, jacobi):
     A = gen.poisson2d(64, dtype=np.float32, device="cpu")

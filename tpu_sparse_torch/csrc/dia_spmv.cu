@@ -70,8 +70,6 @@
 // chunk/halo-window structure is carried over: the TPU staged x windows
 // through VMEM by DMA; here the caches do that work.
 
-#include <cstring>
-
 #include "dia_spmv_v1.cuh"
 #include "ts_common.cuh"
 
@@ -86,54 +84,6 @@
 // R = 1 is one row a thread in either: the scalar path.
 #define TS_DIA_STRIDED 0
 #define TS_DIA_VECTOR 1
-
-// Diagonal counts with an unrolled instance (the stencils of the
-// generators: tridiagonal, 5- and 9-point 2-D, 7- and 27-point 3-D); any
-// other count runs the generic loop.
-#define TS_DIA_FOR_EACH_ND(M) M(3) M(5) M(7) M(9) M(27)
-
-// d's offset: from the parameter bank when the loop is unrolled (d is a
-// constant), from shared memory in the generic loop.
-template <int ND>
-__device__ __forceinline__ long long ts_dia_off(const TsOffsets& offs,
-                                                const int* s_off, int d) {
-  if constexpr (ND > 0)
-    return offs.o[d];
-  else
-    return s_off[d];
-}
-
-template <int ND, typename F>
-__device__ __forceinline__ void ts_for_diag(int ndiag, F&& f) {
-  if constexpr (ND > 0) {
-#pragma unroll
-    for (int d = 0; d < ND; ++d) f(d);
-  } else {
-    for (int d = 0; d < ndiag; ++d) f(d);
-  }
-}
-
-// R consecutive values from an address aligned to their R * sizeof(V)
-// bytes (4, 8, 16 or a multiple of 16), as vector streaming loads of up to
-// 16 bytes.
-template <typename V, int R>
-__device__ __forceinline__ void ts_ldcs_rows(const V* p, V (&v)[R]) {
-  constexpr int B = R * (int)sizeof(V);
-  static_assert(B == 4 || B == 8 || B % 16 == 0, "a whole vector");
-  if constexpr (B == 4) {
-    const unsigned int q = __ldcs(reinterpret_cast<const unsigned int*>(p));
-    memcpy(v, &q, B);
-  } else if constexpr (B == 8) {
-    const uint2 q = __ldcs(reinterpret_cast<const uint2*>(p));
-    memcpy(v, &q, B);
-  } else {
-    uint4 buf[B / 16];
-#pragma unroll
-    for (int k = 0; k < B / 16; ++k)
-      buf[k] = __ldcs(reinterpret_cast<const uint4*>(p) + k);
-    memcpy(v, buf, B);
-  }
-}
 
 // One row of an edge tile: every column tested against [0, n_cols), a term
 // outside skipped (never read as data x 0).
@@ -273,20 +223,6 @@ static TsDiaGeometry ts_dia_geometry(const TsOffsets& offs, int ndiag,
   const long long t = (long long)TS_BLOCK * rows;
   g.grid = (n_rows + t - 1) / t;
   return g;
-}
-
-static int ts_sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || n <= 0)
-      return 132;
-    cached[dev] = n;
-  }
-  return cached[dev];
 }
 
 template <typename V, typename X, int DESIGN, int R, int MINB, int ND>

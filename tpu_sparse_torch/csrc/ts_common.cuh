@@ -1,12 +1,16 @@
 // Shared launch geometry and reductions for the tpu_sparse_torch kernels.
 //
-// Every kernel runs TS_BLOCK threads per block over a grid-stride loop of at
-// most TS_MAX_GRID blocks, so a per-block partial buffer never holds more
-// than TS_MAX_GRID values and a fixed-order sum over it is cheap.
+// Every kernel runs TS_BLOCK threads per block. Those that leave per-block
+// partials for a fixed-order sum run a grid-stride loop over at most
+// TS_MAX_GRID blocks, or fold their tiles into TS_MAX_GRID slots (kernel
+// 2), so a partial buffer never holds more than TS_MAX_GRID values and a
+// fixed-order sum over it is cheap.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #define TS_MAX_DIAG 64
 #define TS_BLOCK 256
@@ -236,4 +240,69 @@ __device__ __forceinline__ T ts_zero() {
     return __ushort_as_bfloat16((unsigned short)0);
   else
     return T(0);
+}
+
+// ---- the DIA kernels' diagonal loop ----------------------------------------
+
+// Diagonal counts with an unrolled instance (the stencils of the
+// generators: tridiagonal, 5- and 9-point 2-D, 7- and 27-point 3-D); any
+// other count runs the generic loop.
+#define TS_DIA_FOR_EACH_ND(M) M(3) M(5) M(7) M(9) M(27)
+
+// d's offset: from the parameter bank when the loop is unrolled (d is a
+// constant), from shared memory in the generic loop.
+template <int ND>
+__device__ __forceinline__ long long ts_dia_off(const TsOffsets& offs,
+                                                const int* s_off, int d) {
+  if constexpr (ND > 0)
+    return offs.o[d];
+  else
+    return s_off[d];
+}
+
+template <int ND, typename F>
+__device__ __forceinline__ void ts_for_diag(int ndiag, F&& f) {
+  if constexpr (ND > 0) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) f(d);
+  } else {
+    for (int d = 0; d < ndiag; ++d) f(d);
+  }
+}
+
+// R consecutive values from an address aligned to their R * sizeof(V)
+// bytes (4, 8, 16 or a multiple of 16), as vector streaming loads of up to
+// 16 bytes.
+template <typename V, int R>
+__device__ __forceinline__ void ts_ldcs_rows(const V* p, V (&v)[R]) {
+  constexpr int B = R * (int)sizeof(V);
+  static_assert(B == 4 || B == 8 || B % 16 == 0, "a whole vector");
+  if constexpr (B == 4) {
+    const unsigned int q = __ldcs(reinterpret_cast<const unsigned int*>(p));
+    memcpy(v, &q, B);
+  } else if constexpr (B == 8) {
+    const uint2 q = __ldcs(reinterpret_cast<const uint2*>(p));
+    memcpy(v, &q, B);
+  } else {
+    uint4 buf[B / 16];
+#pragma unroll
+    for (int k = 0; k < B / 16; ++k)
+      buf[k] = __ldcs(reinterpret_cast<const uint4*>(p) + k);
+    memcpy(v, buf, B);
+  }
+}
+
+// The current device's SM count, read once a device.
+static inline int ts_sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n <= 0)
+      return 132;
+    cached[dev] = n;
+  }
+  return cached[dev];
 }

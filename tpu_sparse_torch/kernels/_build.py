@@ -124,8 +124,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         # offsets, ndiag, n_rows, n_cols, ld, data address, build, sms, out
         "ts_dia_spmv_geometry": [P, I, L, L, L, ctypes.c_ulonglong, I, I, P],
         # data, ld, offsets, ndiag, n, wl, r, dinv, p_prev, p_new, ap, scal,
-        # pap_part, grid, stream
-        "ts_dia_cg_spmv_dot": [P, L, P, I, L, L, P, P, P, P, P, P, P, I, P],
+        # pap_part, n_pap, tile_part, n_tile, slot_count, stream
+        "ts_dia_cg_spmv_dot": [P, L, P, I, L, L, P, P, P, P, P, P, P, I, P,
+                               L, P, P],
+        # ndiag, n, ld, data address, sms, out
+        "ts_dia_cg_spmv_dot_geometry": [I, L, L, ctypes.c_ulonglong, I, P],
         # n, wl, x, r, p, ap, dinv, pap_part, n_pap, scal, rr_part, gz_part,
         # counter, hist, init, grid, stream
         "ts_dia_cg_update": [L, L, P, P, P, P, P, P, I, P, P, P, P, P, I, I,

@@ -32,13 +32,79 @@ BLOCK = 256       # TS_BLOCK in csrc/ts_common.cuh
 MAX_GRID = 1024   # TS_MAX_GRID
 
 # Launches of kernels 2 and 3; counted where each kernel launches.
+# ``dia_cg_spmv_dot_unrolled``: the launches of kernel 2 that took an
+# instance unrolled for their diagonal count.
 LAUNCHES = tracing.group("launches", {"dia_cg_spmv_dot": 0,
+                                      "dia_cg_spmv_dot_unrolled": 0,
                                       "dia_cg_update": 0})
+
+# Kernel 2's rows a thread (TS_CG_ROWS in csrc/dia_cg.cu): each diagonal's
+# R values one vector load; 1 on the scalar path.
+SPMV_DOT_ROWS = 2
+# Diagonal counts with an unrolled instance of kernel 2
+# (TS_DIA_FOR_EACH_ND); any other count runs the generic loop.
+UNROLLED_DIAGS = (3, 5, 7, 9, 27)
 
 
 def grid_for(n: int) -> int:
-    """Blocks per launch (ts_grid_for): also the number of partials."""
+    """Blocks per launch of kernel 3 (ts_grid_for): also the number of
+    <p,Ap> partials kernel 3 sums."""
     return max(1, min(-(-n // BLOCK), MAX_GRID))
+
+
+def spmv_dot_geometry(n: int, offsets, ld: int, data_ptr: int,
+                      sms: int) -> dict:
+    """Kernel 2's launch for one call, as its host entry decides it
+    (``ts_dia_cg_spmv_dot_geometry``): the instance (``unrolled`` for the
+    diagonal counts of ``UNROLLED_DIAGS``), rows a thread, CTAs (one a tile
+    of BLOCK x rows rows), the ``n_pap = grid_for(n)`` <p,Ap> slots kernel
+    3 sums and the tiles each slot sums (``per_slot``). ``SPMV_DOT_ROWS``
+    rows a thread when their vector loads fit (the data pointer and the
+    row length ``ld`` aligned to R x 4 bytes) and the grid keeps two CTAs a
+    SM; else one. The halo width plays no part: no load of the vectors is
+    wider than a value."""
+    rows = SPMV_DOT_ROWS
+    vec = 4 * rows
+    fits = data_ptr % vec == 0 and ld * 4 % vec == 0
+    if not fits or -(-n // (BLOCK * rows)) < 2 * sms:
+        rows = 1
+    grid = -(-n // (BLOCK * rows))
+    n_pap = grid_for(n)
+    return dict(grid=grid, rows=rows, unrolled=len(offsets) in UNROLLED_DIAGS,
+                n_pap=n_pap, per_slot=-(-grid // n_pap))
+
+
+def spmv_dot_geometry_cuda(n: int, offsets, ld: int, data_ptr: int,
+                           sms: int) -> dict:
+    """``spmv_dot_geometry`` as the kernel library's host entry computes
+    it (needs the built library, not a device)."""
+    import ctypes
+
+    from tpu_sparse_torch.kernels import _build
+
+    out = (ctypes.c_longlong * 5)()
+    _build.check(_build.library().ts_dia_cg_spmv_dot_geometry(
+        len(offsets), n, ld, data_ptr, sms, ctypes.addressof(out)),
+        "ts_dia_cg_spmv_dot_geometry")
+    return dict(grid=out[0], rows=out[1], unrolled=bool(out[2]),
+                n_pap=out[3], per_slot=out[4])
+
+
+def operator_geometry(op, device) -> dict:
+    """``spmv_dot_geometry`` of kernel 2's calls on ``op`` on ``device``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return spmv_dot_geometry(op.n, op.offsets, op.data.shape[1],
+                             op.data.data_ptr(), sms)
+
+
+def spmv_dot_workspace(op, device) -> tuple:
+    """Kernel 2's buffers on ``device`` for folding its tiles' <p,Ap> into
+    the slots: (tile partials, float64 (grid,); slot tickets, int32 zeros
+    (n_pap,)). The kernel reads them when a slot sums more than one
+    tile and leaves the tickets zero."""
+    geo = operator_geometry(op, device)
+    return (torch.empty(geo["grid"], dtype=torch.float64, device=device),
+            torch.zeros(geo["n_pap"], dtype=torch.int32, device=device))
 
 
 def supports_fused_cg(op) -> bool:
@@ -107,15 +173,26 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def dia_cg_spmv_dot(op, r, dinv, p_prev, p_new, ap, scal, pap_part) -> None:
-    """p_new = z + beta*p_prev, ap = A p_new, pap_part = per-block <p,Ap>.
+def dia_cg_spmv_dot(op, r, dinv, p_prev, p_new, ap, scal, pap_part,
+                    work=None) -> None:
+    """p_new = z + beta*p_prev, ap = A p_new, pap_part = <p,Ap> in
+    ``grid_for(op.n)`` slots.
 
-    Kernel 2 for CUDA tensors, ``dia_cg_spmv_dot_plain`` for CPU tensors."""
+    Kernel 2 for CUDA tensors, ``dia_cg_spmv_dot_plain`` for CPU tensors.
+    ``work`` is ``spmv_dot_workspace(op, device)``, made here when not
+    given."""
     if not scal.is_cuda:
         return dia_cg_spmv_dot_plain(op, r, dinv, p_prev, p_new, ap, scal,
                                      pap_part)
     _check_cg_buffers(op, dict(r=r, dinv=dinv, p_prev=p_prev, p_new=p_new,
                                ap=ap), scal, dict(pap_part=pap_part))
+    tile_part, slot_count = (spmv_dot_workspace(op, scal.device)
+                             if work is None else work)
+    if (tile_part.device != scal.device or tile_part.dtype != torch.float64
+            or slot_count.device != scal.device
+            or slot_count.dtype != torch.int32
+            or slot_count.numel() != grid_for(op.n)):
+        raise ValueError("work: need spmv_dot_workspace's buffers")
     from tpu_sparse_torch.kernels import _build
 
     lib = _build.library()
@@ -126,20 +203,39 @@ def dia_cg_spmv_dot(op, r, dinv, p_prev, p_new, ap, scal, pap_part) -> None:
             op.data.data_ptr(), op.data.shape[1], offs_ptr, len(op.offsets),
             op.n, op.Wl, r.data_ptr(), _ptr(dinv), p_prev.data_ptr(),
             p_new.data_ptr(), ap.data_ptr(), scal.data_ptr(),
-            pap_part.data_ptr(), grid_for(op.n), stream)
+            pap_part.data_ptr(), grid_for(op.n), tile_part.data_ptr(),
+            tile_part.numel(), slot_count.data_ptr(), stream)
     _build.check(rc, "dia_cg_spmv_dot")
     LAUNCHES["dia_cg_spmv_dot"] += 1
+    if len(op.offsets) in UNROLLED_DIAGS:
+        LAUNCHES["dia_cg_spmv_dot_unrolled"] += 1
 
 
-def dia_cg_spmv_dot_plain(op, r, dinv, p_prev, p_new, ap, scal,
-                          pap_part) -> None:
+def _fold(v: torch.Tensor, size: int) -> torch.Tensor:
+    """Sums of ``v``'s consecutive runs of ``size`` (the last one short)."""
+    pad = -v.numel() % size
+    return torch.nn.functional.pad(v, (0, pad)).view(-1, size).sum(1)
+
+
+def dia_cg_spmv_dot_plain(op, r, dinv, p_prev, p_new, ap, scal, pap_part,
+                          geometry: "dict | None" = None) -> None:
+    """Plain version of kernel 2. With ``geometry`` (``spmv_dot_geometry``)
+    the <p,Ap> products are summed tile by tile over its split and the
+    tiles folded into its slots, as the kernel folds them (the sums in
+    another order); without it the whole <p,Ap> lands in pap_part[0]."""
     sl = slice(op.Wl, op.Wl + op.n)
     beta = scal[1].to(torch.float32)
     z = r if dinv is None else dinv * r
     p_new.copy_(z + beta * p_prev)
     ap[sl] = op.apply_plain(p_new)[sl]
     pap_part.zero_()
-    pap_part[0] = torch.dot(p_new[sl].double(), ap[sl].double())
+    if geometry is None:
+        pap_part[0] = torch.dot(p_new[sl].double(), ap[sl].double())
+        return
+    tiles = _fold(p_new[sl].double() * ap[sl].double(),
+                  BLOCK * geometry["rows"])
+    slots = _fold(tiles, geometry["per_slot"])
+    pap_part[:slots.numel()] = slots
 
 
 def dia_cg_update(op, x, r, p, ap, dinv, pap_part, scal, rr_part, gz_part,
@@ -208,9 +304,10 @@ class FusedCGState:
 
     ``x``, ``r`` and two ``p`` buffers (double-buffered: kernel 2 reads the
     previous direction and writes the new one), ``ap``, the per-block
-    partials, ``scal = [gamma, beta]`` (float64) and the integer ticket
-    counter of kernel 3. Margins of every vector are zero and stay zero.
-    Construction runs kernel 3 once in init mode: gamma0 = <b, z0>, beta 0.
+    partials, ``scal = [gamma, beta]`` (float64), the integer ticket
+    counter of kernel 3 and kernel 2's workspace (``work``). Margins of
+    every vector are zero and stay zero. Construction runs kernel 3 once
+    in init mode: gamma0 = <b, z0>, beta 0.
     """
 
     def __init__(self, op: ExtendedStencilOperator, b_ext: torch.Tensor,
@@ -231,6 +328,8 @@ class FusedCGState:
         self.rr_part = torch.zeros(g, **f64)
         self.gz_part = None if dinv_ext is None else torch.zeros(g, **f64)
         self.counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.work = (spmv_dot_workspace(op, dev) if b_ext.is_cuda
+                     else None)
         self._update(None, init=True)
 
     @property
@@ -247,7 +346,7 @@ class FusedCGState:
         """One CG iteration: kernel 2 then kernel 3."""
         dia_cg_spmv_dot(self.op, self.r, self.dinv, self.p[self.cur],
                         self.p[1 - self.cur], self.ap, self.scal,
-                        self.pap_part)
+                        self.pap_part, self.work)
         self.cur = 1 - self.cur
         self._update(hist)
 
