@@ -1,10 +1,15 @@
-"""HPCG's operator and the right-hand-side pool, made on the device.
+"""The 27-point operator and the right-hand-side pool, made on the device.
 
-The diagonals are HPCG's 27-point problem (``GenerateProblem``): 26 on the
-diagonal, -1 for every neighbour inside the grid, 0 where the neighbour
-falls outside, with the x index running fastest. Offsets are sorted, as
-the port's ``poisson3d_27pt`` sorts them, and the tensor is handed as it is
-to the program (through its public ``DIA``) and to the reference.
+The diagonals are a constant-coefficient 27-point stencil on a grid, with
+the x index running fastest: the configuration's ``diagonal`` on the main
+diagonal and its ``neighbour`` for each neighbour inside the grid, unless
+its ``coefficients`` (parsed by ``cells.coefficients``) give that neighbour
+a value of its own; 0 where the neighbour falls outside. HPCG's problem
+(``GenerateProblem``) is 26 and -1 with no map; the port's
+``convection_diffusion_3d_27pt`` at beta is HPCG's with the -x neighbour
+-(1 + beta) and the +x neighbour -(1 - beta). Offsets are sorted, as the
+port's ``poisson3d_27pt`` sorts them, and the tensor is handed as it is to
+the program (through its public ``DIA``) and to the reference.
 """
 
 from __future__ import annotations
@@ -24,9 +29,12 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def diagonals(grid, diagonal: float, neighbour: float, dtype: torch.dtype,
-              device) -> "tuple[torch.Tensor, tuple]":
+              device, coefficients=None) -> "tuple[torch.Tensor, tuple]":
     """(data (27, n), sorted offsets) of the 27-point operator on the grid
-    (nx, ny, nz), built by a few large torch calls on ``device``."""
+    (nx, ny, nz), built by a few large torch calls on ``device``.
+    ``coefficients``: {(dx, dy, dz): the value of that neighbour inside
+    the grid}, or None; neighbours it does not name take ``neighbour``."""
+    values = coefficients or {}
     nx, ny, nz = (int(g) for g in grid)
     stencil = sorted((dx + nx * dy + nx * ny * dz, dx, dy, dz)
                      for dz in (-1, 0, 1) for dy in (-1, 0, 1)
@@ -46,7 +54,7 @@ def diagonals(grid, diagonal: float, neighbour: float, dtype: torch.dtype,
         mask = (inside(nz, dz)[:, None, None] & inside(ny, dy)[None, :, None]
                 & inside(nx, dx)[None, None, :])
         plane.zero_()
-        plane.masked_fill_(mask, neighbour)
+        plane.masked_fill_(mask, values.get((dx, dy, dz), neighbour))
     return data, tuple(s[0] for s in stencil)
 
 

@@ -1,7 +1,6 @@
-"""solve_ms.amg: ``solve_ms`` of the AMG cells, a metric of its own because
-its host-launched V-cycle spreads it about twice as widely from run to run
-as the CG cell's fused loop (PERF.md section 2), so it carries its own
-bound."""
+"""solve_ms.amg: ``solve_ms`` of the AMG cells, a metric of its own so that
+it carries a bound of its own, set from the AMG cell's runs (PERF.md
+section 2)."""
 
 from pathlib import Path
 

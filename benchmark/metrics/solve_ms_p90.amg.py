@@ -1,7 +1,6 @@
 """solve_ms_p90.amg: ``solve_ms_p90`` of the AMG cells, a metric of its
-own because its host-launched V-cycle spreads its tail 5-6% from run to
-run against the CG cell's 1% (PERF.md section 2), so it carries its own
-bound."""
+own so that it carries a bound of its own, set from the AMG cell's runs
+(PERF.md section 2)."""
 
 from pathlib import Path
 

@@ -25,8 +25,9 @@ host (``tcp://127.0.0.1:<free port>``); only rank 0 prints the result.
 NX^3 (gloo for several ranks): a rehearsal of the control flow that
 reports no device metric. ``--calibrate SEEDS [--control-seeds SEEDS]``
 prints the compared numbers of the program on each seed and of the
-control (the reference CG computed in bfloat16 in the program's place),
-the readings the limits are set from. Neither is a benchmark run.
+control (the plain reference of the mix's method computed in bfloat16
+in the program's place), the readings the limits are set from. Neither is
+a benchmark run.
 """
 
 from __future__ import annotations
@@ -248,9 +249,10 @@ def _check(cell, data, offsets, pool, kept, solves, ranks, seed,
         if iteration_check:
             j = _iteration_pool_index(seed, [s["pool_index"] for s in solves])
             scales = [s for p, _, _, s in kept if p == j] or [None]
-            it_ref = (j, pool[j], scales[0])
+            it_ref = (j, pool[j], scales[0], cell.method)
         out = judge.judge(cell.config, cell.workload.get("limits", {}), data,
-                          offsets, checked, solves, it_ref)
+                          offsets, checked, solves, it_ref,
+                          cell.traffic["kwargs"])
     ranks.barrier()
     return out
 
@@ -294,7 +296,8 @@ def worker(args, cell) -> int:
     grid = _grid(cell, rehearsal)
     n = math.prod(grid)
     data, offsets = stencil.diagonals(grid, cfg["diagonal"], cfg["neighbour"],
-                                      stencil.dtype_of(cfg["dtype"]), device)
+                                      stencil.dtype_of(cfg["dtype"]), device,
+                                      cell.coefficients)
     stage("diagonals")
     program = Program(tr["entry"], tr["kwargs"], cfg["tol"], cfg["maxiter"],
                       mesh)
@@ -406,11 +409,10 @@ def calibrate(args, cell, program, A_of, data, offsets, columns, ranks
     """The readings the limits are set from: the compared numbers of the
     program on each seed of ``--calibrate`` (its ``check_solves`` requests,
     every one kept) and of the control on each of ``--control-seeds``: the
-    reference CG computed in bfloat16 (values, vectors and every sum) in
-    the program's place, on two pool entries. One JSON line per seed on
-    rank 0."""
-    from benchmark.core import stencil, traffic
-    from benchmark.reference import hpcg as ref
+    plain reference of the mix's method computed in bfloat16 (values,
+    vectors and every sum) in the program's place, on two pool entries.
+    One JSON line per seed on rank 0."""
+    from benchmark.core import judge, stencil, traffic
 
     tr, cfg = cell.traffic, cell.config
     check = bool(tr.get("iteration_reference"))
@@ -433,9 +435,9 @@ def calibrate(args, cell, program, A_of, data, offsets, columns, ranks
                 for p in (j, (j + 1) % len(pool)):
                     x, it, conv = None, 0, False
                     if ranks.rank == 0:   # one process: the whole system
-                        x, it, conv = ref.cg(data, offsets, pool[p],
-                                             cfg["tol"], cfg["maxiter"],
-                                             torch.bfloat16)
+                        x, it, conv = judge.reference_solve(
+                            cell.method, cfg, tr["kwargs"], data, offsets,
+                            pool[p], torch.bfloat16)
                         x = x.to(data.dtype)
                     solves.append(dict(pool_index=p, converged=conv,
                                        iterations=it, wall_s=0.0))

@@ -1,9 +1,11 @@
 """The comparison that decides ``correct`` fails what it must: the control
 (the reference CG computed in bfloat16 in the program's place) and the
 faults a cell can have, planted under a run whose chip check is skipped
-(a CPU rehearsal at a small grid)."""
+(a CPU rehearsal at a small grid), also in the BiCGStab and GMRES cells a
+later change adds as files (``_harness.convdiff_checkout``)."""
 
 import json
+import subprocess
 import sys
 
 import _harness
@@ -21,7 +23,6 @@ def _last_json(text: str):
 
 @pytest.fixture(scope="module")
 def readings():
-    import subprocess
     cmd = [sys.executable, str(_harness.RUN), "--workload", "hpcg256.cg_f32",
            "--seed", "1", "--seconds", "1", "--cpu-rehearsal", "12",
            "--calibrate", "11,12", "--control-seeds", "21,22,23"]
@@ -43,6 +44,29 @@ def test_control_readings(readings):
     assert high >= 3 * low
 
 
+@pytest.mark.parametrize("cell", list(_harness.CONVDIFF_CELLS))
+def test_bf16_control_fails_the_residual_limit(tmp_path, cell):
+    """The program's readings pass the limit 2e-6; the method's reference
+    computed in bfloat16 in its place fails it, by far."""
+    root = _harness.convdiff_checkout(tmp_path)
+    cmd = [sys.executable, str(root / "benchmark" / "run.py"), "--workload",
+           cell, "--seed", "1", "--seconds", "1", "--cpu-rehearsal", "8",
+           "--calibrate", "11", "--control-seeds", "21"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=root)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    (program,) = [r for r in lines if r["side"] == "program"]
+    (control,) = [r for r in lines if r["side"] == "control"]
+    limit = program["checks"]["max_rel_residual"]["limit"]
+    assert limit == 2e-06
+    assert program["correct"] and not control["correct"]
+    low = program["checks"]["max_rel_residual"]["value"]
+    high = control["checks"]["max_rel_residual"]["value"]
+    assert high > limit and high >= 3 * low
+
+
 def _patched_solve(monkeypatch, fault):
     import tpu_sparse_torch
 
@@ -61,13 +85,20 @@ def _patched_solve(monkeypatch, fault):
     monkeypatch.setattr(tpu_sparse_torch, "solve", faulty)
 
 
-@pytest.mark.parametrize("workload", ["hpcg256.cg_f32", "hpcg256.amgpcg_f32"])
+@pytest.mark.parametrize("workload", ["hpcg256.cg_f32", "hpcg256.amgpcg_f32"]
+                         + list(_harness.CONVDIFF_CELLS))
 @pytest.mark.parametrize("fault", ["unchanged", "altered", "early_stop"])
-def test_single_card_faults(monkeypatch, capfd, workload, fault):
+def test_single_card_faults(monkeypatch, capfd, tmp_path, workload, fault):
     _patched_solve(monkeypatch, fault)
+    nx = 10
+    if workload in _harness.CONVDIFF_CELLS:
+        monkeypatch.setattr(run, "ROOT", _harness.convdiff_checkout(tmp_path))
+        # GMRES(30) at 24^3 takes two restart cycles; at 10^3 one cycle
+        # reaches 9 x the tolerance, so the weaker stop changes nothing
+        nx = 24 if "gmres" in workload else 10
     code = run.main(["--workload", workload, "--seed", "2147483711",
                      "--seconds", "0.5", "--trace", "0",
-                     "--cpu-rehearsal", "10"])
+                     "--cpu-rehearsal", str(nx)])
     out = _last_json(capfd.readouterr().out)
     assert code == 0
     assert out["correct"] is False

@@ -30,6 +30,12 @@ def test_sources_import_no_jax():
         assert not _top_names(path) & FORBIDDEN, path
 
 
+def test_references_import_torch_alone():
+    for path in (_harness.ROOT / "benchmark" / "reference").glob("*.py"):
+        assert _top_names(path) <= {"__future__", "math", "torch",
+                                    "benchmark"}, path
+
+
 def test_run_refuses_a_loaded_jax_package():
     # the harness's own check, by whole names: tpu_sparse_torch is not
     # tpu_sparse, and a loaded tpu_sparse fails the run

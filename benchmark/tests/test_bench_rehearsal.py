@@ -1,13 +1,16 @@
 """A ``--seconds`` rehearsal of every cell on the CPU at a tiny grid: the
 same code paths, the port's plain kernels, the last line's shape, and no
-device metric from a CPU run. A card run of a cell is marked ``cuda`` and
-skips here."""
+device metric from a CPU run; also of the cells later changes add as files
+(``_harness.dist_checkout``, ``_harness.convdiff_checkout``). A card run of
+a cell is marked ``cuda`` and skips here."""
 
 import json
 
 import _harness
 import pytest
 import torch
+
+from benchmark.core import cells
 
 CELLS = [w["name"] for w in json.loads(
     (_harness.ROOT / "BENCHMARK.json").read_text())["workloads"]]
@@ -23,10 +26,20 @@ def dist_root(tmp_path_factory):
     return _harness.dist_checkout(tmp_path_factory.mktemp("dist"))
 
 
+@pytest.fixture(scope="module")
+def convdiff_root(tmp_path_factory):
+    return _harness.convdiff_checkout(tmp_path_factory.mktemp("convdiff"))
+
+
 @pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("cell", CELLS + [_harness.DIST_CELL])
-def test_rehearsal(cell, trace, dist_root):
-    root = dist_root if cell == _harness.DIST_CELL else _harness.ROOT
+@pytest.mark.parametrize("cell", CELLS + [_harness.DIST_CELL]
+                         + list(_harness.CONVDIFF_CELLS))
+def test_rehearsal(cell, trace, request):
+    root = _harness.ROOT
+    if cell == _harness.DIST_CELL:
+        root = request.getfixturevalue("dist_root")
+    elif cell in _harness.CONVDIFF_CELLS:
+        root = request.getfixturevalue("convdiff_root")
     code, last, err = _harness.run_cell(cell, trace=trace, seconds=1.0,
                                         root=root)
     assert code == 0, err[-3000:]
@@ -38,7 +51,10 @@ def test_rehearsal(cell, trace, dist_root):
     assert last["device"]["platform"] == "cpu"
     assert not set(last["metrics"]) & DEVICE_METRICS
     assert "breakdown" not in last and "busy_s" not in last["device"]
+    traffic = cells.load_cell(root, cells.load_benchmark(root), cell).traffic
+    assert ("iters_gap" in last["checks"]) == traffic["iteration_reference"]
     if trace:
+        assert last["attempted"] == traffic["trace_solves"]
         assert any(m.startswith("solver.iterations") for m in last["metrics"])
     else:
         assert "setup_s" in last["metrics"]
